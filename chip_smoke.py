@@ -14,12 +14,19 @@ Phases (any failure exits non-zero without the final result line):
              the card.  Kernel launch counts are zeroed just before and read
              just after; every kernel of the path must have launched.  The
              output mesh is read back and checked: conforming adjacency, no
-             live tet of volume <= 0, qmin > 0.
-3. kernels - each kernel against its plain PyTorch version on the card, on
+             live tet of volume <= 0, qmin > 0, tet count within 2% of the
+             JAX CLI's 111,116 on this input.
+3. repeat  - the main path twice more: once as it is, once with the sort
+             engine's wrappers (radix_sort, merge_prefix, segment_flags)
+             swapped for their plain versions.  Both must write the same
+             bytes (.mesh and .sol) as phase 2's run.
+4. kernels - each kernel against its plain PyTorch version on the card, on
              the output mesh of phase 2 (the capacities the main path
              reached), with its tolerance; median CUDA-event times of the
-             kernel and the plain version; the least time the card could
+             kernel, the plain version and, where one PyTorch call computes
+             the same function, that call; the least time the card could
              take (bytes / 3.35 TB/s, operations / 67 TFLOP/s float32).
+5. profile - the main path once more under torch.profiler.
 
 The last two lines are one JSON object with the kernel table and one JSON
 object ``{"ok": true, "device": {...}}``.
@@ -38,6 +45,7 @@ import traceback
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory
 F32_OPS_PER_S = 67e12               # H100 SXM float32 outside tensor cores
+JAX_CLI_NTETS = {16: 111116}        # tools/jax_cli_reference.py 16 (CPU)
 
 
 def _card_line() -> str:
@@ -67,27 +75,28 @@ def _time_ms(fn, reps: int = 20) -> float:
     return times[len(times) // 2]
 
 
-def _device_ms(fn, kernel: str, reps: int = 20):
-    """Mean device time of the CUDA kernels whose name contains
-    ``kernel`` over ``reps`` calls, from torch.profiler; None when the
-    profiler records no device time."""
+def _device_ms(fn, kernels, reps: int = 20):
+    """Device time per call of ``fn``: the CUDA kernels whose name contains
+    one of ``kernels`` (a string or a tuple), summed over ``reps`` calls
+    under torch.profiler and divided by ``reps``; None when the profiler
+    records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    names = (kernels,) if isinstance(kernels, str) else tuple(kernels)
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    tot, cnt = 0.0, 0
+    tot = 0.0
     for ev in prof.key_averages():
-        if kernel in ev.key:
+        if any(k in ev.key for k in names):
             t = getattr(ev, "device_time_total", None)
             if t is None:
                 t = getattr(ev, "cuda_time_total", 0.0)
             tot += t
-            cnt += ev.count
-    return tot / cnt / 1e3 if cnt and tot > 0 else None
+    return tot / reps / 1e3 if tot > 0 else None
 
 
 def _bound(nbytes: float, nops: float):
@@ -107,7 +116,6 @@ def phase_build():
 def phase_main(workdir: str, n: int = 16, device: str = "cuda"):
     import numpy as np
     import torch
-    from parmmg_tpu_torch import cli
     from parmmg_tpu_torch.core.mesh import make_mesh, tet_volumes
     from parmmg_tpu_torch.io.medit import (MeditMesh, SOL_SCALAR,
                                            read_mesh, write_mesh, write_sol)
@@ -141,30 +149,11 @@ def phase_main(workdir: str, n: int = 16, device: str = "cuda"):
             return _fn(*a, **k)
         wrapped[name] = fn
         setattr(kernels, name, rec_shape)
-    kernels.reset_launches()
-    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    sync()
-    t0 = time.perf_counter()
-    buf = io.StringIO()
     try:
-        with contextlib.redirect_stdout(buf):
-            rc = cli.main(["-in", src, "-sol",
-                           os.path.join(workdir, "cube16.sol"), "-out", out,
-                           "-niter", "1", "-v", "1", "-bench-json",
-                           "-device", device])
-        sync()
+        launches, rec, wall = _run_main(workdir, out, device)
     finally:
         for name, fn in wrapped.items():
             setattr(kernels, name, fn)
-    wall = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    log = buf.getvalue()
-    with open(os.path.join(workdir, "main_path.log"), "w") as f:
-        f.write(log)
-    if rc != 0:
-        raise RuntimeError(f"cli.main returned {rc}:\n{log[-2000:]}")
-    rec = json.loads([ln for ln in log.splitlines()
-                      if ln.startswith("{")][-1])
     mo = read_mesh(out)
     dev = torch.device(device)
     mesh = build_adjacency(make_mesh(mo.vert, mo.tetra, device=dev))
@@ -187,7 +176,104 @@ def phase_main(workdir: str, n: int = 16, device: str = "cuda"):
           f"qmean {qmean:.6f}")
     print(f"[main] launches {launches}; largest capP {shapes['capP']} "
           f"capT {shapes['capT']}")
+    ref = JAX_CLI_NTETS.get(n)
+    if ref is not None and abs(rec["ntets"] - ref) > 0.02 * ref:
+        raise RuntimeError(f"{rec['ntets']} tets: not within 2% of the JAX "
+                           f"CLI's {ref} on this input")
     return launches, shapes
+
+
+def _run_main(workdir: str, out: str, device: str = "cuda"):
+    """The main path once (written by phase_main's inputs to ``out``),
+    launch counts zeroed just before and read just after.  Returns
+    (launches, the -bench-json record, wall seconds)."""
+    import torch
+    from parmmg_tpu_torch import cli
+    from parmmg_tpu_torch.ops import kernels
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    kernels.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["-in", os.path.join(workdir, "cube16.mesh"), "-sol",
+                       os.path.join(workdir, "cube16.sol"), "-out", out,
+                       "-niter", "1", "-v", "1", "-bench-json",
+                       "-device", device])
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    log = buf.getvalue()
+    with open(out + ".log", "w") as f:
+        f.write(log)
+    if rc != 0:
+        raise RuntimeError(f"cli.main returned {rc}:\n{log[-2000:]}")
+    rec = json.loads([ln for ln in log.splitlines()
+                      if ln.startswith("{")][-1])
+    return launches, rec, wall
+
+
+def _same_bytes(a: str, b: str):
+    """Raise with the first differing line unless files a and b are
+    byte-identical."""
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        la, lb = fa.read().splitlines(), fb.read().splitlines()
+    if la == lb:
+        return
+    for i, (x, y) in enumerate(zip(la, lb)):
+        if x != y:
+            raise RuntimeError(f"{b} differs from {a} at line {i + 1}: "
+                               f"{x[:80]!r} != {y[:80]!r}")
+    raise RuntimeError(f"{b} differs from {a}: {len(lb)} lines, not "
+                       f"{len(la)}")
+
+
+def phase_repeat(workdir: str, device: str = "cuda"):
+    """Run the main path again as it is, then with the sort engine's
+    wrappers swapped for their plain versions; both outputs must be
+    byte-identical to phase_main's."""
+    from parmmg_tpu_torch.ops import kernels
+    ref = os.path.join(workdir, "cube16.o")
+    launches, rec, wall = _run_main(
+        workdir, os.path.join(workdir, "cube16.r2.mesh"), device)
+    for ext in (".mesh", ".sol"):
+        _same_bytes(ref + ext, os.path.join(workdir, "cube16.r2" + ext))
+    print(f"[repeat] second run: {rec['ntets']} tets, wall {wall:.3f} s, "
+          f"byte-identical .mesh and .sol")
+    names = ("radix_sort", "merge_prefix", "segment_flags")
+    saved = {n: getattr(kernels, n) for n in names}
+    for n in names:
+        setattr(kernels, n, getattr(kernels, n + "_plain"))
+    try:
+        launches, rec, wall = _run_main(
+            workdir, os.path.join(workdir, "cube16.plain.mesh"), device)
+    finally:
+        for n, fn in saved.items():
+            setattr(kernels, n, fn)
+    if any(launches[n] for n in names):
+        raise RuntimeError(f"plain run launched sort kernels: {launches}")
+    for ext in (".mesh", ".sol"):
+        _same_bytes(ref + ext, os.path.join(workdir, "cube16.plain" + ext))
+    print(f"[repeat] sort engine swapped for its plain versions: "
+          f"{rec['ntets']} tets, wall {wall:.3f} s, byte-identical .mesh "
+          f"and .sol")
+    # what the fixed-order float sums cost: the same run with them swapped
+    # for scatter_reduce's atomics (timing only: its bytes may differ)
+    from parmmg_tpu_torch.ops import primitives
+    fixed = primitives.fixed_order_sum
+
+    def atomic_sum(dst, ix, vals):
+        if dst.dim() > 1:
+            ix = ix.view((-1,) + (1,) * (dst.dim() - 1)).expand_as(vals)
+        return dst.scatter_reduce(0, ix, vals, "sum", include_self=True)
+    primitives.fixed_order_sum = atomic_sum
+    try:
+        _, rec, wall = _run_main(
+            workdir, os.path.join(workdir, "cube16.atomic.mesh"), device)
+    finally:
+        primitives.fixed_order_sum = fixed
+    print(f"[repeat] float sums by scatter_reduce atomics instead (timing "
+          f"only): {rec['ntets']} tets, wall {wall:.3f} s")
 
 
 def phase_profile(workdir: str):
@@ -224,10 +310,11 @@ def phase_profile(workdir: str):
 
 def phase_kernels(launches, shapes, workdir: str):
     import torch
-    from parmmg_tpu_torch.core.mesh import make_mesh
+    from parmmg_tpu_torch.core.constants import INT32_MAX
+    from parmmg_tpu_torch.core.mesh import make_mesh, tet_edge_vertices
     from parmmg_tpu_torch.io.medit import read_mesh, read_sol
     from parmmg_tpu_torch.ops import kernels as K
-    from parmmg_tpu_torch.ops.adjacency import build_adjacency
+    from parmmg_tpu_torch.ops.adjacency import _face_keys, build_adjacency
     from parmmg_tpu_torch.ops.edges import unique_edges, wave_budget
 
     dev = torch.device("cuda")
@@ -260,19 +347,22 @@ def phase_kernels(launches, shapes, workdir: str):
                                f"version (max abs err {err})")
         return err
 
-    def row(name, src, line, err, ms, plain_ms, nbytes, nops, fn, kern):
+    def row(name, src, line, err, ms, plain_ms, nbytes, nops, fn, kern,
+            library_ms=None, shape=""):
         b, by = _bound(nbytes, nops)
         dev_ms = _device_ms(fn, kern)
-        rows.append({"name": name, "route": "cuda",
-                     "source": f"parmmg_tpu_torch/csrc/{src}",
-                     "replaces": f"parmmg_tpu/ops/pallas_kernels.py:{line}",
-                     "launches": int(launches[name]), "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
-                     "bound_by": by, "library_ms": None,
-                     "device_ms": dev_ms})
-        print(f"[kernel] {name}: max_abs_err {err:.3g} ms {ms:.4f} (device "
-              f"{dev_ms}) plain {plain_ms:.4f} bound {b:.4f} ({by}) "
-              f"main-path launches {launches[name]}")
+        r = {"name": name, "route": "cuda",
+             "source": f"parmmg_tpu_torch/csrc/{src}",
+             "replaces": f"parmmg_tpu/ops/pallas_kernels.py:{line}",
+             "launches": int(launches[name]), "max_abs_err": err,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
+             "bound_by": by, "library_ms": library_ms,
+             "device_ms": dev_ms}
+        lib = "-" if library_ms is None else f"{library_ms:.4f}"
+        print(f"[kernel] {name}{shape}: max_abs_err {err:.3g} ms {ms:.4f} "
+              f"(device {dev_ms}) plain {plain_ms:.4f} bound {b:.4f} ({by}) "
+              f"library {lib} main-path launches {launches[name]}")
+        return r
 
     # K1 edge length, over the unique-edge table of the output mesh
     ev = et.ev.contiguous()
@@ -280,11 +370,11 @@ def phase_kernels(launches, shapes, workdir: str):
     ref = K.edge_lengths_iso_plain(mesh.vert, met, ev)
     fin = et.emask
     err = check("edge_lengths_iso", got[fin], ref[fin], 2e-5, 2e-6)
-    row("edge_lengths_iso", "edge_length_iso.cu", 134, err,
+    rows.append(row("edge_lengths_iso", "edge_length_iso.cu", 134, err,
         _time_ms(lambda: K.edge_lengths_iso(mesh.vert, met, ev)),
         _time_ms(lambda: K.edge_lengths_iso_plain(mesh.vert, met, ev)),
         16 * capP + 12 * capE, 20 * capE,
-        lambda: K.edge_lengths_iso(mesh.vert, met, ev), "edge_length_iso")
+        lambda: K.edge_lengths_iso(mesh.vert, met, ev), "edge_length_iso"))
 
     # K3 score + count: the split wave's cut (long edges, -lens)
     cand = (et.emask & (got > 1.0)).contiguous()
@@ -292,11 +382,11 @@ def phase_kernels(launches, shapes, workdir: str):
     g = K.score_count(cand, neg)
     r = K.score_count_plain(cand, neg)
     err = check("score_count", g, r, 0, 0, exact=True)
-    row("score_count", "score_count.cu", 231, err,
+    rows.append(row("score_count", "score_count.cu", 231, err,
         _time_ms(lambda: K.score_count(cand, neg)),
         _time_ms(lambda: K.score_count_plain(cand, neg)),
         9 * capE + 4, 2 * capE, lambda: K.score_count(cand, neg),
-        "score_kernel")
+        "score_kernel"))
 
     # K4 score3 + count: the edge-swap cut over three shell qualities
     q = K.tet_quality(mesh.vert, mesh.tet, mesh.tmask)
@@ -308,22 +398,22 @@ def phase_kernels(launches, shapes, workdir: str):
     g = K.score3_count(c3, v0, v1, v2)
     r = K.score3_count_plain(c3, v0, v1, v2)
     err = check("score3_count", g, r, 0, 0, exact=True)
-    row("score3_count", "score_count.cu", 253, err,
+    rows.append(row("score3_count", "score_count.cu", 253, err,
         _time_ms(lambda: K.score3_count(c3, v0, v1, v2)),
         _time_ms(lambda: K.score3_count_plain(c3, v0, v1, v2)),
         17 * capE + 4, 4 * capE, lambda: K.score3_count(c3, v0, v1, v2),
-        "score_kernel")
+        "score_kernel"))
 
     # K6 tet quality: iso (the main path's mode) and aniso
     tv, tm = mesh.tet, mesh.tmask
     got = K.tet_quality(mesh.vert, tv, tm)
     ref = K.tet_quality_plain(mesh.vert, tv, tm)
     err = check("tet_quality", got, ref, 3e-5, 3e-6)
-    row("tet_quality", "tet_quality.cu", 379, err,
+    rows.append(row("tet_quality", "tet_quality.cu", 379, err,
         _time_ms(lambda: K.tet_quality(mesh.vert, tv, tm)),
         _time_ms(lambda: K.tet_quality_plain(mesh.vert, tv, tm)),
         12 * capP + 21 * capT, 70 * capT,
-        lambda: K.tet_quality(mesh.vert, tv, tm), "tet_quality_kernel")
+        lambda: K.tet_quality(mesh.vert, tv, tm), "tet_quality_kernel"))
     w = 1.0 / met.clamp(min=1e-30) ** 2
     off = 0.2 * w[:, None] * (torch.rand((capP, 3), generator=gen,
                                          device=dev) - 0.5)
@@ -337,6 +427,101 @@ def phase_kernels(launches, shapes, workdir: str):
     print(f"[kernel] tet_quality aniso mode: max_abs_err {err_a:.3g} ms "
           f"{ms_a:.4f} plain {pms_a:.4f} bound "
           f"{_bound(36 * capP + 21 * capT, 160 * capT)[0]:.4f} (bytes)")
+    # K7 radix sort: the packed edge keys [6*capT] (1 word, 4 passes) and
+    # the packed face keys [4*capT] (nbits (16, 32), 6 passes), as the
+    # sort sites build them; exact against the plain stable-sort chain
+    ev6 = tet_edge_vertices(mesh.tet).reshape(-1, 2)
+    ekey = torch.where(mesh.tmask.repeat_interleave(6),
+                       ev6.min(1).values * capP + ev6.max(1).values,
+                       INT32_MAX).to(torch.int32)
+    cols = _face_keys(mesh)
+    f0 = cols[:, 0].contiguous()
+    fw = torch.where(f0 == INT32_MAX, INT32_MAX,
+                     cols[:, 1] * capP + cols[:, 2]).to(torch.int32)
+    n6, n4 = ekey.shape[0], f0.shape[0]
+    order = K.radix_sort((ekey,))
+    err = check("radix_sort", [order], [K.radix_sort_plain((ekey,))], 0, 0,
+                exact=True)
+    lib = _time_ms(lambda: torch.sort(ekey, stable=True))
+    radix = ("radix_", "prefix_")
+    rows.append(row(
+        "radix_sort", "radix_sort.cu", 434, err,
+        _time_ms(lambda: K.radix_sort((ekey,))),
+        _time_ms(lambda: K.radix_sort_plain((ekey,))), 8 * n6, 0,
+        lambda: K.radix_sort((ekey,)), radix, library_ms=lib,
+        shape=f" [edge keys {n6}]"))
+    fnb = (16, 32)
+    err = check("radix_sort faces", [K.radix_sort((f0, fw), fnb)],
+                [K.radix_sort_plain((f0, fw), fnb)], 0, 0, exact=True)
+    face = row("radix_sort", "radix_sort.cu", 434, err,
+               _time_ms(lambda: K.radix_sort((f0, fw), fnb)),
+               _time_ms(lambda: K.radix_sort_plain((f0, fw), fnb)),
+               12 * n4, 0, lambda: K.radix_sort((f0, fw), fnb), radix,
+               shape=f" [face keys {n4}, nbits (16, 32)]")
+    rows[-1]["face_keys"] = {k: face[k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "device_ms")}
+
+    # K5 prefix sum: one pass's digit histogram (digit-major, block-minor,
+    # as inside K7) and a [6*capT] flag vector
+    tile = K._tile("pm_radix_tile")
+    nb = -(-n6 // tile)
+    digit = (ekey.long() & 0xFF) * nb + torch.arange(n6, device=dev) // tile
+    hist = torch.bincount(digit, minlength=256 * nb).to(torch.int32)
+    ks = ekey[order.long()]
+    flags = K.segment_flags_plain((ks,)).to(torch.int32)
+    errs = [check("merge_prefix", [K.merge_prefix(x)],
+                  [K.merge_prefix_plain(x)], 0, 0, exact=True)
+            for x in (hist, flags)]
+    nh = hist.shape[0]
+    rows.append(row(
+        "merge_prefix", "merge_prefix.cu", 358, errs[0],
+        _time_ms(lambda: K.merge_prefix(hist)),
+        _time_ms(lambda: K.merge_prefix_plain(hist)), 8 * nh, nh,
+        lambda: K.merge_prefix(hist), "prefix_",
+        library_ms=_time_ms(lambda: torch.cumsum(hist, 0,
+                                                 dtype=torch.int32)),
+        shape=f" [histogram {nh}]"))
+    fl = row("merge_prefix", "merge_prefix.cu", 358, errs[1],
+             _time_ms(lambda: K.merge_prefix(flags)),
+             _time_ms(lambda: K.merge_prefix_plain(flags)), 8 * n6, n6,
+             lambda: K.merge_prefix(flags), "prefix_",
+             library_ms=_time_ms(lambda: torch.cumsum(flags, 0,
+                                                      dtype=torch.int32)),
+             shape=f" [flags {n6}]")
+    rows[-1]["flags_6capT"] = {k: fl[k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "device_ms")}
+
+    # K8 segment flags over the sorted edge keys (no single library call)
+    err = check("segment_flags", [K.segment_flags((ks,))],
+                [K.segment_flags_plain((ks,))], 0, 0, exact=True)
+    rows.append(row(
+        "segment_flags", "segment_flags.cu", 520, err,
+        _time_ms(lambda: K.segment_flags((ks,))),
+        _time_ms(lambda: K.segment_flags_plain((ks,))), 5 * n6, n6,
+        lambda: K.segment_flags((ks,)), "segment_flags_kernel",
+        shape=f" [sorted edge keys {n6}]"))
+    # the fixed-order float sum at smooth_wave's most common shape (tet
+    # corners -> vertices, 4 columns), against scatter_reduce's atomics
+    from parmmg_tpu_torch.ops.primitives import fixed_order_sum
+    idx4 = torch.where(mesh.tmask[:, None], mesh.tet, capP).T.reshape(-1)
+    idx4 = idx4.long()
+    pay4 = torch.rand((4 * capT, 4), generator=gen, device=dev)
+    acc0 = torch.zeros((capP + 1, 4), device=dev)
+    ix4 = idx4[:, None].expand_as(pay4)
+
+    def atomics():
+        return acc0.scatter_reduce(0, ix4, pay4, "sum")
+    fx, at = fixed_order_sum(acc0, idx4, pay4), atomics()
+    rel = float(((fx - at).abs() / at.abs().clamp(min=1e-30)).max())
+    print(f"[sum] fixed_order_sum [{4 * capT} x 4 -> {capP + 1}]: ms "
+          f"{_time_ms(lambda: fixed_order_sum(acc0, idx4, pay4)):.4f} "
+          f"scatter_reduce atomics ms {_time_ms(atomics):.4f} max rel "
+          f"diff {rel:.3g}")
+    order_k = ("edge_lengths_iso", "score_count", "score3_count",
+               "merge_prefix", "tet_quality", "radix_sort", "segment_flags")
+    rows.sort(key=lambda r: order_k.index(r["name"]))
     print(f"[kernel] shapes capP {capP} capT {capT} capE {capE} "
           f"(wave budget K {wave_budget(capT)})")
     return rows
@@ -366,6 +551,7 @@ def main() -> int:
         if missing:
             raise RuntimeError(f"kernels never launched on the main path: "
                                f"{missing} ({launches})")
+        phase_repeat(workdir)
         rows = phase_kernels(launches, shapes, workdir)
         phase_profile(workdir)
     except Exception:

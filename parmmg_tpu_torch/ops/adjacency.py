@@ -1,14 +1,17 @@
 """Tet-tet adjacency and boundary detection by face sort (port of
 ``ops/adjacency.py``): all 4*capT faces become sorted vertex triples,
-twins are neighbours in sorted order."""
+twins are neighbours in sorted order.  The face sort and the twin compare
+run on the sort engine (K7 ``radix_sort``, K8 ``segment_flags``), as the
+JAX package runs them on the TPU."""
 from __future__ import annotations
 
 import torch
 
 from ..core.constants import FACE_EDGES, IDIR, INT32_MAX, MG_BDY
 from ..core.mesh import Mesh, replace, tet_face_vertices
-from .edges import PACK_LIMIT, segment_first
-from .primitives import lexsort, reduce_drop
+from . import kernels
+from .edges import PACK_LIMIT
+from .primitives import reduce_drop
 
 
 def _face_keys(mesh: Mesh):
@@ -21,53 +24,77 @@ def _face_keys(mesh: Mesh):
 
 
 def face_sort(mesh: Mesh):
-    """Sorted-order face records ``(t, f, partner, matched, valid_s)``."""
-    capT = mesh.capT
+    """Sorted-order face records ``(t, f, partner, matched, valid_s)``:
+    per sorted slot the tet, its local face, the sorted index of the twin
+    (self if unmatched), whether a twin exists, whether the tet is live.
+    Shared by ``build_adjacency`` and swap23's face-sort pairing."""
     cols = _face_keys(mesh)
+    c0 = cols[:, 0].contiguous()
     if mesh.capP <= PACK_LIMIT:
-        invalid = cols[:, 0] == INT32_MAX
-        w = torch.where(invalid, torch.full_like(cols[:, 0], INT32_MAX),
+        # two minor vertices packed into one word; the major vertex id is
+        # below capP <= PACK_LIMIT < 2^16, so it sorts in 2 digit passes
+        w = torch.where(c0 == INT32_MAX, torch.full_like(c0, INT32_MAX),
                         cols[:, 1] * mesh.capP + cols[:, 2])
-        order = lexsort(cols[:, 0], w)
-        k = torch.stack([cols[order, 0], w[order]], dim=1)
-    else:
-        order = lexsort(cols[:, 0], cols[:, 1], cols[:, 2])
-        k = cols[order]
+        order = kernels.radix_sort((c0, w), nbits=(16, 32)).long()
+        return face_records_from_sorted(mesh, order, c0[order], w[order])
+    c1, c2 = cols[:, 1].contiguous(), cols[:, 2].contiguous()
+    order = kernels.radix_sort((c0, c1, c2)).long()
+    return face_records_from_sorted(mesh, order, c0[order], c1[order],
+                                    c2[order])
+
+
+def face_records_from_sorted(mesh: Mesh, order, *keys):
+    """``face_sort``'s records from a precomputed face sort: ``order`` the
+    stable permutation of the 4*capT face slots (tet-major), ``keys`` the
+    ascending key columns (major first)."""
     order = order.to(torch.int32)
     t = torch.div(order, 4, rounding_mode="floor")
     f = order % 4
-    return _pair_records(capT, k, t, f)
+    return _pair_records(mesh.capT, keys, t, f)
 
 
-def _pair_records(capT: int, k, t, f):
+def _pair_records(capT: int, keys, t, f):
     """Twin pairing over sorted face keys: matched twins are adjacent."""
-    first = segment_first(*[k[:, j] for j in range(k.shape[1])])
-    eq_next = ~first[1:] & (k[:-1, 0] != INT32_MAX)
-    false1 = torch.zeros(1, dtype=torch.bool, device=k.device)
+    first = kernels.segment_flags(keys)
+    eq_next = ~first[1:] & (keys[0][:-1] != INT32_MAX)
+    false1 = torch.zeros(1, dtype=torch.bool, device=t.device)
     same_next = torch.cat([eq_next, false1])
     same_prev = torch.cat([false1, eq_next])
-    idx = torch.arange(capT * 4, dtype=torch.int32, device=k.device)
+    idx = torch.arange(capT * 4, dtype=torch.int32, device=t.device)
     partner = torch.where(same_next, idx + 1,
                           torch.where(same_prev, idx - 1, idx))
     matched = same_next | same_prev
-    valid_s = k[:, 0] != INT32_MAX
+    valid_s = keys[0] != INT32_MAX
     return t, f, partner, matched, valid_s
 
 
-def build_adjacency(mesh: Mesh) -> Mesh:
+def bdy_tags_from_sort(mesh: Mesh, t, f, matched, valid_s) -> Mesh:
+    """``build_adjacency``'s MG_BDY face tagging straight off the face
+    sort records: a live unmatched slot is a boundary face."""
+    hit = torch.zeros((mesh.capT, 4), dtype=torch.bool, device=mesh.device)
+    hit[t.long(), f.long()] = valid_s & ~matched   # (t, f) is a permutation
+    return replace(mesh, ftag=torch.where(hit, mesh.ftag | MG_BDY, mesh.ftag))
+
+
+def build_adjacency(mesh: Mesh, set_bdy_tags: bool = True) -> Mesh:
     """``adja[t,f] = 4*t' + f'`` for every matched face, -1 otherwise;
-    unmatched faces of live tets get MG_BDY."""
+    with ``set_bdy_tags`` unmatched faces of live tets get MG_BDY."""
     t, f, partner, matched, _ = face_sort(mesh)
-    return adjacency_from_records(mesh, t, f, partner, matched)
+    return adjacency_from_records(mesh, t, f, partner, matched,
+                                  set_bdy_tags=set_bdy_tags)
 
 
-def adjacency_from_records(mesh: Mesh, t, f, partner, matched) -> Mesh:
+def adjacency_from_records(mesh: Mesh, t, f, partner, matched,
+                           set_bdy_tags: bool = True) -> Mesh:
+    """``build_adjacency``'s scatter epilogue from face-sort records."""
     p = partner.long()
     adj_val = torch.where(matched, 4 * t[p] + f[p], torch.full_like(t, -1))
     adja = torch.full((mesh.capT, 4), -1, dtype=torch.int32,
                       device=mesh.device)
     adja[t.long(), f.long()] = adj_val          # (t, f) is a permutation
     adja = torch.where(mesh.tmask[:, None], adja, torch.full_like(adja, -1))
+    if not set_bdy_tags:
+        return replace(mesh, adja=adja)
     is_bdy = (adja < 0) & mesh.tmask[:, None]
     ftag = torch.where(is_bdy, mesh.ftag | MG_BDY, mesh.ftag)
     return replace(mesh, adja=adja, ftag=ftag)

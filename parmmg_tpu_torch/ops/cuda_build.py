@@ -19,7 +19,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG.parent / "build"
-SOURCES = ("edge_length_iso", "score_count", "tet_quality")
+SOURCES = ("edge_length_iso", "score_count", "tet_quality", "merge_prefix",
+           "radix_sort", "segment_flags")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -42,9 +43,13 @@ def _lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """The library is missing or older than its source or any shared
+    header of ``csrc/``."""
     lib = _lib_path(name)
-    src = CSRC / f"{name}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    deps = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(d.stat().st_mtime for d in deps)
 
 
 def build_all(names=SOURCES, verbose: bool = False) -> float:

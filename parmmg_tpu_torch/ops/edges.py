@@ -2,12 +2,11 @@
 ``ops/edges.py``).
 
 All 6*capT tet edges are sorted by (min vid, max vid); the first slot of
-each key segment is the unique edge.  Sorts are stable
-``torch.sort``s (the JAX package's CPU path runs the stable jnp
-argsort/lexsort reference; the radix engine that replaces them on the TPU
-is not yet ported).  ``edge_lengths`` (K1) and ``topk_prep`` /
-``topk_prep3`` (K3 / K4) dispatch to the CUDA kernels of
-``ops/kernels.py``.
+each key segment is the unique edge.  The sorts and segment heads run on
+the sort engine as the JAX package runs them on the TPU: ``radix_sort``
+(K7, with K5 inside) and ``segment_flags`` (K8).  ``edge_lengths`` (K1)
+and ``topk_prep`` / ``topk_prep3`` (K3 / K4) dispatch to the CUDA kernels
+of ``ops/kernels.py`` too.
 """
 from __future__ import annotations
 
@@ -18,8 +17,7 @@ import torch
 from ..core.constants import INT32_MAX, INT32_MIN
 from ..core.mesh import Mesh, tet_edge_vertices
 from . import kernels
-from .primitives import (argsort, lexsort, nonzero_pad, reduce_drop,
-                         seg_scan, set_drop)
+from .primitives import nonzero_pad, reduce_drop, seg_scan, set_drop
 
 PACK_LIMIT = 46340     # floor(sqrt(2^31)): a*capP+b stays in int32
 PRI_MIN = INT32_MIN    # tie-channel sentinel (< every hash)
@@ -38,37 +36,25 @@ def free_rows(mask: torch.Tensor, K: int):
     return nonzero_pad(~mask, K, cap), (~mask).sum(dtype=torch.int32)
 
 
-def segment_first(*cols) -> torch.Tensor:
-    """Segment-start flags over sorted columns."""
-    first = torch.ones(cols[0].shape[0], dtype=torch.bool,
-                       device=cols[0].device)
-    if cols[0].shape[0] > 1:
-        neq = cols[0][1:] != cols[0][:-1]
-        for c in cols[1:]:
-            neq = neq | (c[1:] != c[:-1])
-        first[1:] = neq
-    return first
-
-
 def sort_pairs(a, b, valid, capP: int):
     """Sort (a, b) id pairs ascending, invalid slots last.  Returns
-    (order, ka, kb, first) like the JAX package (packed single-key sort
-    when capP <= PACK_LIMIT, two-key lexsort otherwise)."""
+    (order [n] int64, ka, kb, first) like the JAX package: one packed
+    key when capP <= PACK_LIMIT, two key words otherwise."""
     big = torch.full_like(a, INT32_MAX)
     if capP <= PACK_LIMIT:
-        key = torch.where(valid, a * capP + b, big)
-        order = argsort(key)
+        key = torch.where(valid, a * capP + b, big).to(torch.int32)
+        order = kernels.radix_sort((key,)).long()
         ks = key[order]
-        first = segment_first(ks)
+        first = kernels.segment_flags((ks,))
         inv = ks == INT32_MAX
         ka = torch.where(inv, big, torch.div(ks, capP, rounding_mode="floor"))
         kb = torch.where(inv, big, ks % capP)
         return order, ka, kb, first
-    aa = torch.where(valid, a, big)
-    bb = torch.where(valid, b, big)
-    order = lexsort(aa, bb)
+    aa = torch.where(valid, a, big).to(torch.int32)
+    bb = torch.where(valid, b, big).to(torch.int32)
+    order = kernels.radix_sort((aa, bb)).long()
     ka, kb = aa[order], bb[order]
-    return order, ka, kb, segment_first(ka, kb)
+    return order, ka, kb, kernels.segment_flags((ka, kb))
 
 
 def segmented_or(first, values):
@@ -103,6 +89,21 @@ def unique_edges(mesh: Mesh, shell_slots: int = 3) -> EdgeTable:
     valid = mesh.tmask.repeat_interleave(6)
     order, ka, kb, first = sort_pairs(a, b, valid, mesh.capP)
     return _edges_epilogue(mesh, order, ka, kb, first, shell_slots)
+
+
+def unique_edges_from_sorted(mesh: Mesh, order, ks,
+                             shell_slots: int = 0) -> EdgeTable:
+    """EdgeTable from a precomputed packed edge sort: ``order`` the
+    stable permutation of the 6*capT slot keys, ``ks`` the ascending
+    packed keys (a*capP+b, INT32_MAX on invalid slots), as
+    ``sort_pairs``' packed branch gives them.  Needs capP <= PACK_LIMIT."""
+    ks = ks.to(torch.int32).contiguous()
+    first = kernels.segment_flags((ks,))
+    inv = ks == INT32_MAX
+    big = torch.full_like(ks, INT32_MAX)
+    ka = torch.where(inv, big, torch.div(ks, mesh.capP, rounding_mode="floor"))
+    kb = torch.where(inv, big, ks % mesh.capP)
+    return _edges_epilogue(mesh, order.long(), ka, kb, first, shell_slots)
 
 
 def _edges_epilogue(mesh: Mesh, order, ka, kb, first,
@@ -173,6 +174,25 @@ def topk_prep3(cand, v0, v1, v2):
     """``topk_prep`` of ``min(v0, min(v1, v2))`` (K4 kernel)."""
     return kernels.score3_count(cand, v0.contiguous(), v1.contiguous(),
                                 v2.contiguous())
+
+
+def unique_priority(score: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Unique int32 priority per slot (higher = better score), ties
+    broken by sort rank; masked slots get 0 (the JAX package keeps it for
+    reference and tests; the waves use the two-channel claims)."""
+    n = score.shape[0]
+    neg = torch.where(mask, -score, torch.full_like(score, float("inf")))
+    order = priority_order(neg)
+    rank = torch.zeros(n, dtype=torch.int32, device=score.device)
+    rank[order.long()] = torch.arange(n, dtype=torch.int32,
+                                      device=score.device)
+    return torch.where(mask, n - rank, torch.zeros_like(rank))
+
+
+def priority_order(neg: torch.Tensor) -> torch.Tensor:
+    """Stable ascending argsort of a float32 vector through the radix
+    engine: K7 over the order-preserving uint32 image of the floats."""
+    return kernels.radix_sort((kernels.f32_sort_u32(neg.contiguous()),))
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """The port's hand-written CUDA kernels, their wrappers and plain versions.
 
-Four TPU kernels of ``parmmg_tpu/ops/pallas_kernels.py`` run on this
-slice's main path, each replaced by a CUDA kernel in ``csrc/``:
+Seven TPU kernels of ``parmmg_tpu/ops/pallas_kernels.py`` run on the main
+path, each replaced by a CUDA kernel in ``csrc/``:
 
 =================  ==========================  ===========================
 wrapper            CUDA source                 replaces
@@ -9,8 +9,15 @@ wrapper            CUDA source                 replaces
 edge_lengths_iso   csrc/edge_length_iso.cu     edge_length_iso_pallas (K1)
 score_count        csrc/score_count.cu         score_count_pallas (K3)
 score3_count       csrc/score_count.cu         score3_count_pallas (K4)
+merge_prefix       csrc/merge_prefix.cu        merge_prefix_pallas (K5)
 tet_quality        csrc/tet_quality.cu         quality_pallas (K6)
+radix_sort         csrc/radix_sort.cu          radix_sort_pallas (K7)
+segment_flags      csrc/segment_flags.cu       segment_flags_pallas (K8)
 =================  ==========================  ===========================
+
+``radix_sort`` runs one K5 scan per digit pass from its own C entry point;
+those scans count under ``merge_prefix``.  ``f32_sort_u32`` (the float
+image K7 sorts, no ``pallas_call`` in the JAX package) is plain torch.
 
 A wrapper runs the kernel for CUDA tensors and raises if it cannot
 (missing ``nvcc``, failed build, refused launch); it runs the plain
@@ -24,11 +31,13 @@ import ctypes
 
 import torch
 
+from ..core.constants import INT32_MAX
 from . import cuda_build
 from .quality import edge_length_iso, quality_from_points
 
 LAUNCHES = {"edge_lengths_iso": 0, "score_count": 0, "score3_count": 0,
-            "tet_quality": 0}
+            "tet_quality": 0, "merge_prefix": 0, "radix_sort": 0,
+            "segment_flags": 0}
 
 _P = ctypes.c_void_p
 _SIGS = {
@@ -42,6 +51,17 @@ _SIGS = {
     "pm_tet_quality": ("tet_quality",
                        [_P, _P, _P, _P, _P, ctypes.c_int,
                         ctypes.c_longlong, _P]),
+    "pm_merge_prefix": ("merge_prefix", [_P, _P, _P, ctypes.c_longlong, _P]),
+    "pm_merge_prefix_tile": ("merge_prefix", []),
+    "pm_radix_sort": ("radix_sort",
+                      [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_longlong,
+                       _P]),
+    "pm_radix_tile": ("radix_sort", []),
+    "pm_radix_scan_tile": ("radix_sort", []),
+    "pm_segment_flags": ("segment_flags",
+                         [_P, _P, _P, ctypes.c_int, _P, ctypes.c_longlong,
+                          _P]),
 }
 
 
@@ -205,4 +225,155 @@ def tet_quality(vert, tet, tmask, met6=None):
                 None if met6 is None else met6.data_ptr(),
                 out.data_ptr(), capP, capT, _stream(vert))
         LAUNCHES["tet_quality"] += 1
+    return out
+
+
+def _tile(sym) -> int:
+    """A tile size the CUDA source defines (elements per block)."""
+    return int(_fn(sym)())
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+# ---------------------------------------------------------------------------
+# K5: inclusive int32 prefix sum
+# ---------------------------------------------------------------------------
+def merge_prefix_plain(x):
+    return torch.cumsum(x, 0, dtype=torch.int32)
+
+
+def merge_prefix(x):
+    """Inclusive prefix sum of an int32 vector, wrapping like int32
+    ``cumsum``: [n] -> [n] int32."""
+    _check("x", x, torch.int32)
+    if x.dim() != 1:
+        raise ValueError("x must be 1-D")
+    if not _on_card(x):
+        return merge_prefix_plain(x)
+    n = x.shape[0]
+    out = torch.empty_like(x)
+    if n:
+        totals = torch.empty(_cdiv(n, _tile("pm_merge_prefix_tile")),
+                             dtype=torch.int32, device=x.device)
+        _launch("pm_merge_prefix", x.data_ptr(), out.data_ptr(),
+                totals.data_ptr(), n, _stream(x))
+        LAUNCHES["merge_prefix"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K7: stable LSD radix sort permutation of 1-3 int32 words
+# ---------------------------------------------------------------------------
+def _radix_args(words, nbits):
+    words = tuple(words)
+    if not words:
+        raise ValueError("radix_sort needs at least one key word")
+    n = words[0].shape[0]
+    for j, w in enumerate(words):
+        _check(f"words[{j}]", w, torch.int32, (n,))
+    nbits = (32,) * len(words) if nbits is None else tuple(map(int, nbits))
+    if len(nbits) != len(words) or not all(1 <= b <= 32 for b in nbits):
+        raise ValueError(f"nbits {nbits} must give 1..32 bits per word")
+    return words, nbits, n
+
+
+def _radix_passes(nbits) -> int:
+    """8-bit digit passes of a sort with these per-word bit counts."""
+    return sum(len(range(0, b, 8)) for b in nbits)
+
+
+def radix_sort_plain(words, nbits=None):
+    words, nbits, n = _radix_args(words, nbits)
+    order = torch.arange(n, device=words[0].device)
+    for w, bits in list(zip(words, nbits))[::-1]:     # minor word first
+        k = w.long() & 0xFFFFFFFF                       # uint32 order
+        if bits < 31:
+            k = torch.where(w == INT32_MAX, (1 << bits) - 1, k)
+        order = order[torch.sort(k[order], stable=True).indices]
+    return order.to(torch.int32)
+
+
+def radix_sort(words, nbits=None):
+    """Stable sort permutation [n] int32 of the key whose major word is
+    ``words[0]``; each word orders as uint32.  ``nbits[j]`` bounds word j
+    below 2**nbits[j]; a word with nbits < 31 has its INT32_MAX
+    tombstones remapped to 2**nbits - 1, as ``radix_sort_pallas`` does."""
+    words, nbits, n = _radix_args(words, nbits)
+    if not _on_card(*words):
+        return radix_sort_plain(words, nbits)
+    if len(words) > 3:
+        raise ValueError("the CUDA radix sort takes 1-3 key words")
+    if n >= 2 ** 31:
+        raise ValueError("radix_sort takes fewer than 2**31 rows")
+    dev = words[0].device
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    m = 256 * _cdiv(n, _tile("pm_radix_tile"))
+    tmp = torch.empty(n, dtype=torch.int32, device=dev)
+    hist = torch.empty(m, dtype=torch.int32, device=dev)
+    incl = torch.empty(m, dtype=torch.int32, device=dev)
+    totals = torch.empty(_cdiv(m, _tile("pm_radix_scan_tile")),
+                         dtype=torch.int32, device=dev)
+    ptrs = [w.data_ptr() for w in words] + [None] * (3 - len(words))
+    bits = list(nbits) + [0] * (3 - len(nbits))
+    _launch("pm_radix_sort", *ptrs, len(words), *bits, out.data_ptr(),
+            tmp.data_ptr(), hist.data_ptr(), incl.data_ptr(),
+            totals.data_ptr(), n, _stream(out))
+    LAUNCHES["radix_sort"] += 1
+    LAUNCHES["merge_prefix"] += _radix_passes(nbits)
+    return out
+
+
+def f32_sort_u32(x):
+    """int32 bit pattern of the uint32 image of float32 ``x`` whose
+    unsigned order is the stable float sort's order: -0.0 == +0.0, all
+    NaNs equal and after +inf (``pallas_kernels.f32_sort_u32``)."""
+    x = torch.where(x == 0.0, torch.zeros_like(x), x.to(torch.float32))
+    b = x.view(torch.int32).long() & 0xFFFFFFFF
+    u = torch.where(b >> 31 != 0, b ^ 0xFFFFFFFF, b | 0x80000000)
+    u = torch.where(torch.isnan(x), 0xFFFFFFFF, u)
+    return torch.where(u >= 2 ** 31, u - 2 ** 32, u).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# K8: segment-start flags over sorted columns
+# ---------------------------------------------------------------------------
+def _segment_args(words):
+    words = tuple(words)
+    if not words:
+        raise ValueError("segment_flags needs at least one column")
+    n = words[0].shape[0]
+    for j, w in enumerate(words):
+        _check(f"words[{j}]", w, torch.int32, (n,))
+    return words, n
+
+
+def segment_flags_plain(words):
+    words, n = _segment_args(words)
+    first = torch.ones(n, dtype=torch.bool, device=words[0].device)
+    if n > 1:
+        neq = words[0][1:] != words[0][:-1]
+        for w in words[1:]:
+            neq = neq | (w[1:] != w[:-1])
+        first[1:] = neq
+    return first
+
+
+def segment_flags(words):
+    """[n] bool: True at row 0 and wherever any column differs from the
+    row before (the heads of equal-key runs of sorted columns)."""
+    words, n = _segment_args(words)
+    if not _on_card(*words):
+        return segment_flags_plain(words)
+    if len(words) > 3:
+        raise ValueError("the CUDA segment flags take 1-3 columns")
+    out = torch.empty(n, dtype=torch.bool, device=words[0].device)
+    if n:
+        ptrs = [w.data_ptr() for w in words] + [None] * (3 - len(words))
+        _launch("pm_segment_flags", *ptrs, len(words), out.data_ptr(), n,
+                _stream(out))
+        LAUNCHES["segment_flags"] += 1
     return out

@@ -6,7 +6,9 @@
   ``unique_indices=True``: a duplicate ``index_put_`` on CUDA has no
   defined winner);
 - ``.at[].max/min/add`` -> :func:`reduce_drop` (``scatter_reduce`` with
-  the destination included, exactly like JAX's);
+  the destination included, exactly like JAX's; a float sum on the card
+  goes through :func:`fixed_order_sum`, since CUDA's ``scatter_reduce``
+  adds with atomics in no fixed order);
 - ``jnp.nonzero(m, size=K, fill_value=cap)`` -> :func:`nonzero_pad`;
 - ``jnp.lexsort`` -> :func:`lexsort` (stable sorts chained, minor key
   first); ``jnp.argsort`` -> :func:`argsort` (stable);
@@ -18,6 +20,10 @@
 from __future__ import annotations
 
 import torch
+
+from . import kernels
+
+_SUM_WIDTH = 32        # values added per row of one fixed_order_sum level
 
 
 def _valid(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -55,9 +61,58 @@ def reduce_drop(dst: torch.Tensor, idx: torch.Tensor, vals, reduce: str):
     if dst.dtype == torch.bool:
         out = dst.to(torch.int32)
         return reduce_drop(out, ix, vals.to(torch.int32), reduce).bool()
+    if reduce == "sum" and dst.is_floating_point() and dst.is_cuda:
+        return fixed_order_sum(dst, ix, vals)
     if dst.dim() > 1:
         ix = ix.view((-1,) + (1,) * (dst.dim() - 1)).expand_as(vals)
     return dst.scatter_reduce(0, ix, vals, reduce, include_self=True)
+
+
+def fixed_order_sum(dst: torch.Tensor, idx: torch.Tensor,
+                    vals: torch.Tensor) -> torch.Tensor:
+    """Out-of-place ``dst.at[idx].add(vals)`` (``idx`` in range) whose
+    float bits do not depend on thread scheduling: the same inputs give
+    the same bits on every run.
+
+    The values are stably sorted by destination (K7), each value gets its
+    rank inside its destination's run (``pos - seg_head``, the head found
+    by binary search: a ``cummax`` scan costs ~1 ms a call on the card),
+    and the runs are summed in fixed groups of ``_SUM_WIDTH``: every group
+    is a zero-padded row reduced by a fixed tree of elementwise adds, and
+    a run longer than one group is summed again from its group sums, level
+    by level, until one value per destination is left.  That value is added
+    to ``dst`` once."""
+    out = dst.clone()
+    n = idx.shape[0]
+    if n == 0:
+        return out
+    dev = dst.device
+    v = vals.to(dst.dtype).reshape(n, -1)
+    nbits = max(1, (dst.shape[0] - 1).bit_length())
+    key = idx.to(torch.int32).contiguous()
+    order = kernels.radix_sort((key,), nbits=(min(nbits, 32),)).long()
+    key, v = key[order], v[order]
+    while True:
+        pos = torch.arange(key.shape[0], dtype=torch.int32, device=dev)
+        first = kernels.segment_flags((key,))
+        rank = pos - torch.searchsorted(key, key, out_int32=True)
+        col = (rank % _SUM_WIDTH).long()
+        start = col == 0
+        grp = kernels.merge_prefix(start.to(torch.int32)).long() - 1
+        ngrp, nseg = torch.stack([grp[-1] + 1, first.sum()]).tolist()
+        blk = torch.zeros((ngrp, _SUM_WIDTH, v.shape[1]), dtype=v.dtype,
+                          device=dev)
+        blk[grp, col] = v
+        w = _SUM_WIDTH
+        while w > 1:
+            w //= 2
+            blk = blk[:, :w] + blk[:, w:]
+        key, v = key[start], blk[:, 0]
+        if ngrp == nseg:
+            break
+    k = key.long()
+    out[k] = out[k] + v.reshape((ngrp,) + tuple(dst.shape[1:]))
+    return out
 
 
 def nonzero_pad(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """Batched topology swaps (port of ``ops/swap.py``): the combined 3-2
 interior / 2-2 boundary edge-swap wave and the 2-3 face swap, which pairs
-faces off ``adja`` (the JAX package's CPU configuration; its face-sort
-pairing is bit-identical).  Improvement gate: new worst quality >
-SWAP_GAIN * old worst (Mmg's 1.053)."""
+faces off ``adja`` or, with ``facesort=True`` as the JAX package runs it
+on the TPU, straight off the face sort (bit-identical).  Improvement
+gate: new worst quality > SWAP_GAIN * old worst (Mmg's 1.053)."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -14,9 +14,10 @@ from ..core.constants import (EDGE_FACES, EPSD, IDIR, INT32_MAX, MG_BDY,
                               MG_GEO, MG_NOM, MG_OPNBDY, MG_PARBDY, MG_REF,
                               MG_REQ, QUAL_FLOOR)
 from ..core.mesh import Mesh, replace
-from .edges import (PACK_LIMIT, claim_shells, free_rows, segmented_or,
-                    sort_pairs, topk_prep, topk_prep3, unique_edges,
-                    wave_budget)
+from .adjacency import bdy_tags_from_sort, face_sort
+from .edges import (PACK_LIMIT, claim_shells, free_rows, scatter_argmax2,
+                    segmented_or, sort_pairs, topk_prep, topk_prep3,
+                    unique_edges, wave_budget)
 from .primitives import set_drop, topk_lowest_index
 from .quality import quality_from_points
 
@@ -343,16 +344,53 @@ def _pair_fields_adja(mesh: Mesh, q_tet, capT: int):
     return fstar, nb_s[arT, fstar], nf_s[arT, fstar], own[arT, fstar]
 
 
-def swap23_wave(mesh: Mesh, met: torch.Tensor,
-                budget_div: int = 8) -> SwapResult:
+def _pair_fields_facesort(mesh: Mesh, q_tet, capT: int, set_bdy_tags: bool):
+    """swap23 pairing straight off the face-sort records, with no [capT,4]
+    ``adja``: bit-identical to :func:`_pair_fields_adja` on every row the
+    wave reads (matched twins are the ``adja >= 0`` entries; the
+    two-channel max over (-q_twin, -f) reproduces argmin's first-index
+    tie-break; rows that are no candidate hold 0, and every read of them
+    is masked by ``cand_full``).  With ``set_bdy_tags`` the MG_BDY tagging
+    of the ``build_adjacency`` it replaces is applied from the same sort.
+    Returns (mesh, fstar, t2_full, f2_full, cand_full)."""
+    t, f, partner, matched, valid_s = face_sort(mesh)
+    if set_bdy_tags:
+        mesh = bdy_tags_from_sort(mesh, t, f, matched, valid_s)
+    p = partner.long()
+    tp, fp = t[p], f[p]
+    tl, fl, tpl, fpl = t.long(), f.long(), tp.long(), fp.long()
+    own_s = matched & (t < tp) & (mesh.ftag[tl, fl] == 0) & \
+        (mesh.ftag[tpl, fpl] == 0)
+    is_star, _, _ = scatter_argmax2(t, -q_tet[tpl], -f, own_s, capT)
+    tbl = set_drop(torch.zeros((capT, 3), dtype=torch.int32,
+                               device=mesh.device),
+                   torch.where(is_star, t, torch.full_like(t, capT)),
+                   torch.stack([f, tp, fp], dim=1))
+    cand_full = torch.zeros(capT, dtype=torch.bool, device=mesh.device)
+    cand_full[tl[own_s]] = True
+    return (mesh, tbl[:, 0].long(), tbl[:, 1].long(), tbl[:, 2].long(),
+            cand_full)
+
+
+def swap23_wave(mesh: Mesh, met: torch.Tensor, budget_div: int = 8,
+                facesort: bool = False,
+                set_bdy_tags: bool = True) -> SwapResult:
     """2-to-3 swap: interior faces whose two tets improve as an edge fan
     (T1, T2 sharing (p,q,r) with apexes a, b become (p,q,a,b), (q,r,a,b),
-    (r,p,a,b)); reads ``adja``."""
+    (r,p,a,b)).  Reads ``adja``, or with ``facesort`` pairs the faces off
+    the face sort of ``mesh`` as it stands (``set_bdy_tags`` replays the
+    MG_BDY tagging of the ``build_adjacency`` call that path skips) and
+    leaves ``adja`` stale, as the JAX package does."""
     capT, capP = mesh.capT, mesh.capP
     dev = mesh.device
     inf = float("inf")
     q_tet = quality_from_points(mesh.vert[mesh.tet.long()])
-    fstar, t2_full, f2_full, cand_full = _pair_fields_adja(mesh, q_tet, capT)
+    if facesort:
+        mesh, fstar, t2_full, f2_full, cand_full = _pair_fields_facesort(
+            mesh, q_tet, capT, set_bdy_tags)
+    else:
+        fstar, t2_full, f2_full, cand_full = _pair_fields_adja(mesh, q_tet,
+                                                               capT)
     q_pair = torch.minimum(q_tet, torch.where(cand_full, q_tet[t2_full],
                                               torch.full_like(q_tet, inf)))
     F = min(capT, wave_budget(capT, budget_div))

@@ -165,3 +165,30 @@ def test_cuda_kernels_match_plain_versions():
                       K.score3_count_plain(mask, v, v.flip(0), v.roll(3)))):
         assert torch.equal(got[0], ref[0])
         assert int(got[1]) == int(ref[1])
+    # K7 / K5 / K8: exact, at sizes that span many tiles and a ragged tail
+    n = 300001
+    key = torch.randint(0, 1 << 20, (n,), generator=g, dtype=torch.int32)
+    key[::7] = 2147483647
+    hi = torch.randint(0, 46340, (n,), generator=g, dtype=torch.int32)
+    hi[::5] = 2147483647
+    key, hi = key.to(dev), hi.to(dev)
+    for words, nbits in (((key,), None), ((hi, key), (16, 32)),
+                         ((hi, key, key.flip(0).contiguous()), None)):
+        assert torch.equal(K.radix_sort(words, nbits),
+                           K.radix_sort_plain(words, nbits))
+    x = torch.randint(-9, 100, (n,), generator=g, dtype=torch.int32).to(dev)
+    assert torch.equal(K.merge_prefix(x), K.merge_prefix_plain(x))
+    ks = key[K.radix_sort((key,)).long()]
+    assert torch.equal(K.segment_flags((ks,)), K.segment_flags_plain((ks,)))
+    # the fixed-order float sum: the same bits on every call, close to the
+    # CPU's sequential scatter_reduce
+    from parmmg_tpu_torch.ops.primitives import reduce_drop
+    idx = torch.randint(0, 5001, (n,), generator=g)
+    idx[: n // 3] = 5000
+    vals = torch.rand((n, 3), generator=g)
+    dst = torch.zeros(5001, 3)
+    a = reduce_drop(dst.to(dev), idx.to(dev), vals.to(dev), "sum")
+    b = reduce_drop(dst.to(dev), idx.to(dev), vals.to(dev), "sum")
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    torch.testing.assert_close(a.cpu(), reduce_drop(dst, idx, vals, "sum"),
+                               rtol=1e-4, atol=0)
