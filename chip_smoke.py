@@ -274,6 +274,23 @@ def phase_repeat(workdir: str, device: str = "cuda"):
         primitives.fixed_order_sum = fixed
     print(f"[repeat] float sums by scatter_reduce atomics instead (timing "
           f"only): {rec['ntets']} tets, wall {wall:.3f} s")
+    # PyTorch's deterministic scatter_reduce in place of the fixed-order
+    # sum: twice, the two outputs must repeat byte for byte
+    primitives.fixed_order_sum = primitives.deterministic_scatter_sum
+    try:
+        walls = []
+        for tag in ("det1", "det2"):
+            _, rec, wall = _run_main(
+                workdir, os.path.join(workdir, f"cube16.{tag}.mesh"), device)
+            walls.append(wall)
+    finally:
+        primitives.fixed_order_sum = fixed
+    same = all(open(os.path.join(workdir, "cube16.det1" + e), "rb").read()
+               == open(os.path.join(workdir, "cube16.det2" + e), "rb").read()
+               for e in (".mesh", ".sol"))
+    print(f"[repeat] float sums by deterministic scatter_reduce instead: "
+          f"{rec['ntets']} tets, walls {walls[0]:.3f} s {walls[1]:.3f} s, "
+          f"two runs byte-identical: {same}")
 
 
 def phase_profile(workdir: str):
@@ -509,16 +526,30 @@ def phase_kernels(launches, shapes, workdir: str):
     idx4 = idx4.long()
     pay4 = torch.rand((4 * capT, 4), generator=gen, device=dev)
     acc0 = torch.zeros((capP + 1, 4), device=dev)
-    ix4 = idx4[:, None].expand_as(pay4)
+    from parmmg_tpu_torch.ops.primitives import deterministic_scatter_sum
+    for cols in (4, 1):
+        p, a0 = pay4[:, :cols].squeeze(1), acc0[:, :cols].squeeze(1)
+        ixc = idx4 if cols == 1 else idx4[:, None].expand_as(p)
 
-    def atomics():
-        return acc0.scatter_reduce(0, ix4, pay4, "sum")
-    fx, at = fixed_order_sum(acc0, idx4, pay4), atomics()
-    rel = float(((fx - at).abs() / at.abs().clamp(min=1e-30)).max())
-    print(f"[sum] fixed_order_sum [{4 * capT} x 4 -> {capP + 1}]: ms "
-          f"{_time_ms(lambda: fixed_order_sum(acc0, idx4, pay4)):.4f} "
-          f"scatter_reduce atomics ms {_time_ms(atomics):.4f} max rel "
-          f"diff {rel:.3g}")
+        def atomics():
+            return a0.scatter_reduce(0, ixc, p, "sum")
+        fx, at = fixed_order_sum(a0, idx4, p), atomics()
+        dt = deterministic_scatter_sum(a0, idx4, p)
+        rel = float(((fx - at).abs() / at.abs().clamp(min=1e-30)).max())
+        reld = float(((dt - at).abs() / at.abs().clamp(min=1e-30)).max())
+        rep_f = all(torch.equal(fx.view(torch.int32), fixed_order_sum(
+            a0, idx4, p).view(torch.int32)) for _ in range(10))
+        rep_d = all(torch.equal(dt.view(torch.int32), deterministic_scatter_sum(
+            a0, idx4, p).view(torch.int32)) for _ in range(10))
+        rep_a = all(torch.equal(at.view(torch.int32), atomics().view(
+            torch.int32)) for _ in range(10))
+        print(f"[sum] [{4 * capT} x {cols} -> {capP + 1}] fixed_order_sum ms "
+              f"{_time_ms(lambda: fixed_order_sum(a0, idx4, p)):.4f} "
+              f"deterministic scatter_reduce ms "
+              f"{_time_ms(lambda: deterministic_scatter_sum(a0, idx4, p)):.4f}"
+              f" scatter_reduce atomics ms {_time_ms(atomics):.4f}; max rel "
+              f"diff to atomics fixed {rel:.3g} det {reld:.3g}; same bits on "
+              f"10 calls: fixed {rep_f} det {rep_d} atomics {rep_a}")
     order_k = ("edge_lengths_iso", "score_count", "score3_count",
                "merge_prefix", "tet_quality", "radix_sort", "segment_flags")
     rows.sort(key=lambda r: order_k.index(r["name"]))

@@ -3,12 +3,12 @@
 Each cycle applies one independent set of splits, collapses, swaps (every
 third cycle and near convergence) and smoothing moves, with adjacency
 rebuilt at the cycle's end; the host loop reads the per-cycle counts to
-decide convergence and to grow capacity.  On the card this is the
-configuration the JAX package runs on the TPU (sort engine on, swap23
-paired off the face sort), except that cycles run one per dispatch, not
-in fused blocks; on the CPU swap23 pairs off ``adja`` as the JAX package
-does off the TPU.  The collapse donor band is on; there is no active-set
-/ incremental topology / smoothing-cadence machinery.
+decide convergence and to grow capacity.  This is the configuration the
+JAX package runs on the TPU (sort engine on, swap23 paired off the face
+sort, which gives the same bits as its off-TPU pairing off ``adja``),
+except that cycles run one per dispatch, not in fused blocks.  The
+collapse donor band is on; there is no active-set / incremental topology
+/ smoothing-cadence machinery.
 """
 from __future__ import annotations
 
@@ -47,21 +47,6 @@ class AdaptStats:
         self.regrows += other.regrows
         self.status = max(self.status, other.status)
         return self
-
-
-def swap_facesort(mesh: Mesh) -> bool:
-    """Pair swap23 straight off the face sort (no ``build_adjacency``
-    between the edge swaps and swap23)?  On for meshes on the card, off
-    on the CPU: the counterpart of the JAX package's platform-aware
-    ``swap_facesort_enabled``.  Both paths give the same bits."""
-    return mesh.device.type == "cuda"
-
-
-def _swap23(mesh: Mesh, met: torch.Tensor, budget_div: int):
-    """swap23 after the edge swaps, by face sort or off a rebuilt adja."""
-    if swap_facesort(mesh):
-        return swap23_wave(mesh, met, budget_div=budget_div, facesort=True)
-    return swap23_wave(build_adjacency(mesh), met, budget_div=budget_div)
 
 
 def adapt_cycle_impl(mesh: Mesh, met: torch.Tensor, wave: int,
@@ -103,7 +88,8 @@ def adapt_cycle_impl(mesh: Mesh, met: torch.Tensor, wave: int,
     nswap = zero
     if do_swap:
         sew = swap_edges_wave(mesh, met, hausd=hausd, budget_div=budget_div)
-        s23 = _swap23(sew.mesh, met, budget_div)
+        s23 = swap23_wave(sew.mesh, met, budget_div=budget_div,
+                          facesort=True)
         mesh = s23.mesh
         nswap = sew.nswap + s23.nswap
         defer_sw = defer_sw | sew.deferred | s23.deferred
@@ -148,7 +134,7 @@ def sliver_polish(mesh: Mesh, met: torch.Tensor, wave: int,
     if do_swap:
         sew = swap_edges_wave(mesh, met, hausd=hausd, budget_div=2)
         sgn = swapgen_wave(sew.mesh, met, budget_div=2)
-        s23 = _swap23(sgn.mesh, met, 2)
+        s23 = swap23_wave(sgn.mesh, met, budget_div=2, facesort=True)
         mesh = s23.mesh
         nswap = sew.nswap + sgn.nswap + s23.nswap
     if do_smooth:

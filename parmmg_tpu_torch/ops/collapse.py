@@ -13,12 +13,11 @@ from ..core.constants import (EPSD, IDIR, INT32_MAX, LLONG, LSHRT, MG_BDY,
                               MG_CRN, MG_GEO, MG_NOM, MG_PARBDY, MG_REF,
                               MG_REQ, QUAL_FLOOR)
 from ..core.mesh import Mesh, replace, tet_edge_vertices, tet_face_vertices
-from . import kernels
 from .edges import (NEG_INF, PACK_LIMIT, PRI_MIN, claim_channels,
                     edge_lengths, scatter_argmax2, segmented_max,
                     segmented_or, sort_pairs, topk_prep, unique_edges,
                     wave_budget)
-from .primitives import (lexsort, reduce_drop, set_drop,
+from .primitives import (lexsort, reduce_drop, segment_first, set_drop,
                          topk_lowest_index)
 from .quality import edge_length_iso, quality_from_points
 
@@ -283,12 +282,11 @@ def _tag_joins_core(new_tet, ftag, fref, etag, donor, recv, capP: int):
         w_f = torch.where(rel_f, fvn[:, 1] * capP + fvn[:, 2], bigf)
         k0_f = torch.where(rel_f, fvn[:, 0], bigf)
         order_f = lexsort(k0_f, w_f)
-        first_f = kernels.segment_flags_plain((k0_f[order_f],
-                                               w_f[order_f]))
+        first_f = segment_first(k0_f[order_f], w_f[order_f])
     else:
         cs = [torch.where(rel_f, fvn[:, j], bigf) for j in range(3)]
         order_f = lexsort(*cs)
-        first_f = kernels.segment_flags_plain([c[order_f] for c in cs])
+        first_f = segment_first(*[c[order_f] for c in cs])
     pos_f = torch.arange(F4, device=dev)
     seg_f = torch.cummax(torch.where(first_f, pos_f,
                                      torch.zeros_like(pos_f)), 0).values

@@ -115,6 +115,36 @@ def fixed_order_sum(dst: torch.Tensor, idx: torch.Tensor,
     return out
 
 
+def deterministic_scatter_sum(dst: torch.Tensor, idx: torch.Tensor,
+                              vals: torch.Tensor) -> torch.Tensor:
+    """Out-of-place ``dst.at[idx].add(vals)`` (``idx`` in range) by
+    PyTorch's deterministic ``scatter_reduce`` "sum", switched on for this
+    call only."""
+    if dst.dim() > 1:
+        idx = idx.view((-1,) + (1,) * (dst.dim() - 1)).expand_as(vals)
+    prev = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        return dst.scatter_reduce(0, idx, vals.to(dst.dtype), "sum",
+                                  include_self=True)
+    finally:
+        torch.use_deterministic_algorithms(prev, warn_only=warn)
+
+
+def segment_first(*cols) -> torch.Tensor:
+    """[n] bool: True at row 0 and wherever any of the sorted columns
+    differs from the row before."""
+    first = torch.ones(cols[0].shape[0], dtype=torch.bool,
+                       device=cols[0].device)
+    if cols[0].shape[0] > 1:
+        neq = cols[0][1:] != cols[0][:-1]
+        for c in cols[1:]:
+            neq = neq | (c[1:] != c[:-1])
+        first[1:] = neq
+    return first
+
+
 def nonzero_pad(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
     """First ``size`` indices where ``mask`` is True, padded with ``fill``
     (int64)."""

@@ -344,18 +344,17 @@ def _pair_fields_adja(mesh: Mesh, q_tet, capT: int):
     return fstar, nb_s[arT, fstar], nf_s[arT, fstar], own[arT, fstar]
 
 
-def _pair_fields_facesort(mesh: Mesh, q_tet, capT: int, set_bdy_tags: bool):
+def _pair_fields_facesort(mesh: Mesh, q_tet, capT: int):
     """swap23 pairing straight off the face-sort records, with no [capT,4]
     ``adja``: bit-identical to :func:`_pair_fields_adja` on every row the
     wave reads (matched twins are the ``adja >= 0`` entries; the
     two-channel max over (-q_twin, -f) reproduces argmin's first-index
     tie-break; rows that are no candidate hold 0, and every read of them
-    is masked by ``cand_full``).  With ``set_bdy_tags`` the MG_BDY tagging
-    of the ``build_adjacency`` it replaces is applied from the same sort.
+    is masked by ``cand_full``).  The MG_BDY tagging of the
+    ``build_adjacency`` it replaces is applied from the same sort.
     Returns (mesh, fstar, t2_full, f2_full, cand_full)."""
     t, f, partner, matched, valid_s = face_sort(mesh)
-    if set_bdy_tags:
-        mesh = bdy_tags_from_sort(mesh, t, f, matched, valid_s)
+    mesh = bdy_tags_from_sort(mesh, t, f, matched, valid_s)
     p = partner.long()
     tp, fp = t[p], f[p]
     tl, fl, tpl, fpl = t.long(), f.long(), tp.long(), fp.long()
@@ -373,21 +372,20 @@ def _pair_fields_facesort(mesh: Mesh, q_tet, capT: int, set_bdy_tags: bool):
 
 
 def swap23_wave(mesh: Mesh, met: torch.Tensor, budget_div: int = 8,
-                facesort: bool = False,
-                set_bdy_tags: bool = True) -> SwapResult:
+                facesort: bool = False) -> SwapResult:
     """2-to-3 swap: interior faces whose two tets improve as an edge fan
     (T1, T2 sharing (p,q,r) with apexes a, b become (p,q,a,b), (q,r,a,b),
     (r,p,a,b)).  Reads ``adja``, or with ``facesort`` pairs the faces off
-    the face sort of ``mesh`` as it stands (``set_bdy_tags`` replays the
-    MG_BDY tagging of the ``build_adjacency`` call that path skips) and
-    leaves ``adja`` stale, as the JAX package does."""
+    the face sort of ``mesh`` as it stands (replaying the MG_BDY tagging
+    of the ``build_adjacency`` call that path skips) and leaves ``adja``
+    stale, as the JAX package does."""
     capT, capP = mesh.capT, mesh.capP
     dev = mesh.device
     inf = float("inf")
     q_tet = quality_from_points(mesh.vert[mesh.tet.long()])
     if facesort:
         mesh, fstar, t2_full, f2_full, cand_full = _pair_fields_facesort(
-            mesh, q_tet, capT, set_bdy_tags)
+            mesh, q_tet, capT)
     else:
         fstar, t2_full, f2_full, cand_full = _pair_fields_adja(mesh, q_tet,
                                                                capT)

@@ -325,20 +325,30 @@ def test_swap23_facesort_matches_adja_pairing(swapped):
 def test_cli_facesort_on_off_byte_identical(tmp_path, monkeypatch):
     from parmmg_tpu_torch import cli
     from parmmg_tpu_torch.io.medit import MeditMesh, write_mesh
-    from parmmg_tpu_torch.ops import adapt as TAd
+    from parmmg_tpu_torch.ops import adapt as TAd, adjacency as TA, swap as TW
     v, t = cube_mesh(3)
     m = MeditMesh()
     m.vert, m.vref = v, np.zeros(len(v), np.int32)
     m.tetra, m.tref = t, np.ones(len(t), np.int32)
     src = str(tmp_path / "cube3.mesh")
     write_mesh(src, m)
+    # the cycle pairs swap23 off the face sort; "off" swaps in the pairing
+    # off a rebuilt adja, as the JAX package runs it off the TPU
+    calls = []
+
+    def adja_pairing(mesh, met, budget_div=8, facesort=False):
+        calls.append(facesort)
+        return TW.swap23_wave(TA.build_adjacency(mesh), met,
+                              budget_div=budget_div)
     outs = []
     for on in (True, False):
-        monkeypatch.setattr(TAd, "swap_facesort", lambda mesh, _on=on: _on)
+        if not on:
+            monkeypatch.setattr(TAd, "swap23_wave", adja_pairing)
         out = str(tmp_path / f"facesort_{on}.mesh")
         assert cli.main(["-in", src, "-hsiz", "0.3", "-niter", "1", "-v",
                          "-1", "-out", out, "-device", "cpu"]) == 0
         outs.append(out)
+    assert calls and all(calls)
     assert filecmp.cmp(*outs, shallow=False)
 
 
