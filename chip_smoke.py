@@ -274,23 +274,6 @@ def phase_repeat(workdir: str, device: str = "cuda"):
         primitives.fixed_order_sum = fixed
     print(f"[repeat] float sums by scatter_reduce atomics instead (timing "
           f"only): {rec['ntets']} tets, wall {wall:.3f} s")
-    # PyTorch's deterministic scatter_reduce in place of the fixed-order
-    # sum: twice, the two outputs must repeat byte for byte
-    primitives.fixed_order_sum = primitives.deterministic_scatter_sum
-    try:
-        walls = []
-        for tag in ("det1", "det2"):
-            _, rec, wall = _run_main(
-                workdir, os.path.join(workdir, f"cube16.{tag}.mesh"), device)
-            walls.append(wall)
-    finally:
-        primitives.fixed_order_sum = fixed
-    same = all(open(os.path.join(workdir, "cube16.det1" + e), "rb").read()
-               == open(os.path.join(workdir, "cube16.det2" + e), "rb").read()
-               for e in (".mesh", ".sol"))
-    print(f"[repeat] float sums by deterministic scatter_reduce instead: "
-          f"{rec['ntets']} tets, walls {walls[0]:.3f} s {walls[1]:.3f} s, "
-          f"two runs byte-identical: {same}")
 
 
 def phase_profile(workdir: str):
@@ -520,36 +503,51 @@ def phase_kernels(launches, shapes, workdir: str):
         lambda: K.segment_flags((ks,)), "segment_flags_kernel",
         shape=f" [sorted edge keys {n6}]"))
     # the fixed-order float sum at smooth_wave's most common shape (tet
-    # corners -> vertices, 4 columns), against scatter_reduce's atomics
+    # corners -> vertices, masked corners to the sentinel row capP; 4 and
+    # 1 columns) against scatter_reduce's atomics and against PyTorch's
+    # deterministic scatter_reduce, also without the sentinel row's values
+    # (timing only: the port calls neither)
     from parmmg_tpu_torch.ops.primitives import fixed_order_sum
     idx4 = torch.where(mesh.tmask[:, None], mesh.tet, capP).T.reshape(-1)
     idx4 = idx4.long()
+    live4 = idx4 < capP
     pay4 = torch.rand((4 * capT, 4), generator=gen, device=dev)
     acc0 = torch.zeros((capP + 1, 4), device=dev)
-    from parmmg_tpu_torch.ops.primitives import deterministic_scatter_sum
+
+    def scatter_sum(dst, ix, vals, deterministic):
+        if dst.dim() > 1:
+            ix = ix[:, None].expand_as(vals)
+        torch.use_deterministic_algorithms(deterministic)
+        try:
+            return dst.scatter_reduce(0, ix, vals, "sum")
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+    def bits(x):
+        return x.view(torch.int32)
     for cols in (4, 1):
         p, a0 = pay4[:, :cols].squeeze(1), acc0[:, :cols].squeeze(1)
-        ixc = idx4 if cols == 1 else idx4[:, None].expand_as(p)
-
-        def atomics():
-            return a0.scatter_reduce(0, ixc, p, "sum")
-        fx, at = fixed_order_sum(a0, idx4, p), atomics()
-        dt = deterministic_scatter_sum(a0, idx4, p)
-        rel = float(((fx - at).abs() / at.abs().clamp(min=1e-30)).max())
-        reld = float(((dt - at).abs() / at.abs().clamp(min=1e-30)).max())
-        rep_f = all(torch.equal(fx.view(torch.int32), fixed_order_sum(
-            a0, idx4, p).view(torch.int32)) for _ in range(10))
-        rep_d = all(torch.equal(dt.view(torch.int32), deterministic_scatter_sum(
-            a0, idx4, p).view(torch.int32)) for _ in range(10))
-        rep_a = all(torch.equal(at.view(torch.int32), atomics().view(
-            torch.int32)) for _ in range(10))
-        print(f"[sum] [{4 * capT} x {cols} -> {capP + 1}] fixed_order_sum ms "
-              f"{_time_ms(lambda: fixed_order_sum(a0, idx4, p)):.4f} "
-              f"deterministic scatter_reduce ms "
-              f"{_time_ms(lambda: deterministic_scatter_sum(a0, idx4, p)):.4f}"
-              f" scatter_reduce atomics ms {_time_ms(atomics):.4f}; max rel "
-              f"diff to atomics fixed {rel:.3g} det {reld:.3g}; same bits on "
-              f"10 calls: fixed {rep_f} det {rep_d} atomics {rep_a}")
+        p_live, ix_live = p[live4], idx4[live4]
+        fns = {
+            "fixed_order_sum": lambda: fixed_order_sum(a0, idx4, p),
+            "deterministic scatter_reduce":
+                lambda: scatter_sum(a0, idx4, p, True),
+            "deterministic scatter_reduce without the sentinel row":
+                lambda: scatter_sum(a0, ix_live, p_live, True),
+            "scatter_reduce atomics": lambda: scatter_sum(a0, idx4, p, False),
+        }
+        ref = fns["scatter_reduce atomics"]()[:capP]
+        parts = []
+        for name, fn in fns.items():
+            out = fn()
+            rel = float(((out[:capP] - ref).abs()
+                         / ref.abs().clamp(min=1e-30)).max())
+            same = all(torch.equal(bits(out), bits(fn())) for _ in range(10))
+            parts.append(f"{name} ms {_time_ms(fn):.4f} (max rel diff to "
+                         f"atomics {rel:.3g}, same bits on 10 calls {same})")
+        print(f"[sum] [{4 * capT} x {cols} -> {capP + 1}, "
+              f"{int((~live4).sum())} to the sentinel row]: "
+              + "; ".join(parts))
     order_k = ("edge_lengths_iso", "score_count", "score3_count",
                "merge_prefix", "tet_quality", "radix_sort", "segment_flags")
     rows.sort(key=lambda r: order_k.index(r["name"]))
