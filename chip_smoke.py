@@ -12,21 +12,31 @@ Phases (any failure exits non-zero without the final result line):
              structured cube_mesh(16) (24,576 tets) under the planar "shock"
              iso metric h = 1.5/16 * (0.2 + 4 |x - 0.5|), one iteration, on
              the card.  Kernel launch counts are zeroed just before and read
-             just after; every kernel of the path must have launched.  The
-             output mesh is read back and checked: conforming adjacency, no
-             live tet of volume <= 0, qmin > 0, tet count within 2% of the
-             JAX CLI's 111,116 on this input.
+             just after; every kernel of the iso path (K1, K3-K8) must have
+             launched, and K2 must not.  The output mesh is read back and
+             checked: conforming adjacency, no live tet of volume <= 0,
+             qmin > 0, tet count within 2% of the JAX CLI's 111,116 on this
+             input.
 3. repeat  - the main path twice more: once as it is, once with the sort
              engine's wrappers (radix_sort, merge_prefix, segment_flags)
              swapped for their plain versions.  Both must write the same
              bytes (.mesh and .sol) as phase 2's run.
-4. kernels - each kernel against its plain PyTorch version on the card, on
-             the output mesh of phase 2 (the capacities the main path
-             reached), with its tolerance; median CUDA-event times of the
+4. aniso   - the same CLI on cube_mesh(16) under the planar "shock" tensor
+             metric (spacing 1.5/48 * (0.2 + 4 |x - 0.5|) across the plane
+             x = 0.5, 0.1 along it), one iteration, launch counts zeroed
+             just before and read just after: every kernel of the tensor
+             path (K2-K8) must have launched, and K1 must not.  Checked as
+             phase 2, with qmin > 0 in the tensor metric's quality, the tet
+             count within 2% of the JAX CLI's 210,234, a SOL_TENSOR output
+             ``.sol``, and a second run writing the same bytes.
+5. kernels - each kernel against its plain PyTorch version on the card, on
+             the output mesh of its path (the capacities that path
+             reached; K2 and K6's tensor mode on the aniso output and its
+             metric), with its tolerance; median CUDA-event times of the
              kernel, the plain version and, where one PyTorch call computes
              the same function, that call; the least time the card could
              take (bytes / 3.35 TB/s, operations / 67 TFLOP/s float32).
-5. profile - the main path once more under torch.profiler.
+6. profile - each path once more under torch.profiler.
 
 The last two lines are one JSON object with the kernel table and one JSON
 object ``{"ok": true, "device": {...}}``.
@@ -45,7 +55,20 @@ import traceback
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory
 F32_OPS_PER_S = 67e12               # H100 SXM float32 outside tensor cores
-JAX_CLI_NTETS = {16: 111116}        # tools/jax_cli_reference.py 16 (CPU)
+# the JAX CLI's tet count on each path's input, and how far the port's
+# may lie from it: tools/jax_cli_reference.py 16 [--aniso] (CPU); on the
+# aniso input the port's CPU run wrote 210,860 tets, 0.30% away
+JAX_CLI_NTETS = {"cube16": 111116, "cube16ani": 210234}
+NTETS_BOUND = 0.02
+# the kernels each path must launch, and the one it must not
+PATH_KERNELS = {
+    "cube16": ({"edge_lengths_iso", "score_count", "score3_count",
+                "tet_quality", "merge_prefix", "radix_sort",
+                "segment_flags"}, "edge_lengths_ani"),
+    "cube16ani": ({"edge_lengths_ani", "score_count", "score3_count",
+                   "tet_quality", "merge_prefix", "radix_sort",
+                   "segment_flags"}, "edge_lengths_iso"),
+}
 
 
 def _card_line() -> str:
@@ -113,80 +136,125 @@ def phase_build():
     print(_card_line())
 
 
-def phase_main(workdir: str, n: int = 16, device: str = "cuda"):
+def _write_input(workdir: str, stem: str, n: int = 16):
+    """cube_mesh(n) and its metric: iso shock for "cube16", tensor shock
+    for "cube16ani"."""
     import numpy as np
-    import torch
-    from parmmg_tpu_torch.core.mesh import make_mesh, tet_volumes
-    from parmmg_tpu_torch.io.medit import (MeditMesh, SOL_SCALAR,
-                                           read_mesh, write_mesh, write_sol)
-    from parmmg_tpu_torch.ops import kernels
-    from parmmg_tpu_torch.ops.adjacency import build_adjacency, \
-        check_adjacency
-    from parmmg_tpu_torch.ops.quality import tet_quality
-    from parmmg_tpu_torch.utils.fixtures import analytic_iso_metric, \
-        cube_mesh
-
+    from parmmg_tpu_torch.io.medit import (MeditMesh, SOL_SCALAR, SOL_TENSOR,
+                                           write_mesh, write_sol)
+    from parmmg_tpu_torch.utils.fixtures import (analytic_ani_metric,
+                                                 analytic_iso_metric,
+                                                 cube_mesh)
     vert, tet = cube_mesh(n)
     m = MeditMesh()
     m.vert, m.vref = vert, np.zeros(len(vert), np.int32)
     m.tetra, m.tref = tet, np.ones(len(tet), np.int32)
-    src = os.path.join(workdir, "cube16.mesh")
-    out = os.path.join(workdir, "cube16.o.mesh")
-    write_mesh(src, m)
-    write_sol(os.path.join(workdir, "cube16.sol"),
-              analytic_iso_metric(vert, "shock", h=1.5 / 16), [SOL_SCALAR])
+    write_mesh(os.path.join(workdir, f"{stem}.mesh"), m)
+    if stem.endswith("ani"):
+        met = analytic_ani_metric(vert, "shock", h=1.5 / (3 * n), h_tan=0.1)
+        types = [SOL_TENSOR]
+    else:
+        met = analytic_iso_metric(vert, "shock", h=1.5 / n)
+        types = [SOL_SCALAR]
+    write_sol(os.path.join(workdir, f"{stem}.sol"), met, types)
 
+
+def _read_output(path: str, device: str = "cuda", capP=None, capT=None):
+    """(mesh with adjacency, metric [capP] or [capP, 6], .sol types) of a
+    written output ``path`` (.mesh), spare metric rows 1 / the identity."""
+    import torch
+    from parmmg_tpu_torch.core.mesh import make_mesh
+    from parmmg_tpu_torch.io.medit import read_mesh, read_sol
+    from parmmg_tpu_torch.ops.adjacency import build_adjacency
+    mo = read_mesh(path)
+    vals, types = read_sol(path[:-len(".mesh")] + ".sol")
+    dev = torch.device(device)
+    mesh = build_adjacency(make_mesh(mo.vert, mo.tetra, capP=capP,
+                                     capT=capT, device=dev))
+    n_p = len(mo.vert)
+    if vals.shape[1] == 6:
+        met = torch.tensor([1, 0, 0, 1, 0, 1.0], device=dev).repeat(
+            mesh.capP, 1)
+    else:
+        met = torch.ones(mesh.capP, device=dev)
+        vals = vals[:, 0]
+    met[:n_p] = torch.from_numpy(vals).to(dev, torch.float32)
+    return mesh, met.contiguous(), types
+
+
+def phase_path(workdir: str, stem: str, device: str = "cuda"):
+    """One path of the CLI remesh (phase 2 "cube16" or phase 4
+    "cube16ani"): launch counts, output checks; returns (launches, the
+    largest shapes each kernel wrapper was given)."""
+    from parmmg_tpu_torch.core.mesh import tet_volumes
+    from parmmg_tpu_torch.io.medit import SOL_TENSOR
+    from parmmg_tpu_torch.ops import kernels
+    from parmmg_tpu_torch.ops.adjacency import check_adjacency
+    from parmmg_tpu_torch.ops.quality import tet_quality
+
+    tag = "main" if stem == "cube16" else "aniso"
+    _write_input(workdir, stem)
+    out = os.path.join(workdir, f"{stem}.o.mesh")
     # record the largest shapes each kernel wrapper is given on the path
-    shapes = {"capP": 0, "capT": 0}
+    shapes = {"capP": 0, "capT": 0, "capE": 0}
     wrapped = {}
-    for name in ("edge_lengths_iso", "tet_quality"):
+    for name in ("edge_lengths_iso", "edge_lengths_ani", "tet_quality"):
         fn = getattr(kernels, name)
 
         def rec_shape(*a, _fn=fn, _name=name, **k):
             shapes["capP"] = max(shapes["capP"], a[0].shape[0])
-            if _name == "tet_quality":
-                shapes["capT"] = max(shapes["capT"], a[1].shape[0])
+            key = "capT" if _name == "tet_quality" else "capE"
+            shapes[key] = max(shapes[key], a[2 if key == "capE" else 1]
+                              .shape[0])
             return _fn(*a, **k)
         wrapped[name] = fn
         setattr(kernels, name, rec_shape)
     try:
-        launches, rec, wall = _run_main(workdir, out, device)
+        launches, rec, wall = _run_main(workdir, stem, out, device)
     finally:
         for name, fn in wrapped.items():
             setattr(kernels, name, fn)
-    mo = read_mesh(out)
-    dev = torch.device(device)
-    mesh = build_adjacency(make_mesh(mo.vert, mo.tetra, device=dev))
+    mesh, met, types = _read_output(out, device)
+    aniso = met.dim() == 2
     bad = check_adjacency(mesh)
     nbnd = int(((mesh.adja < 0) & mesh.tmask[:, None]).sum())
-    vol = tet_volumes(mesh)
-    nneg = int(((vol <= 0) & mesh.tmask).sum())
-    q = tet_quality(mesh)
+    nneg = int(((tet_volumes(mesh) <= 0) & mesh.tmask).sum())
+    q = tet_quality(mesh, met if aniso else None)
     qmin = float(q[mesh.tmask].min())
     qmean = float(q[mesh.tmask].mean())
     if bad["asymmetric"] or bad["face_mismatch"] or nneg or qmin <= 0:
-        raise RuntimeError(f"output not conforming: {bad}, nonpositive "
-                           f"volumes {nneg}, qmin {qmin}")
-    print(f"[main] cube_mesh({n}) shock h=1.5/16 -niter 1: ntets "
-          f"{rec['ntets']} qmin {rec['qmin']:.6f} qmean {rec['qmean']:.6f} "
-          f"cycles {rec['cycles']} splits {rec['nsplit']} collapses "
+        raise RuntimeError(f"{stem} output not conforming: {bad}, "
+                           f"nonpositive volumes {nneg}, qmin {qmin}")
+    if aniso != stem.endswith("ani") or (aniso and types != [SOL_TENSOR]):
+        raise RuntimeError(f"{stem}: output .sol types {types}")
+    print(f"[{tag}] {stem} -niter 1: ntets {rec['ntets']} qmin "
+          f"{rec['qmin']:.6f} qmean {rec['qmean']:.6f} cycles "
+          f"{rec['cycles']} splits {rec['nsplit']} collapses "
           f"{rec['ncollapse']} swaps {rec['nswap']} wall {wall:.3f} s")
-    print(f"[main] re-read output: {int(mesh.tmask.sum())} tets, "
-          f"{nbnd} boundary faces, adjacency {bad}, qmin {qmin:.6f} "
-          f"qmean {qmean:.6f}")
-    print(f"[main] launches {launches}; largest capP {shapes['capP']} "
-          f"capT {shapes['capT']}")
-    ref = JAX_CLI_NTETS.get(n)
-    if ref is not None and abs(rec["ntets"] - ref) > 0.02 * ref:
-        raise RuntimeError(f"{rec['ntets']} tets: not within 2% of the JAX "
-                           f"CLI's {ref} on this input")
+    print(f"[{tag}] re-read output: {int(mesh.tmask.sum())} tets, {nbnd} "
+          f"boundary faces, adjacency {bad}, qmin {qmin:.6f} qmean "
+          f"{qmean:.6f}{' (tensor metric)' if aniso else ''}, .sol types "
+          f"{types}")
+    print(f"[{tag}] launches {launches}; largest capP {shapes['capP']} "
+          f"capT {shapes['capT']} capE {shapes['capE']}")
+    must, must_not = PATH_KERNELS[stem]
+    missing = sorted(k for k in must if launches[k] == 0)
+    if missing or launches[must_not]:
+        raise RuntimeError(f"{stem}: kernels never launched {missing}, "
+                           f"{must_not} launched {launches[must_not]} "
+                           f"times ({launches})")
+    ref = JAX_CLI_NTETS[stem]
+    if abs(rec["ntets"] - ref) > NTETS_BOUND * ref:
+        raise RuntimeError(f"{rec['ntets']} tets: not within "
+                           f"{NTETS_BOUND:.0%} of the JAX CLI's {ref} on "
+                           "this input")
     return launches, shapes
 
 
-def _run_main(workdir: str, out: str, device: str = "cuda"):
-    """The main path once (written by phase_main's inputs to ``out``),
-    launch counts zeroed just before and read just after.  Returns
-    (launches, the -bench-json record, wall seconds)."""
+def _run_main(workdir: str, stem: str, out: str, device: str = "cuda"):
+    """The CLI remesh of ``stem``'s input once, written to ``out``, launch
+    counts zeroed just before and read just after.  Returns (launches,
+    the -bench-json record, wall seconds)."""
     import torch
     from parmmg_tpu_torch import cli
     from parmmg_tpu_torch.ops import kernels
@@ -196,8 +264,8 @@ def _run_main(workdir: str, out: str, device: str = "cuda"):
     t0 = time.perf_counter()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = cli.main(["-in", os.path.join(workdir, "cube16.mesh"), "-sol",
-                       os.path.join(workdir, "cube16.sol"), "-out", out,
+        rc = cli.main(["-in", os.path.join(workdir, f"{stem}.mesh"), "-sol",
+                       os.path.join(workdir, f"{stem}.sol"), "-out", out,
                        "-niter", "1", "-v", "1", "-bench-json",
                        "-device", device])
     sync()
@@ -235,7 +303,7 @@ def phase_repeat(workdir: str, device: str = "cuda"):
     from parmmg_tpu_torch.ops import kernels
     ref = os.path.join(workdir, "cube16.o")
     launches, rec, wall = _run_main(
-        workdir, os.path.join(workdir, "cube16.r2.mesh"), device)
+        workdir, "cube16", os.path.join(workdir, "cube16.r2.mesh"), device)
     for ext in (".mesh", ".sol"):
         _same_bytes(ref + ext, os.path.join(workdir, "cube16.r2" + ext))
     print(f"[repeat] second run: {rec['ntets']} tets, wall {wall:.3f} s, "
@@ -246,7 +314,8 @@ def phase_repeat(workdir: str, device: str = "cuda"):
         setattr(kernels, n, getattr(kernels, n + "_plain"))
     try:
         launches, rec, wall = _run_main(
-            workdir, os.path.join(workdir, "cube16.plain.mesh"), device)
+            workdir, "cube16", os.path.join(workdir, "cube16.plain.mesh"),
+            device)
     finally:
         for n, fn in saved.items():
             setattr(kernels, n, fn)
@@ -269,22 +338,35 @@ def phase_repeat(workdir: str, device: str = "cuda"):
     primitives.fixed_order_sum = atomic_sum
     try:
         _, rec, wall = _run_main(
-            workdir, os.path.join(workdir, "cube16.atomic.mesh"), device)
+            workdir, "cube16", os.path.join(workdir, "cube16.atomic.mesh"),
+            device)
     finally:
         primitives.fixed_order_sum = fixed
     print(f"[repeat] float sums by scatter_reduce atomics instead (timing "
           f"only): {rec['ntets']} tets, wall {wall:.3f} s")
 
 
-def phase_profile(workdir: str):
-    """The main path once more under torch.profiler: device busy time
-    against wall time, and the ops that take the device time."""
+def phase_aniso_repeat(workdir: str, device: str = "cuda"):
+    """The tensor-metric path once more: the same bytes as phase 4's."""
+    stem = "cube16ani"
+    _, rec, wall = _run_main(workdir, stem,
+                             os.path.join(workdir, f"{stem}.r2.mesh"), device)
+    for ext in (".mesh", ".sol"):
+        _same_bytes(os.path.join(workdir, f"{stem}.o{ext}"),
+                    os.path.join(workdir, f"{stem}.r2{ext}"))
+    print(f"[aniso] second run: {rec['ntets']} tets, wall {wall:.3f} s, "
+          f"byte-identical .mesh and .sol")
+
+
+def phase_profile(workdir: str, stem: str):
+    """A path once more under torch.profiler: device busy time against
+    wall time, and the ops that take the device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from parmmg_tpu_torch import cli
-    args = ["-in", os.path.join(workdir, "cube16.mesh"), "-sol",
-            os.path.join(workdir, "cube16.sol"), "-out",
-            os.path.join(workdir, "cube16.prof.mesh"), "-niter", "1",
+    args = ["-in", os.path.join(workdir, f"{stem}.mesh"), "-sol",
+            os.path.join(workdir, f"{stem}.sol"), "-out",
+            os.path.join(workdir, f"{stem}.prof.mesh"), "-niter", "1",
             "-v", "0"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -301,31 +383,34 @@ def phase_profile(workdir: str):
         return t if t is not None else getattr(e, "self_cuda_time_total", 0)
     busy = sum(dev(e) for e in evs) / 1e6
     top = sorted(evs, key=dev, reverse=True)[:12]
-    print(f"[profile] wall {wall:.3f} s (profiled), device busy "
+    print(f"[profile] {stem}: wall {wall:.3f} s (profiled), device busy "
           f"{busy:.3f} s = {100 * busy / wall:.1f}% of wall")
     for e in top:
         print(f"[profile]   {dev(e) / 1e3:9.2f} ms  x{e.count:6d}  "
               f"{e.key[:90]}")
+    # the library calls of the tensor path outside any kernel: the one
+    # eigendecomposition of the metric clamp (cuSOLVER)
+    lib = [e for e in evs if "syevj" in e.key or "linalg_eigh" in e.key]
+    if lib:
+        print("[profile]   library: " + "; ".join(
+            f"{e.key[:60]} {dev(e) / 1e3:.3f} ms x{e.count}" for e in lib))
 
 
-def phase_kernels(launches, shapes, workdir: str):
+def phase_kernels(launches, shapes, launches_ani, shapes_ani, workdir: str):
     import torch
     from parmmg_tpu_torch.core.constants import INT32_MAX
-    from parmmg_tpu_torch.core.mesh import make_mesh, tet_edge_vertices
-    from parmmg_tpu_torch.io.medit import read_mesh, read_sol
+    from parmmg_tpu_torch.core.mesh import tet_edge_vertices
     from parmmg_tpu_torch.ops import kernels as K
-    from parmmg_tpu_torch.ops.adjacency import _face_keys, build_adjacency
+    from parmmg_tpu_torch.ops.adjacency import _face_keys
     from parmmg_tpu_torch.ops.edges import unique_edges, wave_budget
 
     dev = torch.device("cuda")
-    mo = read_mesh(os.path.join(workdir, "cube16.o.mesh"))
-    vals, _ = read_sol(os.path.join(workdir, "cube16.o.sol"))
-    n_p = len(mo.vert)
-    # the output mesh at the largest capacities the main path reached
-    mesh = build_adjacency(make_mesh(mo.vert, mo.tetra, capP=shapes["capP"],
-                                     capT=shapes["capT"], device=dev))
-    met = torch.ones(mesh.capP, device=dev)
-    met[:n_p] = torch.from_numpy(vals[:, 0]).to(dev, torch.float32)
+    # each path's output mesh at the largest capacities that path reached
+    mesh, met, _ = _read_output(os.path.join(workdir, "cube16.o.mesh"),
+                                capP=shapes["capP"], capT=shapes["capT"])
+    mesh_a, met6, _ = _read_output(os.path.join(workdir, "cube16ani.o.mesh"),
+                                   capP=shapes_ani["capP"],
+                                   capT=shapes_ani["capT"])
     et = unique_edges(mesh)
     capE, capP, capT = et.ev.shape[0], mesh.capP, mesh.capT
     gen = torch.Generator(device=dev)
@@ -348,20 +433,21 @@ def phase_kernels(launches, shapes, workdir: str):
         return err
 
     def row(name, src, line, err, ms, plain_ms, nbytes, nops, fn, kern,
-            library_ms=None, shape=""):
+            library_ms=None, shape="", path=launches):
         b, by = _bound(nbytes, nops)
         dev_ms = _device_ms(fn, kern)
         r = {"name": name, "route": "cuda",
              "source": f"parmmg_tpu_torch/csrc/{src}",
              "replaces": f"parmmg_tpu/ops/pallas_kernels.py:{line}",
-             "launches": int(launches[name]), "max_abs_err": err,
+             "launches": int(path[name]), "max_abs_err": err,
              "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
              "bound_by": by, "library_ms": library_ms,
              "device_ms": dev_ms}
         lib = "-" if library_ms is None else f"{library_ms:.4f}"
+        which = "aniso" if path is launches_ani else "main"
         print(f"[kernel] {name}{shape}: max_abs_err {err:.3g} ms {ms:.4f} "
               f"(device {dev_ms}) plain {plain_ms:.4f} bound {b:.4f} ({by}) "
-              f"library {lib} main-path launches {launches[name]}")
+              f"library {lib} {which}-path launches {path[name]}")
         return r
 
     # K1 edge length, over the unique-edge table of the output mesh
@@ -375,6 +461,22 @@ def phase_kernels(launches, shapes, workdir: str):
         _time_ms(lambda: K.edge_lengths_iso_plain(mesh.vert, met, ev)),
         16 * capP + 12 * capE, 20 * capE,
         lambda: K.edge_lengths_iso(mesh.vert, met, ev), "edge_length_iso"))
+
+    # K2 edge length, over the unique-edge table of the aniso output mesh
+    # under the aniso path's own metric (read back from its .sol)
+    et_a = unique_edges(mesh_a, shell_slots=0)
+    ev_a = et_a.ev.contiguous()
+    capE_a, capP_a = ev_a.shape[0], mesh_a.capP
+    got_a = K.edge_lengths_ani(mesh_a.vert, met6, ev_a)
+    ref_a = K.edge_lengths_ani_plain(mesh_a.vert, met6, ev_a)
+    err = check("edge_lengths_ani", got_a[et_a.emask], ref_a[et_a.emask],
+                3e-5, 3e-6)
+    rows.append(row("edge_lengths_ani", "edge_length_ani.cu", 176, err,
+        _time_ms(lambda: K.edge_lengths_ani(mesh_a.vert, met6, ev_a)),
+        _time_ms(lambda: K.edge_lengths_ani_plain(mesh_a.vert, met6, ev_a)),
+        36 * capP_a + 12 * capE_a, 45 * capE_a,
+        lambda: K.edge_lengths_ani(mesh_a.vert, met6, ev_a),
+        "edge_length_ani", shape=f" [capE {capE_a}]", path=launches_ani))
 
     # K3 score + count: the split wave's cut (long edges, -lens)
     cand = (et.emask & (got > 1.0)).contiguous()
@@ -404,7 +506,8 @@ def phase_kernels(launches, shapes, workdir: str):
         17 * capE + 4, 4 * capE, lambda: K.score3_count(c3, v0, v1, v2),
         "score_kernel"))
 
-    # K6 tet quality: iso (the main path's mode) and aniso
+    # K6 tet quality: iso (the main path's mode) and the tensor mode on
+    # the aniso path's output and metric
     tv, tm = mesh.tet, mesh.tmask
     got = K.tet_quality(mesh.vert, tv, tm)
     ref = K.tet_quality_plain(mesh.vert, tv, tm)
@@ -414,19 +517,21 @@ def phase_kernels(launches, shapes, workdir: str):
         _time_ms(lambda: K.tet_quality_plain(mesh.vert, tv, tm)),
         12 * capP + 21 * capT, 70 * capT,
         lambda: K.tet_quality(mesh.vert, tv, tm), "tet_quality_kernel"))
-    w = 1.0 / met.clamp(min=1e-30) ** 2
-    off = 0.2 * w[:, None] * (torch.rand((capP, 3), generator=gen,
-                                         device=dev) - 0.5)
-    met6 = torch.stack([w, off[:, 0], off[:, 1], 1.5 * w, off[:, 2],
-                        0.7 * w], dim=1).contiguous()
-    got = K.tet_quality(mesh.vert, tv, tm, met6)
-    ref = K.tet_quality_plain(mesh.vert, tv, tm, met6)
+    va, tva, tma = mesh_a.vert, mesh_a.tet, mesh_a.tmask
+    capT_a = mesh_a.capT
+    got = K.tet_quality(va, tva, tma, met6)
+    ref = K.tet_quality_plain(va, tva, tma, met6)
     err_a = check("tet_quality aniso", got, ref, 1e-4, 1e-5)
-    ms_a = _time_ms(lambda: K.tet_quality(mesh.vert, tv, tm, met6))
-    pms_a = _time_ms(lambda: K.tet_quality_plain(mesh.vert, tv, tm, met6))
-    print(f"[kernel] tet_quality aniso mode: max_abs_err {err_a:.3g} ms "
-          f"{ms_a:.4f} plain {pms_a:.4f} bound "
-          f"{_bound(36 * capP + 21 * capT, 160 * capT)[0]:.4f} (bytes)")
+    k6a = row("tet_quality", "tet_quality.cu", 379, err_a,
+              _time_ms(lambda: K.tet_quality(va, tva, tma, met6)),
+              _time_ms(lambda: K.tet_quality_plain(va, tva, tma, met6)),
+              36 * capP_a + 21 * capT_a, 160 * capT_a,
+              lambda: K.tet_quality(va, tva, tma, met6),
+              "tet_quality_kernel", shape=f" tensor mode [capT {capT_a}]",
+              path=launches_ani)
+    rows[-1]["tensor_mode"] = {k: k6a[k] for k in (
+        "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "device_ms")}
     # K7 radix sort: the packed edge keys [6*capT] (1 word, 4 passes) and
     # the packed face keys [4*capT] (nbits (16, 32), 6 passes), as the
     # sort sites build them; exact against the plain stable-sort chain
@@ -548,11 +653,13 @@ def phase_kernels(launches, shapes, workdir: str):
         print(f"[sum] [{4 * capT} x {cols} -> {capP + 1}, "
               f"{int((~live4).sum())} to the sentinel row]: "
               + "; ".join(parts))
-    order_k = ("edge_lengths_iso", "score_count", "score3_count",
-               "merge_prefix", "tet_quality", "radix_sort", "segment_flags")
+    order_k = ("edge_lengths_iso", "edge_lengths_ani", "score_count",
+               "score3_count", "merge_prefix", "tet_quality", "radix_sort",
+               "segment_flags")
     rows.sort(key=lambda r: order_k.index(r["name"]))
     print(f"[kernel] shapes capP {capP} capT {capT} capE {capE} "
-          f"(wave budget K {wave_budget(capT)})")
+          f"(wave budget K {wave_budget(capT)}); aniso capP {capP_a} capT "
+          f"{capT_a} capE {capE_a}")
     return rows
 
 
@@ -575,14 +682,14 @@ def main() -> int:
     os.makedirs(workdir, exist_ok=True)
     try:
         phase_build()
-        launches, shapes = phase_main(workdir)
-        missing = [k for k, v in launches.items() if v == 0]
-        if missing:
-            raise RuntimeError(f"kernels never launched on the main path: "
-                               f"{missing} ({launches})")
+        launches, shapes = phase_path(workdir, "cube16")
         phase_repeat(workdir)
-        rows = phase_kernels(launches, shapes, workdir)
-        phase_profile(workdir)
+        launches_ani, shapes_ani = phase_path(workdir, "cube16ani")
+        phase_aniso_repeat(workdir)
+        rows = phase_kernels(launches, shapes, launches_ani, shapes_ani,
+                             workdir)
+        phase_profile(workdir, "cube16")
+        phase_profile(workdir, "cube16ani")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

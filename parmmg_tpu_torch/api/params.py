@@ -190,14 +190,17 @@ class InputError(ValueError):
     PMMG_check_inputData (libparmmg.c:55-101)."""
 
 
-def check_input_data(info: Info) -> None:
+def check_input_data(info: Info, met_is_aniso: bool = False) -> None:
     """Graded input rejection (PMMG_check_inputData, libparmmg.c:69-101):
-    lagrangian motion and level-set discretization are unavailable.  (The
-    -optimLES / anisotropic-metric clash comes with the aniso path.)"""
+    lagrangian motion and level-set discretization are unavailable; an
+    anisotropic metric is incompatible with -optimLES."""
     if info.lag > -1:
         raise InputError("lagrangian motion option unavailable")
     if info.iso:
         raise InputError("level-set discretization option unavailable")
+    if info.optimLES and met_is_aniso:
+        raise InputError("-optimLES is not compatible with an anisotropic "
+                         "metric")
 
 
 def resolve_target_mesh_size(info: Info, ne_global: int, n_devices: int)\

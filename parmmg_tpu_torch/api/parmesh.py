@@ -2,8 +2,10 @@
 
 The set/get surface the CLI and the README example use: numpy staging
 arrays in, one flat torch Mesh adapted on ``device`` (``"cuda"`` unless the
-caller asks for ``"cpu"``), numpy arrays out.  Distributed communicators,
-user fields, prisms/quads and tensor metrics belong to later slices.
+caller asks for ``"cpu"``), numpy arrays out.  The metric is a scalar size
+per vertex or a packed symmetric tensor (m11, m12, m13, m22, m23, m33).
+Distributed communicators, user fields and prisms/quads belong to later
+slices.
 """
 from __future__ import annotations
 
@@ -108,18 +110,23 @@ class ParMesh:
 
     # -- metric and parameters -------------------------------------------
     def set_met_size(self, typ: int, np_: int) -> None:
-        """typ: 1 = scalar (tensor metrics are not yet ported)."""
+        """typ: 1 = scalar, 3 = tensor (MMG5_Scalar / MMG5_Tensor)."""
         if np_ != self.np_:
             raise ValueError("metric size must match vertex count")
-        if typ != 1:
-            raise NotImplementedError(
-                "anisotropic (tensor) metrics are not yet ported to "
-                "parmmg_tpu_torch")
+        if typ not in (1, 3):
+            raise ValueError(f"metric type {typ}: expected 1 (scalar) or "
+                             "3 (tensor)")
         self.met_type = typ
-        self.met = np.zeros(np_, np.float64)
+        self.met = _grow(None, np_, None if typ == 1 else 6, np.float64)
 
     def set_scalar_mets(self, m) -> None:
         self.met[:] = np.asarray(m, np.float64).reshape(self.np_)
+
+    def set_tensor_met(self, m11, m12, m13, m22, m23, m33, pos: int) -> None:
+        self.met[pos - 1] = (m11, m12, m13, m22, m23, m33)
+
+    def set_tensor_mets(self, m) -> None:
+        self.met[:] = np.asarray(m, np.float64).reshape(self.np_, 6)
 
     def set_local_parameter(self, typ: int, ref: int, hmin: float,
                             hmax: float, hausd: float) -> None:
@@ -158,9 +165,13 @@ class ParMesh:
             self.info._user_edges = (self.edge[: self.na_] - 1,
                                      self.edgeref[: self.na_])
         met = None
-        if self.met is not None and self.met_type == 1:
-            m = np.ones(mesh.capP)
+        if self.met is not None and self.met_type in (1, 3):
+            # spare rows: size 1 / the identity tensor
+            spare = 1.0 if self.met_type == 1 else \
+                np.array([1, 0, 0, 1, 0, 1.0])
+            m = np.empty((mesh.capP,) + self.met.shape[1:])
             m[: self.np_] = self.met
+            m[self.np_:] = spare
             met = torch.from_numpy(m).to(self.device, torch.float32)
         return mesh, met
 
@@ -254,9 +265,17 @@ class ParMesh:
         return tet + 1, tref
 
     def get_metric(self):
+        """The output metric of the live vertices: [np] sizes or [np, 6]
+        packed tensors."""
         if self._out_met is None:
             return None
         return self._out_met.cpu().numpy()[self._out.vmask.cpu().numpy()]
+
+    def get_tensor_met(self, pos: int):
+        return tuple(float(x) for x in self.get_metric()[pos - 1])
+
+    def get_tensor_mets(self):
+        return self.get_metric()
 
     def _out_triangles(self):
         """(tris 1-based, refs, isRequired, compacted tet id) of the output

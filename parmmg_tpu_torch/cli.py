@@ -2,10 +2,12 @@
 
     python -m parmmg_tpu_torch.cli -in X.mesh [-sol X.sol] -out Y.mesh
 
-Runs on the CUDA device unless ``-device cpu`` is given.  The single-device
-flags of the JAX package's CLI are accepted; ``-ndev > 1``, ``-field``,
-``-distributed-output``, VTK files and tensor ``.sol`` metrics are not yet
-ported and exit with an error saying so.
+Runs on the CUDA device unless ``-device cpu`` is given.  The metric file
+holds a scalar size (``SOL_SCALAR``) or a packed symmetric tensor
+(``SOL_TENSOR``) per vertex; the output ``.sol`` has the input's kind.  The
+single-device flags of the JAX package's CLI are accepted; ``-ndev > 1``,
+``-field``, ``-distributed-output`` and VTK files are not yet ported and
+exit with an error saying so.
 """
 from __future__ import annotations
 
@@ -50,6 +52,8 @@ def build_parser() -> argparse.ArgumentParser:
     a("-ar", dest="angle", type=float, default=C.ANGEDG_DEG,
       help="ridge detection angle (deg)")
     a("-nr", dest="noridge", action="store_true", help="no ridge detection")
+    a("-A", dest="aniso", action="store_true",
+      help="anisotropic metric computation (reference -A flag)")
     a("-optim", action="store_true", help="preserve current sizing")
     a("-optimLES", action="store_true")
     a("-noinsert", action="store_true")
@@ -122,12 +126,12 @@ def main(argv=None) -> int:
         pm.set_ridge(int(rid) + 1)
     if args.sol:
         vals, types = medit.read_sol(args.sol)
-        if types[0] != medit.SOL_SCALAR:
-            print("tensor (anisotropic) metrics are not yet ported to "
-                  "parmmg_tpu_torch", file=sys.stderr)
-            return 1
-        pm.set_met_size(1, len(m.vert))
-        pm.set_scalar_mets(vals.reshape(len(m.vert)))
+        if types[0] == medit.SOL_TENSOR:
+            pm.set_met_size(3, len(m.vert))
+            pm.set_tensor_mets(vals.reshape(len(m.vert), 6))
+        else:
+            pm.set_met_size(1, len(m.vert))
+            pm.set_scalar_mets(vals.reshape(len(m.vert)))
 
     info = pm.info
     info.imprim = args.verbose
@@ -143,6 +147,7 @@ def main(argv=None) -> int:
     info.angle_detection = not args.noridge
     info.optim = args.optim
     info.optimLES = args.optimLES
+    info.anisosize = args.aniso
     info.noinsert = args.noinsert
     info.noswap = args.noswap
     info.nomove = args.nomove
@@ -236,7 +241,8 @@ def _report(pm, dt, as_json, verbose):
 
 
 def _save_outputs(pm, args):
-    from .io.medit import MeditMesh, SOL_SCALAR, write_mesh, write_sol
+    from .io.medit import (MeditMesh, SOL_SCALAR, SOL_TENSOR, write_mesh,
+                           write_sol)
     out = Path(args.out) if args.out else \
         Path(args.inp).with_name(Path(args.inp).stem + ".o.mesh")
     vert, vref = pm.get_vertices()
@@ -260,7 +266,7 @@ def _save_outputs(pm, args):
     met = pm.get_metric()
     if met is not None:
         write_sol(out.with_suffix(".sol"), met.reshape(len(vert), -1),
-                  [SOL_SCALAR])
+                  [SOL_TENSOR if met.ndim == 2 else SOL_SCALAR])
 
 
 if __name__ == "__main__":

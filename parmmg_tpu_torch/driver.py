@@ -35,7 +35,7 @@ def _auto_hmin_hmax(vert: np.ndarray, info) -> tuple[float, float]:
 
 def build_metric(mesh: Mesh, met, info):
     """Metric synthesis: -hsiz / -optim / user metric, clamped, hausd
-    bound, local parameters, gradation."""
+    bound, local parameters, gradation (iso metrics only)."""
     vert = mesh.vert.cpu().numpy()[mesh.vmask.cpu().numpy()]
     hmin, hmax = _auto_hmin_hmax(vert, info)
     if info.hsiz > 0:
@@ -48,7 +48,7 @@ def build_metric(mesh: Mesh, met, info):
         met = hausd_metric_bound(mesh, met, info.hausd, hmin)
     if info.local_params:
         met = apply_local_params(mesh, met, info)
-    if info.hgrad > 0:
+    if info.hgrad > 0 and met.dim() == 1:
         met = gradation(mesh, met, hgrad=info.hgrad)
         if info.local_params:
             met = apply_local_params(mesh, met, info)
@@ -57,7 +57,9 @@ def build_metric(mesh: Mesh, met, info):
 
 def apply_local_params(mesh: Mesh, met, info):
     """Per-reference size clamps: kind 1 triangles (surface ref patch),
-    2 tetrahedra (sub-domain), 3 user edges, 0 vertices (point ref)."""
+    2 tetrahedra (sub-domain), 3 user edges, 0 vertices (point ref); the
+    clamp is ``clamp_metric``'s (sizes, or a tensor's eigenvalues), on the
+    host."""
     ftag = mesh.ftag.cpu().numpy()
     fref = mesh.fref.cpu().numpy()
     tet = mesh.tet.cpu().numpy()
@@ -88,7 +90,8 @@ def apply_local_params(mesh: Mesh, met, info):
         else:
             continue
         if len(vids):
-            meth[vids] = np.clip(meth[vids], lhmin, lhmax)
+            meth[vids] = clamp_metric(torch.from_numpy(meth[vids]), lhmin,
+                                      lhmax).numpy()
     return torch.from_numpy(meth).to(met.device)
 
 
@@ -111,7 +114,8 @@ def parmmg_run(pm) -> tuple:
     AdaptStats)."""
     from .api.params import check_input_data
     info = pm.info
-    check_input_data(info)
+    check_input_data(info, met_is_aniso=(
+        pm.met is not None and getattr(pm.met, "ndim", 1) == 2))
     _check_slice(pm)
     t0 = time.perf_counter()
     mesh, met = pm._build_core_mesh()

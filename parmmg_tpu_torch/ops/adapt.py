@@ -164,10 +164,8 @@ def adapt_mesh(mesh: Mesh, met: torch.Tensor, max_cycles: int = 50,
                hausd: float | None = None) -> tuple:
     """Host driver: cycles until no topological change (with a wide-budget
     verification cycle), capacity managed by regrowth; then the sliver
-    polish.  Returns (mesh, met, AdaptStats)."""
-    if met.dim() != 1:
-        raise NotImplementedError(
-            "anisotropic metrics are not yet ported to parmmg_tpu_torch")
+    polish.  ``met`` is an iso size map [capP] or a packed tensor map
+    [capP, 6].  Returns (mesh, met, AdaptStats)."""
     stats = AdaptStats()
     mesh = analyze_mesh(mesh, ANGEDG if angedg is None else angedg).mesh
     quiet = 0

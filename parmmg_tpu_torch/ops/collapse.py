@@ -19,7 +19,7 @@ from .edges import (NEG_INF, PACK_LIMIT, PRI_MIN, claim_channels,
                     wave_budget)
 from .primitives import (lexsort, reduce_drop, segment_first, set_drop,
                          topk_lowest_index)
-from .quality import edge_length_iso, quality_from_points
+from .quality import corner_metric, edge_length_iso, quality_from_points
 
 
 class CollapseResult(NamedTuple):
@@ -79,7 +79,7 @@ def collapse_wave(mesh: Mesh, met: torch.Tensor, lmin: float = LSHRT,
                 stale_tets.repeat_interleave(4), "amax")[:capP]
             short = short & ~stale_v[va_f] & ~stale_v[vb_f]
     else:
-        q_tet = quality_from_points(mesh.vert[tvl])
+        q_tet = quality_from_points(mesh.vert[tvl], corner_metric(met, tvl))
         bad_tet = mesh.tmask & (q_tet < sliver_q)
         bad_edge = reduce_drop(
             torch.zeros(Efull, dtype=torch.bool, device=dev),
@@ -180,19 +180,24 @@ def collapse_wave(mesh: Mesh, met: torch.Tensor, lmin: float = LSHRT,
         isb = (mesh.ftag[:, f] & MG_BDY) != 0
         flip = (n_old * n_new).sum(-1) <= 0
         bad = bad | (isb & flip & (kc != f))
-    for j in range(4):
-        lnew = edge_length_iso(kept_p, p[:, j], met[kept_c], met[tvl[:, j]])
-        bad = bad | ((lnew > lmax) & (kc != j))
+    if met.dim() == 1:        # overlong new edges: iso only, as in JAX
+        for j in range(4):
+            lnew = edge_length_iso(kept_p, p[:, j], met[kept_c],
+                                   met[tvl[:, j]])
+            bad = bad | ((lnew > lmax) & (kc != j))
 
     inf = float("inf")
-    q_ball = quality_from_points(vpos) if sliver_q is None else q_tet
+    mq = corner_metric(met, tvl)
+    q_ball = quality_from_points(vpos, mq) if sliver_q is None else q_tet
     idx4c = torch.cat([torch.where(mesh.tmask, tv[:, k],
                                    _full((), capP, tv)) for k in range(4)])
     ballq_old = reduce_drop(
         torch.full((capP + 1,), inf, device=dev), idx4c,
         torch.where(mesh.tmask, q_ball, torch.full_like(q_ball, inf))
         .repeat(4), "amin")
-    qv = quality_from_points(p)
+    mq_cl = None if mq is None else torch.where(
+        oh[..., None], met[kept_c][:, None, :], mq)
+    qv = quality_from_points(p, mq_cl)
     row_val = torch.where(bad, torch.full_like(qv, -inf), qv)
     mism4 = torch.cat([has_c[:, k] & ~corner_max[:, k] & mesh.tmask
                        for k in range(4)])

@@ -19,8 +19,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG.parent / "build"
-SOURCES = ("edge_length_iso", "score_count", "tet_quality", "merge_prefix",
-           "radix_sort", "segment_flags")
+SOURCES = ("edge_length_iso", "edge_length_ani", "score_count",
+           "tet_quality", "merge_prefix", "radix_sort", "segment_flags")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

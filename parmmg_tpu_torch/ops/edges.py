@@ -4,8 +4,8 @@
 All 6*capT tet edges are sorted by (min vid, max vid); the first slot of
 each key segment is the unique edge.  The sorts and segment heads run on
 the sort engine as the JAX package runs them on the TPU: ``radix_sort``
-(K7, with K5 inside) and ``segment_flags`` (K8).  ``edge_lengths`` (K1)
-and ``topk_prep`` / ``topk_prep3`` (K3 / K4) dispatch to the CUDA kernels
+(K7, with K5 inside) and ``segment_flags`` (K8).  ``edge_lengths`` (K1
+for an iso metric, K2 for a tensor metric) and ``topk_prep`` / ``topk_prep3`` (K3 / K4) dispatch to the CUDA kernels
 of ``ops/kernels.py`` too.
 """
 from __future__ import annotations
@@ -158,11 +158,11 @@ def _edges_epilogue(mesh: Mesh, order, ka, kb, first,
 
 
 def edge_lengths(mesh: Mesh, et: EdgeTable, met: torch.Tensor):
-    """[capE] iso metric length of each unique edge (K1 kernel)."""
-    if met.dim() != 1:
-        raise NotImplementedError(
-            "anisotropic metrics are not yet ported to parmmg_tpu_torch")
-    return kernels.edge_lengths_iso(mesh.vert, met, et.ev)
+    """[capE] metric length of each unique edge: K1 for an iso metric
+    [capP], K2 for a packed tensor metric [capP, 6]."""
+    if met.dim() == 1:
+        return kernels.edge_lengths_iso(mesh.vert, met, et.ev)
+    return kernels.edge_lengths_ani(mesh.vert, met, et.ev)
 
 
 def topk_prep(cand: torch.Tensor, val: torch.Tensor):

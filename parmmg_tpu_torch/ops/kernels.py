@@ -1,12 +1,14 @@
 """The port's hand-written CUDA kernels, their wrappers and plain versions.
 
-Seven TPU kernels of ``parmmg_tpu/ops/pallas_kernels.py`` run on the main
-path, each replaced by a CUDA kernel in ``csrc/``:
+The eight TPU kernels of ``parmmg_tpu/ops/pallas_kernels.py``, each
+replaced by a CUDA kernel in ``csrc/`` (K1 runs on the iso-metric path, K2
+on the tensor-metric path, the others on both):
 
 =================  ==========================  ===========================
 wrapper            CUDA source                 replaces
 =================  ==========================  ===========================
 edge_lengths_iso   csrc/edge_length_iso.cu     edge_length_iso_pallas (K1)
+edge_lengths_ani   csrc/edge_length_ani.cu     edge_length_ani_pallas (K2)
 score_count        csrc/score_count.cu         score_count_pallas (K3)
 score3_count       csrc/score_count.cu         score3_count_pallas (K4)
 merge_prefix       csrc/merge_prefix.cu        merge_prefix_pallas (K5)
@@ -33,15 +35,18 @@ import torch
 
 from ..core.constants import INT32_MAX
 from . import cuda_build
-from .quality import edge_length_iso, quality_from_points
+from .quality import edge_length_ani, edge_length_iso, quality_from_points
 
-LAUNCHES = {"edge_lengths_iso": 0, "score_count": 0, "score3_count": 0,
-            "tet_quality": 0, "merge_prefix": 0, "radix_sort": 0,
-            "segment_flags": 0}
+LAUNCHES = {"edge_lengths_iso": 0, "edge_lengths_ani": 0, "score_count": 0,
+            "score3_count": 0, "tet_quality": 0, "merge_prefix": 0,
+            "radix_sort": 0, "segment_flags": 0}
 
 _P = ctypes.c_void_p
 _SIGS = {
     "pm_edge_lengths_iso": ("edge_length_iso",
+                            [_P, _P, _P, _P, ctypes.c_int,
+                             ctypes.c_longlong, _P]),
+    "pm_edge_lengths_ani": ("edge_length_ani",
                             [_P, _P, _P, _P, ctypes.c_int,
                              ctypes.c_longlong, _P]),
     "pm_score_count": ("score_count",
@@ -115,33 +120,53 @@ def _stream(t):
 
 
 # ---------------------------------------------------------------------------
-# K1: iso edge length with the endpoint gathers folded in
+# K1 / K2: iso / aniso edge length with the endpoint gathers folded in
 # ---------------------------------------------------------------------------
-def edge_lengths_iso_plain(vert, met, ev):
+def _endpoints(vert, met, ev):
     capP = vert.shape[0]
     i0 = ev[:, 0].clamp(0, capP - 1).long()
     i1 = ev[:, 1].clamp(0, capP - 1).long()
-    return edge_length_iso(vert[i0], vert[i1], met[i0], met[i1])
+    return vert[i0], vert[i1], met[i0], met[i1]
+
+
+def edge_lengths_iso_plain(vert, met, ev):
+    return edge_length_iso(*_endpoints(vert, met, ev))
+
+
+def edge_lengths_ani_plain(vert, met6, ev):
+    return edge_length_ani(*_endpoints(vert, met6, ev))
+
+
+def _edge_lengths(name, plain, vert, met, ev, met_cols):
+    capP = vert.shape[0]
+    _check("vert", vert, torch.float32, (capP, 3))
+    _check("met", met, torch.float32, (capP,) + met_cols)
+    _check("ev", ev, torch.int32)
+    if ev.dim() != 2 or ev.shape[1] != 2:
+        raise ValueError("ev must be [n, 2]")
+    if not _on_card(vert, met, ev):
+        return plain(vert, met, ev)
+    n = ev.shape[0]
+    out = torch.empty(n, dtype=torch.float32, device=vert.device)
+    if n:
+        _launch(f"pm_{name}", vert.data_ptr(), met.data_ptr(), ev.data_ptr(),
+                out.data_ptr(), capP, n, _stream(vert))
+        LAUNCHES[name] += 1
+    return out
 
 
 def edge_lengths_iso(vert, met, ev):
     """[capE] metric length of edges ``ev`` [capE, 2] (ids clipped to
     [0, capP)) under the iso size map ``met`` [capP]."""
-    capP = vert.shape[0]
-    _check("vert", vert, torch.float32, (capP, 3))
-    _check("met", met, torch.float32, (capP,))
-    _check("ev", ev, torch.int32)
-    if ev.dim() != 2 or ev.shape[1] != 2:
-        raise ValueError("ev must be [n, 2]")
-    if not _on_card(vert, met, ev):
-        return edge_lengths_iso_plain(vert, met, ev)
-    n = ev.shape[0]
-    out = torch.empty(n, dtype=torch.float32, device=vert.device)
-    if n:
-        _launch("pm_edge_lengths_iso", vert.data_ptr(), met.data_ptr(),
-                ev.data_ptr(), out.data_ptr(), capP, n, _stream(vert))
-        LAUNCHES["edge_lengths_iso"] += 1
-    return out
+    return _edge_lengths("edge_lengths_iso", edge_lengths_iso_plain, vert,
+                         met, ev, ())
+
+
+def edge_lengths_ani(vert, met6, ev):
+    """[capE] metric length of edges ``ev`` [capE, 2] (ids clipped to
+    [0, capP)) under the packed tensor metric ``met6`` [capP, 6]."""
+    return _edge_lengths("edge_lengths_ani", edge_lengths_ani_plain, vert,
+                         met6, ev, (6,))
 
 
 # ---------------------------------------------------------------------------

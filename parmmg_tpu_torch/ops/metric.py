@@ -1,5 +1,8 @@
-"""Iso metric synthesis, clamping, hausd bound and gradation (port of
-``ops/metric.py``).  Anisotropic metrics are not yet ported."""
+"""Metric synthesis, clamping, hausd bound and gradation (port of
+``ops/metric.py``).  A metric is an iso size map [capP] or a packed tensor
+map [capP, 6] (m11, m12, m13, m22, m23, m33); the hausd bound and the
+gradation apply to iso metrics only and return a tensor metric as it is,
+as in the JAX package."""
 from __future__ import annotations
 
 import numpy as np
@@ -39,8 +42,10 @@ def metric_optim(mesh: Mesh) -> torch.Tensor:
 
 def hausd_metric_bound(mesh: Mesh, met, hausd: float, hmin: float):
     """Bound boundary sizes by the surface approximation tolerance
-    (h <= sqrt(8 hausd / kappa)); host numpy, once per run."""
+    (h <= sqrt(8 hausd / kappa)); host numpy, once per run.  Iso only."""
     from .analysis import boundary_vertex_normals
+    if met.dim() != 1:
+        return met
     vn = boundary_vertex_normals(mesh).cpu().numpy()
     tm = mesh.tmask.cpu().numpy()
     tet = mesh.tet.cpu().numpy()[tm]
@@ -74,16 +79,25 @@ def hausd_metric_bound(mesh: Mesh, met, hausd: float, hmin: float):
 
 
 def clamp_metric(met: torch.Tensor, hmin: float, hmax: float):
-    if met.dim() != 1:
-        raise NotImplementedError(
-            "anisotropic metrics are not yet ported to parmmg_tpu_torch")
-    return torch.clamp(met, hmin, hmax)
+    """Iso: clamp sizes to [hmin, hmax]; tensor: clamp each tensor's
+    eigenvalues to [1/hmax^2, 1/hmin^2] and rebuild V diag(w) V^T."""
+    if met.dim() == 1:
+        return torch.clamp(met, hmin, hmax)
+    from .quality import unpack_sym
+    w, v = torch.linalg.eigh(unpack_sym(met))
+    w = torch.clamp(w, 1.0 / hmax ** 2, 1.0 / hmin ** 2)
+    mc = torch.einsum("...ij,...j,...kj->...ik", v, w, v)
+    return torch.stack([mc[..., 0, 0], mc[..., 0, 1], mc[..., 0, 2],
+                        mc[..., 1, 1], mc[..., 1, 2], mc[..., 2, 2]], -1)
 
 
 def gradation(mesh: Mesh, met: torch.Tensor, hgrad: float = HGRAD_DEFAULT,
               max_sweeps: int = 20) -> torch.Tensor:
     """Bound relative size growth along edges (Mmg -hgrad): h_b <= h_a +
-    (hgrad - 1) d, by ``max_sweeps`` Jacobi scatter-min sweeps."""
+    (hgrad - 1) d, by ``max_sweeps`` Jacobi scatter-min sweeps.  Iso
+    only: a tensor metric is returned as it is."""
+    if met.dim() != 1:
+        return met
     ev = tet_edge_vertices(mesh.tet).reshape(-1, 2)
     evl = ev.long()
     valid = mesh.tmask.repeat_interleave(6)

@@ -27,6 +27,41 @@ def unpack_sym(m6: torch.Tensor) -> torch.Tensor:
     return torch.stack([row0, row1, row2], -2)
 
 
+def _fma(a, b, c):
+    """float32 ``a * b + c`` rounded once (a fused multiply-add), through
+    float64 where the float32 product is exact."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def quad_form(e: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """e^T M e for e [..., 3] and M [..., 3, 3] (broadcast), rounded as
+    ``jnp.einsum("...i,...ij,...j->...")`` rounds on the CPU: XLA's first
+    dot sums e_i M_ij over i as a chain of FMAs, its second sums e_j d_j
+    over j with plain adds."""
+    d = [_fma(m[..., 2, j], e[..., 2],
+              _fma(m[..., 1, j], e[..., 1], m[..., 0, j] * e[..., 0]))
+         for j in range(3)]
+    return e[..., 0] * d[0] + e[..., 1] * d[1] + e[..., 2] * d[2]
+
+
+def det3(a: torch.Tensor) -> torch.Tensor:
+    """Determinant of [..., 3, 3]: ``jnp.linalg.det``'s closed form for
+    3x3, with the multiply-adds XLA's CPU code fuses, so the bits agree."""
+    s = _fma(a[..., 0, 0] * a[..., 1, 1], a[..., 2, 2],
+             a[..., 0, 1] * a[..., 1, 2] * a[..., 2, 0])
+    s = _fma(a[..., 0, 2] * a[..., 1, 0], a[..., 2, 1], s)
+    s = _fma(-(a[..., 0, 2] * a[..., 1, 1]), a[..., 2, 0], s)
+    s = _fma(-(a[..., 0, 0] * a[..., 1, 2]), a[..., 2, 1], s)
+    return _fma(-(a[..., 0, 1] * a[..., 1, 0]), a[..., 2, 2], s)
+
+
+def iso_to_tensor(h: torch.Tensor) -> torch.Tensor:
+    """Iso size h -> packed tensor diag(1/h^2)."""
+    w = 1.0 / torch.clamp(h, min=EPSD) ** 2
+    z = torch.zeros_like(w)
+    return torch.stack([w, z, z, w, z, w], -1)
+
+
 def edge_length_iso(p0, p1, h0, h1):
     """Metric length of segment p0p1 with linearly varying iso size
     (log-mean of 1/h, arithmetic mean when h0 ~ h1)."""
@@ -42,12 +77,34 @@ def edge_length_iso(p0, p1, h0, h1):
     return d * lm
 
 
+def edge_length_ani(p0, p1, m0, m1):
+    """Aniso metric length from the endpoint tensors [..., 6]:
+    l_i = sqrt(e^T M_i e), l = 2/3 (l0^2 + l0 l1 + l1^2) / (l0 + l1)."""
+    e = p1 - p0
+    q0 = quad_form(e, unpack_sym(m0))
+    q1 = quad_form(e, unpack_sym(m1))
+    l0 = torch.sqrt(torch.clamp(q0, min=0.0))
+    l1 = torch.sqrt(torch.clamp(q1, min=0.0))
+    s = torch.clamp(l0 + l1, min=EPSD)
+    return (2.0 / 3.0) * (l0 * l0 + l0 * l1 + l1 * l1) / s
+
+
+def corner_metric(met: torch.Tensor, tets: torch.Tensor):
+    """The per-corner metric for :func:`quality_from_points` of the tets
+    with vertex ids ``tets`` [..., 4]: None under an iso metric (quality
+    is Euclidean, a constant local scale cancels), the packed tensors
+    [..., 4, 6] under a tensor metric."""
+    return None if met.dim() == 1 else met[tets]
+
+
 def tet_edge_lengths(mesh: Mesh, met: torch.Tensor) -> torch.Tensor:
-    """[capT, 6] iso metric length of every tet edge."""
+    """[capT, 6] metric length of every tet edge (iso [capP] or packed
+    tensor [capP, 6] metric)."""
     ev = tet_edge_vertices(mesh.tet).long()
     p0 = mesh.vert[ev[..., 0]]
     p1 = mesh.vert[ev[..., 1]]
-    return edge_length_iso(p0, p1, met[ev[..., 0]], met[ev[..., 1]])
+    length = edge_length_iso if met.dim() == 1 else edge_length_ani
+    return length(p0, p1, met[ev[..., 0]], met[ev[..., 1]])
 
 
 def quality_from_points(p: torch.Tensor, m6: torch.Tensor | None = None):
@@ -59,14 +116,19 @@ def quality_from_points(p: torch.Tensor, m6: torch.Tensor | None = None):
     vol = (d1 * torch.linalg.cross(d2, d3, dim=-1)).sum(-1) / 6.0
     e = p[..., _EDGE_J, :] - p[..., _EDGE_I, :]
     if m6 is None:
-        l2 = (e * e).sum(-1)
+        rap = (e * e).sum(-1).sum(-1)
         num = ALPHA_TET * vol
     else:
+        # the metric branch rounds as the JAX package's does on the CPU:
+        # the quadratic forms and the determinant as above, the six edge
+        # terms summed left to right (torch's sum pairs them)
         mbar = unpack_sym(m6.mean(dim=-2))
-        l2 = torch.einsum("...ei,...ij,...ej->...e", e, mbar, e)
-        det = torch.linalg.det(mbar)
+        l2 = quad_form(e, mbar[..., None, :, :])
+        rap = l2[..., 0]
+        for k in range(1, 6):
+            rap = rap + l2[..., k]
+        det = det3(mbar)
         num = ALPHA_TET * vol * torch.sqrt(torch.clamp(det, min=0.0))
-    rap = l2.sum(-1)
     q = num / torch.clamp(rap, min=EPSD) ** 1.5
     return torch.where(vol > 0, torch.clamp(q, max=1.0),
                        torch.clamp(q, max=0.0))

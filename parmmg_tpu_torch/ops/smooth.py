@@ -13,7 +13,7 @@ from ..core.constants import (EPSD, IDIR, MG_BDY, MG_CRN, MG_GEO, MG_NOM,
 from ..core.mesh import Mesh, replace
 from .edges import PRI_MIN, _mul32, to_int32_bits
 from .primitives import reduce_drop
-from .quality import quality_from_points
+from .quality import corner_metric, quality_from_points
 
 FLAT_RATIO = 0.9998
 _IDIR = IDIR.tolist()
@@ -92,7 +92,8 @@ def smooth_wave(mesh: Mesh, met: torch.Tensor, wave: int = 0,
     prop = torch.where(bdy_ok[:, None], mesh.vert + dvec, prop)
     movable = movable_int | bdy_ok
 
-    q_old = quality_from_points(vpos)
+    mq = corner_metric(met, tvl)
+    q_old = quality_from_points(vpos, mq)
     minq_old = reduce_drop(
         torch.full((capP + 1,), inf, device=dev), idx4,
         torch.where(mesh.tmask, q_old, torch.full_like(q_old, inf))
@@ -122,6 +123,7 @@ def smooth_wave(mesh: Mesh, met: torch.Tensor, wave: int = 0,
         use_opt = movable_int & (minq_old < opt_q) & (dacc[:capP, 3] > 0)
         prop = torch.where(use_opt[:, None], prop_opt, prop)
 
+    mq4 = None if mq is None else mq.repeat(4, 1, 1)
     newpos = mesh.vert
     best_gain = torch.zeros(capP, device=dev)
     tmask4 = mesh.tmask.repeat(4)
@@ -134,7 +136,7 @@ def smooth_wave(mesh: Mesh, met: torch.Tensor, wave: int = 0,
             vk = vpos.clone()
             vk[:, k] = newp[:, k]
             variants.append(vk)
-        qv = quality_from_points(torch.cat(variants))
+        qv = quality_from_points(torch.cat(variants), mq4)
         minq_new = reduce_drop(
             torch.full((capP + 1,), inf, device=dev), idx4,
             torch.where(tmask4, qv, torch.full_like(qv, inf)), "amin")

@@ -19,9 +19,14 @@ from .edges import (PACK_LIMIT, claim_shells, free_rows, scatter_argmax2,
                     segmented_or, sort_pairs, topk_prep, topk_prep3,
                     unique_edges, wave_budget)
 from .primitives import set_drop, topk_lowest_index
-from .quality import quality_from_points
+from .quality import corner_metric, quality_from_points
 
 SWAP_GAIN = 1.053
+
+
+def _quality(vert, tets, met):
+    """Quality of the tets with vertex ids ``tets`` [..., 4] (int64)."""
+    return quality_from_points(vert[tets], corner_metric(met, tets))
 
 # local edge index for a corner pair (i, j) — inverse of IARE
 _EDGE_OF = np.zeros((4, 4), np.int64)
@@ -64,7 +69,7 @@ def swap_edges_wave(mesh: Mesh, met: torch.Tensor,
     inf = float("inf")
 
     ft0_, ft1_, ft2_ = et.shell3[:, 0], et.shell3[:, 1], et.shell3[:, 2]
-    q_tet = quality_from_points(mesh.vert[mesh.tet.long()])
+    q_tet = _quality(mesh.vert, mesh.tet.long(), met)
     s0f = ft0_.clamp(0, capT - 1).long()
     s1f = ft1_.clamp(0, capT - 1).long()
     s2f = ft2_.clamp(0, capT - 1).long()
@@ -271,7 +276,7 @@ def swap_edges_wave(mesh: Mesh, met: torch.Tensor,
     q_old = torch.minimum(q_old, torch.where(base32, q_tet[s2],
                                              torch.full_like(q_old, inf)))
     new_ab = torch.cat([new_a, new_b])
-    q_ab = quality_from_points(vert[new_ab.long()])
+    q_ab = _quality(vert, new_ab.long(), met)
     q_new = torch.minimum(q_ab[:E], q_ab[E:])
     cand = cand & (q_new > torch.clamp(SWAP_GAIN * q_old, min=QUAL_FLOOR))
 
@@ -382,7 +387,7 @@ def swap23_wave(mesh: Mesh, met: torch.Tensor, budget_div: int = 8,
     capT, capP = mesh.capT, mesh.capP
     dev = mesh.device
     inf = float("inf")
-    q_tet = quality_from_points(mesh.vert[mesh.tet.long()])
+    q_tet = _quality(mesh.vert, mesh.tet.long(), met)
     if facesort:
         mesh, fstar, t2_full, f2_full, cand_full = _pair_fields_facesort(
             mesh, q_tet, capT)
@@ -427,8 +432,7 @@ def swap23_wave(mesh: Mesh, met: torch.Tensor, budget_div: int = 8,
         (signed_vol(n3) > EPSD)
     cand = cand & (mesh.tref[t1] == mesh.tref[t2])
     q_old = torch.minimum(q_tet[t1], q_tet[t2])
-    q_fan = quality_from_points(
-        mesh.vert[torch.cat([n1, n2, n3]).long()])
+    q_fan = _quality(mesh.vert, torch.cat([n1, n2, n3]).long(), met)
     q_new = torch.minimum(torch.minimum(q_fan[:F], q_fan[F:2 * F]),
                           q_fan[2 * F:])
     cand = cand & pos & \

@@ -12,7 +12,8 @@ from ..core.constants import EDGE_FACES, EPSD, LLONG, QUAL_FLOOR
 from ..core.mesh import Mesh, replace
 from .edges import claim_shells, free_rows, unique_edges, wave_budget
 from .primitives import set_drop, topk_lowest_index
-from .quality import edge_length_iso, quality_from_points
+from .quality import (corner_metric, edge_length_ani, edge_length_iso,
+                      quality_from_points)
 from .swap import SWAP_GAIN, _EDGE_OF
 
 RING_MAX = 6
@@ -37,7 +38,8 @@ def swapgen_wave(mesh: Mesh, met: torch.Tensor, budget_div: int = 8,
     eof = torch.from_numpy(_EDGE_OF).to(dev)
     efaces = torch.from_numpy(EDGE_FACES).to(dev)
 
-    q_tet = quality_from_points(mesh.vert[mesh.tet.long()])
+    tvl = mesh.tet.long()
+    q_tet = quality_from_points(mesh.vert[tvl], corner_metric(met, tvl))
     sh_f = et.shell3
     shc_f = sh_f.clamp(0, capT - 1).long()
     slot_valid_f = sh_f >= 0
@@ -149,8 +151,8 @@ def swapgen_wave(mesh: Mesh, met: torch.Tensor, budget_div: int = 8,
 
     def _elen(gu, gv):
         gu, gv = gu.long(), gv.long()
-        return edge_length_iso(mesh.vert[gu], mesh.vert[gv], met[gu],
-                               met[gv])
+        length = edge_length_iso if met.dim() == 1 else edge_length_ani
+        return length(mesh.vert[gu], mesh.vert[gv], met[gu], met[gv])
 
     kvalid = torch.arange(NTRI, device=dev)[None, :] < (n - 2)[:, None]
     mvalid = kvalid.repeat_interleave(2, dim=1)
@@ -195,8 +197,9 @@ def swapgen_wave(mesh: Mesh, met: torch.Tensor, budget_div: int = 8,
                                          torch.where(flip, gj, gi), gk, b],
                                         1))
         rows = torch.stack(tet_rows, 1)                  # [K, NT_NEW, 4]
-        qf = quality_from_points(
-            mesh.vert[rows.reshape(K * NT_NEW, 4).long()]).reshape(K, NT_NEW)
+        rl = rows.reshape(K * NT_NEW, 4).long()
+        qf = quality_from_points(mesh.vert[rl],
+                                 corner_metric(met, rl)).reshape(K, NT_NEW)
         fan_q.append(torch.where(mvalid, qf,
                                  torch.full_like(qf, inf)).min(dim=1).values)
         fan_ok.append(active_fan & ok)

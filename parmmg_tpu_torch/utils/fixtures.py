@@ -64,3 +64,19 @@ def analytic_iso_metric(vert: np.ndarray, kind: str = "uniform",
         d = np.abs(vert[:, 0] - 0.5)
         return h * (0.2 + 4.0 * d)
     raise ValueError(kind)
+
+
+def analytic_ani_metric(vert: np.ndarray, kind: str = "shock",
+                        h: float = 0.1, h_tan: float = 0.45):
+    """Packed tensor test metrics [n, 6] (m11, m12, m13, m22, m23, m33):
+    ``shock`` asks for spacing ``h (0.2 + 4 |x - 0.5|)`` across the plane
+    x = 0.5 and ``h_tan`` along it."""
+    if kind == "shock":
+        d = np.abs(vert[:, 0] - 0.5)
+        hx = h * (0.2 + 4.0 * d)
+        m = np.zeros((vert.shape[0], 6))
+        m[:, 0] = 1.0 / hx ** 2
+        m[:, 3] = 1.0 / h_tan ** 2
+        m[:, 5] = 1.0 / h_tan ** 2
+        return m
+    raise ValueError(kind)

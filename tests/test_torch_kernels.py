@@ -1,8 +1,9 @@
 """Port kernels (K1 edge length, K3/K4 scoring, K6 quality) against the
 JAX package's Pallas kernels, run in interpret mode as tests/test_pallas.py
-and tests/test_hotloop.py run them.  On the CPU each wrapper runs its
-plain PyTorch version; the CUDA kernels themselves are held against the
-same plain versions by the ``cuda``-marked test (and by chip_smoke.py).
+and tests/test_hotloop.py run them (K2 in tests/test_torch_aniso.py).  On
+the CPU each wrapper runs its plain PyTorch version; the CUDA kernels
+themselves, K2 included (rtol 3e-5 / atol 3e-6), are held against the same
+plain versions by the ``cuda``-marked test (and by chip_smoke.py).
 
 Tolerances: K1 rtol 2e-5 / atol 2e-6; K6 iso rtol 3e-5 / atol 3e-6, aniso
 rtol 1e-4 / atol 1e-5 (float32 formulas evaluated in another order);
@@ -115,6 +116,9 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
                        K.edge_lengths_iso_plain(vert, met, ev))
     assert torch.equal(K.tet_quality(vert, tet, tm),
                        K.tet_quality_plain(vert, tet, tm))
+    met6 = torch.rand(10, 6)
+    assert torch.equal(K.edge_lengths_ani(vert, met6, ev),
+                       K.edge_lengths_ani_plain(vert, met6, ev))
     K.score_count(mask, met.repeat(2))
     K.score3_count(mask, met.repeat(2), met.repeat(2), met.repeat(2))
     assert all(v == 0 for v in K.LAUNCHES.values())
@@ -122,6 +126,8 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
         K.edge_lengths_iso(vert.double(), met, ev)
     with pytest.raises(ValueError):
         K.tet_quality(vert, tet[:, :3].contiguous(), tm)
+    with pytest.raises(ValueError):
+        K.edge_lengths_ani(vert, met6[:, :3].contiguous(), ev)
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
@@ -155,6 +161,12 @@ def test_cuda_kernels_match_plain_versions():
     torch.testing.assert_close(K.edge_lengths_iso(vert, met, ev),
                                K.edge_lengths_iso_plain(vert, met, ev),
                                rtol=2e-5, atol=2e-6)
+    w = 1.0 / met ** 2
+    met6 = torch.stack([w, 0.1 * w, -0.2 * w, 2.0 * w, 0.05 * w, 0.5 * w],
+                       dim=1).contiguous()
+    torch.testing.assert_close(K.edge_lengths_ani(vert, met6, ev),
+                               K.edge_lengths_ani_plain(vert, met6, ev),
+                               rtol=3e-5, atol=3e-6)
     torch.testing.assert_close(K.tet_quality(vert, tet, tm),
                                K.tet_quality_plain(vert, tet, tm),
                                rtol=3e-5, atol=3e-6)

@@ -17,6 +17,15 @@ counts, its vertex arrays and the quality distribution of its live tets.
 The wave inputs are states of a seeded cube run (mesh
 adapted by the port for a few cycles, interior vertices jittered with
 numpy's default_rng) so that every wave has work to do.
+
+Every wave also runs on a tensor-metric (anisotropic) state: the same
+jittered mesh under the planar shock tensor metric, its dead rows the
+identity.  The integer arrays are held exactly there too, on the same
+float inputs; the split's unique-edge lengths (K2's plain version against
+XLA's einsum) to rtol 3e-5 / atol 3e-6, the JAX package's tolerance for
+that kernel.  A port-only case shows that the dead metric rows do not
+reach a live result: one whole cycle with garbage in them writes the same
+mesh and the same live metric rows.
 """
 import numpy as np
 import jax
@@ -36,7 +45,10 @@ from parmmg_tpu_torch.ops import analysis as TN, collapse as TC
 from parmmg_tpu_torch.ops import edges as TE
 from parmmg_tpu_torch.ops import quality as TQ, smooth as TS, split as TP
 from parmmg_tpu_torch.ops import swap as TW, swapgen as TG
-from parmmg_tpu_torch.utils.fixtures import analytic_iso_metric, cube_mesh
+from parmmg_tpu_torch.utils.fixtures import (analytic_ani_metric,
+                                             analytic_iso_metric, cube_mesh)
+
+IDENTITY6 = np.array([1, 0, 0, 1, 0, 1], np.float32)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -120,25 +132,42 @@ def states():
         vert[inner] += (rng.standard_normal((inner.sum(), 3))
                         * amp).astype(np.float32)
     jit = tmesh.replace(m, vert=torch.from_numpy(vert))
-    return {"sized": m, "jitter": jit, "met": met}
+    met6 = analytic_ani_metric(vert.astype(np.float64), "shock", h=0.3,
+                               h_tan=0.6).astype(np.float32)
+    met6[~m.vmask.numpy()] = IDENTITY6
+    return {"sized": m, "jitter": jit, "met": met,
+            "met6": torch.from_numpy(met6)}
+
+
+def _state_met(states, aniso):
+    return states["met6"] if aniso else states["met"]
 
 
 # ---- waves ----------------------------------------------------------------
 
-@pytest.mark.parametrize("case", [(2, 0.25, "uniform"), (3, 0.3, "shock")])
+@pytest.mark.parametrize("case", [(2, 0.25, "uniform"), (3, 0.3, "shock"),
+                                  (3, 0.15, "ani-shock")])
 def test_split_then_collapse_exact(case):
     n, h, kind = case
     tm = TN.analyze_mesh(_cube(n)).mesh
     jm = _to_jax(tm)
-    met = analytic_iso_metric(tm.vert.numpy().astype(np.float64), kind,
-                              h).astype(np.float32)
+    v64 = tm.vert.numpy().astype(np.float64)
+    if kind.startswith("ani-"):
+        met = analytic_ani_metric(v64, kind[4:], h, h_tan=0.45)
+        met[~tm.vmask.numpy()] = IDENTITY6
+        tol = dict(rtol=3e-5, atol=3e-6)
+    else:
+        met = analytic_iso_metric(v64, kind, h)
+        tol = dict(rtol=2e-5, atol=2e-6)
+    met = met.astype(np.float32)
     jmet, tmet = jnp.asarray(met), torch.from_numpy(met)
     jet = _jit(JE.unique_edges, shell_slots=0)(jm)
     jl = _jit(JE.edge_lengths)(jm, jet, jmet)
     tet = TE.unique_edges(tm, shell_slots=0)
     tl = torch.from_numpy(np.array(jl))
-    np.testing.assert_allclose(TE.edge_lengths(tm, tet, tmet).numpy(),
-                               np.asarray(jl), rtol=2e-5, atol=2e-6)
+    live = tet.emask.numpy()
+    np.testing.assert_allclose(TE.edge_lengths(tm, tet, tmet).numpy()[live],
+                               np.asarray(jl)[live], **tol)
     jr = _jit(JP.split_wave, hausd=0.01)(jm, jmet, et=jet, lens=jl)
     tr = TP.split_wave(tm, tmet, hausd=0.01, et=tet, lens=tl)
     assert int(tr.nsplit) == int(jr.nsplit) > 0
@@ -157,18 +186,29 @@ def test_split_then_collapse_exact(case):
     assert int(tc.ncollapse) == int(jc.ncollapse)
     assert bool(tc.surface_changed) == bool(jc.surface_changed)
     _assert_mesh(jc.mesh, tc.mesh)
-    jf = _jit(JP.split_wave, fem_only=True, budget_div=2)(jm, jmet)
-    tf = TP.split_wave(tm, tmet, fem_only=True, budget_div=2)
+    # tensor metric: eager, where the unique-edge lengths round as the
+    # port's own do (the fused program's round differently, and the FEM
+    # wave's top-K order follows them)
+    kw = dict(fem_only=True, budget_div=2)
+    jf = JP.split_wave(jm, jmet, **kw) if kind.startswith("ani-") else \
+        _jit(JP.split_wave, **kw)(jm, jmet)
+    tf = TP.split_wave(tm, tmet, **kw)
     assert int(tf.nsplit) == int(jf.nsplit)
     _assert_mesh(jf.mesh, tf.mesh)
 
 
-@pytest.mark.parametrize("sliver_q", [None, 0.3])
-def test_collapse_exact(states, sliver_q):
-    tm, met = states["jitter"], states["met"]
+@pytest.mark.parametrize("sliver_q,aniso", [
+    pytest.param(None, False, id="None"), pytest.param(0.3, False, id="0.3"),
+    pytest.param(None, True, id="None-aniso"),
+    pytest.param(0.3, True, id="0.3-aniso")])
+def test_collapse_exact(states, sliver_q, aniso):
+    tm, met = states["jitter"], _state_met(states, aniso)
     jm, jmet = _to_jax(tm), jnp.asarray(met.numpy())
-    jc = _jit(JC.collapse_wave, sliver_q=sliver_q, hausd=0.01,
-              budget_div=2)(jm, jmet)
+    # tensor metric: eager, the fused program rounds the ball-quality gate
+    # differently
+    kw = dict(sliver_q=sliver_q, hausd=0.01, budget_div=2)
+    jc = JC.collapse_wave(jm, jmet, **kw) if aniso else \
+        _jit(JC.collapse_wave, **kw)(jm, jmet)
     tc = TC.collapse_wave(tm, met, sliver_q=sliver_q, hausd=0.01,
                           budget_div=2)
     assert int(tc.ncollapse) == int(jc.ncollapse) > 0
@@ -177,7 +217,14 @@ def test_collapse_exact(states, sliver_q):
 
 
 def test_swaps_exact(states):
-    tm, met = states["jitter"], states["met"]
+    _check_swaps(states["jitter"], states["met"])
+
+
+def test_swaps_exact_aniso(states):
+    _check_swaps(states["jitter"], states["met6"])
+
+
+def _check_swaps(tm, met):
     jm, jmet = _to_jax(tm), jnp.asarray(met.numpy())
     jw = _jit(JW.swap_edges_wave, hausd=0.01)(jm, jmet)
     tw = TW.swap_edges_wave(tm, met, hausd=0.01)
@@ -196,7 +243,14 @@ def test_swapgen_same_result_up_to_fan_ties(states):
     """Counts and sizes exact; the chosen fans may differ where two fans
     of a ring tie to the last ulp (module docstring), so the meshes are
     compared by their quality distribution, not slot by slot."""
-    tm, met = states["jitter"], states["met"]
+    _check_swapgen(states["jitter"], states["met"])
+
+
+def test_swapgen_same_result_up_to_fan_ties_aniso(states):
+    _check_swapgen(states["jitter"], states["met6"])
+
+
+def _check_swapgen(tm, met):
     jm, jmet = _to_jax(tm), jnp.asarray(met.numpy())
     # eager: the fused XLA program rounds the ring qualities differently
     jg = JG.swapgen_wave(jm, jmet, budget_div=2)
@@ -214,12 +268,34 @@ def test_swapgen_same_result_up_to_fan_ties(states):
         {"asymmetric": 0, "face_mismatch": 0}
 
 
-@pytest.mark.parametrize("wave,opt_q", [(3, None), (7, 0.2)])
-def test_smooth_exact(states, wave, opt_q):
-    tm, met = states["jitter"], states["met"]
+@pytest.mark.parametrize("wave,opt_q,aniso", [
+    pytest.param(3, None, False, id="3-None"),
+    pytest.param(7, 0.2, False, id="7-0.2"),
+    pytest.param(3, None, True, id="3-None-aniso"),
+    pytest.param(7, 0.2, True, id="7-0.2-aniso")])
+def test_smooth_exact(states, wave, opt_q, aniso):
+    tm, met = states["jitter"], _state_met(states, aniso)
     jm, jmet = _to_jax(tm), jnp.asarray(met.numpy())
     # eager: the fused XLA program rounds the 2% gain gate differently
     js = JS.smooth_wave(jm, jmet, wave=wave, opt_q=opt_q)
     ts = TS.smooth_wave(tm, met, wave=wave, opt_q=opt_q)
     assert int(ts.nmoved) == int(js.nmoved) > 0
     _assert_mesh(js.mesh, ts.mesh)
+
+
+def test_dead_metric_rows_reach_no_live_result(states):
+    """One whole tensor-metric cycle (split, collapse, swaps, smooth) with
+    the dead metric rows the identity, then garbage: the same mesh and the
+    same live metric rows."""
+    tm, met6 = states["jitter"], states["met6"]
+    dead = ~tm.vmask
+    rng = np.random.default_rng(9)
+    junk = met6.clone()
+    junk[dead] = torch.from_numpy(
+        rng.uniform(-1e4, 1e4, (int(dead.sum()), 6)).astype(np.float32))
+    outs = [TAd.adapt_cycle_impl(tm, m, 2, hausd=0.01) for m in (met6, junk)]
+    (ma, meta, ca), (mb, metb, cb) = outs
+    assert ca.tolist() == cb.tolist() and ca[0] > 0 and ca[2] > 0
+    _assert_mesh(_to_jax(ma), mb, vert_rtol=0)
+    live = ma.vmask
+    assert torch.equal(meta[live], metb[live])

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Run the JAX package's CLI on the input that ``chip_smoke.py`` remeshes
+"""Run the JAX package's CLI on an input that ``chip_smoke.py`` remeshes
 with the port, and print its one-line JSON report.
 
-    JAX_PLATFORMS=cpu python tools/jax_cli_reference.py [n] [workdir]
+    JAX_PLATFORMS=cpu python tools/jax_cli_reference.py [n] [workdir] [--aniso]
 
-The input is cube_mesh(n) (default 16) with the planar "shock" iso metric
-h = 1.5/n, written as Medit ``.mesh``/``.sol``; the run is ``-niter 1``.
-The port's own result on the same input is what ``chip_smoke.py`` prints
-on its ``[main]`` line, so the two can be set side by side.
+The input is cube_mesh(n) (default 16), written as Medit ``.mesh``/``.sol``;
+the run is ``-niter 1``.  The metric is the planar "shock" iso metric
+h = 1.5/n, or with ``--aniso`` the planar "shock" tensor metric
+``analytic_ani_metric(vert, "shock", h=1.5/(3n), h_tan=0.1)`` (spacing
+0.2-2.2 h across the plane x = 0.5, 0.1 along it).  The port's own result
+on the same input is what ``chip_smoke.py`` prints on its ``[main]`` and
+``[aniso]`` lines, so the two can be set side by side.
 
 The JAX package's compile-ledger listener takes (event, duration) while
 newer jax also passes keyword metadata; the listener is wrapped to drop
@@ -39,22 +42,30 @@ def _tolerant_ledger_listener():
 
 def main(argv) -> int:
     sys.path.insert(0, HERE)
+    aniso = "--aniso" in argv
+    argv = [a for a in argv if a != "--aniso"]
     n = int(argv[0]) if argv else 16
     workdir = argv[1] if len(argv) > 1 else tempfile.mkdtemp()
     from parmmg_tpu import cli
     from parmmg_tpu.io.medit import MeditMesh, write_mesh, write_sol
-    from parmmg_tpu.utils.fixtures import analytic_iso_metric, cube_mesh
+    from parmmg_tpu.utils.fixtures import (analytic_ani_metric,
+                                           analytic_iso_metric, cube_mesh)
     _tolerant_ledger_listener()
     vert, tet = cube_mesh(n)
     m = MeditMesh()
     m.vert, m.vref = vert, np.zeros(len(vert), np.int32)
     m.tetra, m.tref = tet, np.ones(len(tet), np.int32)
-    src = os.path.join(workdir, f"cube{n}.mesh")
-    sol = os.path.join(workdir, f"cube{n}.sol")
+    stem = f"cube{n}ani" if aniso else f"cube{n}"
+    src = os.path.join(workdir, f"{stem}.mesh")
+    sol = os.path.join(workdir, f"{stem}.sol")
     write_mesh(src, m)
-    write_sol(sol, analytic_iso_metric(vert, "shock", h=1.5 / n), [1])
+    if aniso:
+        write_sol(sol, analytic_ani_metric(vert, "shock", h=1.5 / (3 * n),
+                                           h_tan=0.1), [3])
+    else:
+        write_sol(sol, analytic_iso_metric(vert, "shock", h=1.5 / n), [1])
     return cli.main(["-in", src, "-sol", sol, "-out",
-                     os.path.join(workdir, f"cube{n}.jax.mesh"),
+                     os.path.join(workdir, f"{stem}.jax.mesh"),
                      "-niter", "1", "-v", "1", "-bench-json"])
 
 
