@@ -36,7 +36,20 @@ Phases (any failure exits non-zero without the final result line):
              kernel, the plain version and, where one PyTorch call computes
              the same function, that call; the least time the card could
              take (bytes / 3.35 TB/s, operations / 67 TFLOP/s float32).
-6. profile - each path once more under torch.profiler.
+6. stress  - K5 and K7 against their plain versions, exactly, each case 5
+             times (look-back order changes from run to run): sizes 1,
+             tile - 1, tile, tile + 1 and 2**24 + 3 (the look-back crosses
+             thousands of tiles); K5 on small values and on values near
+             +-2**31 whose sums wrap; K7 on full-range 32-bit keys with
+             negatives, all-equal, sorted and reverse-sorted keys, all
+             tombstones, (16, 32) bits with tombstones, and 3 words with
+             nbits (8, 16, 32).  A failure here is a look-back or stability
+             bug of the kernel, not a mesh bug.
+7. profile - each path once more under torch.profiler.
+
+Phase 5 also prints the CUDA launches per K5 and K7 call (the profiler's
+kernel count over 20 calls / 20) and fails unless K5 is one launch a call
+and K7 1 + npass.
 
 The last two lines are one JSON object with the kernel table and one JSON
 object ``{"ok": true, "device": {...}}``.
@@ -99,13 +112,15 @@ def _time_ms(fn, reps: int = 20) -> float:
 
 
 def _device_ms(fn, kernels, reps: int = 20):
-    """Device time per call of ``fn``: the CUDA kernels whose name contains
-    one of ``kernels`` (a string or a tuple), summed over ``reps`` calls
-    under torch.profiler and divided by ``reps``; None when the profiler
-    records no device time."""
+    """(device ms, device launches) per call of ``fn`` under torch.profiler
+    over ``reps`` calls: the time of the CUDA kernels whose name contains
+    one of ``kernels`` (a string or a tuple; None: every kernel, memset and
+    copy on the device), None when the profiler records no device time; and
+    every kernel, memset or copy on the device per call."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    names = (kernels,) if isinstance(kernels, str) else tuple(kernels)
+    names = (kernels,) if isinstance(kernels, str) else kernels
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -113,13 +128,17 @@ def _device_ms(fn, kernels, reps: int = 20):
             fn()
         torch.cuda.synchronize()
     tot = 0.0
+    count = 0
     for ev in prof.key_averages():
-        if any(k in ev.key for k in names):
+        on_card = ev.device_type == DeviceType.CUDA
+        if on_card:
+            count += ev.count
+        if on_card if names is None else any(k in ev.key for k in names):
             t = getattr(ev, "device_time_total", None)
             if t is None:
                 t = getattr(ev, "cuda_time_total", 0.0)
             tot += t
-    return tot / reps / 1e3 if tot > 0 else None
+    return (tot / reps / 1e3 if tot > 0 else None), count / reps
 
 
 def _bound(nbytes: float, nops: float):
@@ -358,6 +377,69 @@ def phase_aniso_repeat(workdir: str, device: str = "cuda"):
           f"byte-identical .mesh and .sol")
 
 
+def phase_stress(repeats: int = 5):
+    """K5 and K7 exactly against their plain versions at the edges of their
+    tiles and at 2**24 + 3 rows, each case ``repeats`` times."""
+    import torch
+    from parmmg_tpu_torch.core.constants import INT32_MAX
+    from parmmg_tpu_torch.ops import kernels as K
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    big = 2 ** 24 + 3
+
+    def ints(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                             dtype=torch.int64)
+
+    def same(name, fn, ref):
+        for r in range(repeats):
+            got = fn()
+            if not torch.equal(got, ref):
+                bad = int((got != ref).nonzero()[0, 0])
+                raise RuntimeError(
+                    f"[stress] {name}: run {r + 1} differs from the plain "
+                    f"version first at {bad} ({int(got[bad])} != "
+                    f"{int(ref[bad])}): a look-back or stability bug")
+    t0 = time.perf_counter()
+    ncase = 0
+    tile = K._tile("pm_merge_prefix_tile")
+    for n in (1, tile - 1, tile, tile + 1, big):
+        near = ints(2 ** 31 - 64, 2 ** 31, n)
+        near = torch.where(ints(0, 2, n) == 0, near, -near)
+        for label, x in (("small values", ints(-9, 100, n)),
+                         ("values near +-2**31, wrapping sums", near)):
+            x = x.to(torch.int32)
+            same(f"merge_prefix n={n} {label}", lambda: K.merge_prefix(x),
+                 K.merge_prefix_plain(x))
+            ncase += 1
+    tile = K._tile("pm_radix_tile")
+    for n in (1, tile - 1, tile, tile + 1, big):
+        full = ints(-2 ** 31, 2 ** 31, n).to(torch.int32)
+        up = full[torch.sort(full.long() & 0xFFFFFFFF).indices]
+        hi = torch.where(ints(0, 10, n) < 3, INT32_MAX,
+                         ints(0, 46340, n)).to(torch.int32)
+        w8 = torch.where(ints(0, 10, n) < 2, INT32_MAX,
+                         ints(0, 255, n)).to(torch.int32)
+        cases = {
+            "full-range 32-bit keys": ((full,), None),
+            "all-equal keys": ((torch.full_like(full, 12345),), None),
+            "sorted keys": ((up,), None),
+            "reverse-sorted keys": ((up.flip(0).contiguous(),), None),
+            "all tombstones, nbits 16": ((torch.full_like(full, INT32_MAX),),
+                                         (16,)),
+            "(16, 32) bits with tombstones": ((hi, full), (16, 32)),
+            "3 words, nbits (8, 16, 32)": ((w8, hi, full), (8, 16, 32)),
+        }
+        for label, (words, nbits) in cases.items():
+            same(f"radix_sort n={n} {label}",
+                 lambda: K.radix_sort(words, nbits),
+                 K.radix_sort_plain(words, nbits))
+            ncase += 1
+    print(f"[stress] {ncase} K5 and K7 cases x {repeats} runs equal to the "
+          f"plain versions ({time.perf_counter() - t0:.1f} s)")
+
+
 def phase_profile(workdir: str, stem: str):
     """A path once more under torch.profiler: device busy time against
     wall time, and the ops that take the device time."""
@@ -433,22 +515,36 @@ def phase_kernels(launches, shapes, launches_ani, shapes_ani, workdir: str):
         return err
 
     def row(name, src, line, err, ms, plain_ms, nbytes, nops, fn, kern,
-            library_ms=None, shape="", path=launches):
+            library=None, shape="", path=launches):
+        """``library``: the one PyTorch call computing the same function,
+        timed by events and by the profiler (all its device work)."""
         b, by = _bound(nbytes, nops)
-        dev_ms = _device_ms(fn, kern)
+        library_ms = None if library is None else _time_ms(library)
+        dev_ms, per_call = _device_ms(fn, kern)
+        lib_dev = None if library is None else _device_ms(library, None)[0]
         r = {"name": name, "route": "cuda",
              "source": f"parmmg_tpu_torch/csrc/{src}",
              "replaces": f"parmmg_tpu/ops/pallas_kernels.py:{line}",
              "launches": int(path[name]), "max_abs_err": err,
              "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
              "bound_by": by, "library_ms": library_ms,
-             "device_ms": dev_ms}
-        lib = "-" if library_ms is None else f"{library_ms:.4f}"
+             "device_ms": dev_ms, "device_launches_per_call": per_call,
+             "library_device_ms": lib_dev}
+        lib = ("-" if library_ms is None else
+               f"{library_ms:.4f} (device {lib_dev})")
         which = "aniso" if path is launches_ani else "main"
         print(f"[kernel] {name}{shape}: max_abs_err {err:.3g} ms {ms:.4f} "
-              f"(device {dev_ms}) plain {plain_ms:.4f} bound {b:.4f} ({by}) "
-              f"library {lib} {which}-path launches {path[name]}")
+              f"(device {dev_ms}, {per_call:g} device launches a call) "
+              f"plain {plain_ms:.4f} bound {b:.4f} ({by}) library {lib} "
+              f"{which}-path launches {path[name]}")
         return r
+
+    def launches_per_call(r, want, what):
+        got = r["device_launches_per_call"]
+        print(f"[launches] {what}: {got:g} CUDA launches a call "
+              f"(profiler, 20 calls), expected {want}")
+        if got != want:
+            raise RuntimeError(f"{what}: {got} launches a call, not {want}")
 
     # K1 edge length, over the unique-edge table of the output mesh
     ev = et.ev.contiguous()
@@ -534,7 +630,10 @@ def phase_kernels(launches, shapes, launches_ani, shapes_ani, workdir: str):
         "library_ms", "device_ms")}
     # K7 radix sort: the packed edge keys [6*capT] (1 word, 4 passes) and
     # the packed face keys [4*capT] (nbits (16, 32), 6 passes), as the
-    # sort sites build them; exact against the plain stable-sort chain
+    # sort sites build them; exact against the plain stable-sort chain.
+    # Library: torch.sort(stable=True) of the edge keys, and of the face
+    # keys packed into one int64 (remapped f0 << 32 | fw as uint32), which
+    # gives the same permutation
     ev6 = tet_edge_vertices(mesh.tet).reshape(-1, 2)
     ekey = torch.where(mesh.tmask.repeat_interleave(6),
                        ev6.min(1).values * capP + ev6.max(1).values,
@@ -544,59 +643,98 @@ def phase_kernels(launches, shapes, launches_ani, shapes_ani, workdir: str):
     fw = torch.where(f0 == INT32_MAX, INT32_MAX,
                      cols[:, 1] * capP + cols[:, 2]).to(torch.int32)
     n6, n4 = ekey.shape[0], f0.shape[0]
+    fnb = (16, 32)
+    npass_e, npass_f = K._radix_passes((32,)), K._radix_passes(fnb)
     order = K.radix_sort((ekey,))
     err = check("radix_sort", [order], [K.radix_sort_plain((ekey,))], 0, 0,
                 exact=True)
-    lib = _time_ms(lambda: torch.sort(ekey, stable=True))
-    radix = ("radix_", "prefix_")
     rows.append(row(
         "radix_sort", "radix_sort.cu", 434, err,
         _time_ms(lambda: K.radix_sort((ekey,))),
         _time_ms(lambda: K.radix_sort_plain((ekey,))), 8 * n6, 0,
-        lambda: K.radix_sort((ekey,)), radix, library_ms=lib,
-        shape=f" [edge keys {n6}]"))
-    fnb = (16, 32)
-    err = check("radix_sort faces", [K.radix_sort((f0, fw), fnb)],
+        lambda: K.radix_sort((ekey,)), "radix_",
+        library=lambda: torch.sort(ekey, stable=True),
+        shape=f" [edge keys {n6}, {npass_e} passes]"))
+    launches_per_call(rows[-1], 1 + npass_e, "radix_sort edge keys")
+    forder = K.radix_sort((f0, fw), fnb)
+    err = check("radix_sort faces", [forder],
                 [K.radix_sort_plain((f0, fw), fnb)], 0, 0, exact=True)
+    packed = (torch.where(f0 == INT32_MAX, (1 << fnb[0]) - 1, f0).long()
+              << 32) | (fw.long() & 0xFFFFFFFF)
+    if not torch.equal(torch.sort(packed, stable=True).indices.int(),
+                       forder):
+        raise RuntimeError("torch.sort of the packed face keys gives "
+                           "another permutation than K7")
     face = row("radix_sort", "radix_sort.cu", 434, err,
                _time_ms(lambda: K.radix_sort((f0, fw), fnb)),
                _time_ms(lambda: K.radix_sort_plain((f0, fw), fnb)),
-               12 * n4, 0, lambda: K.radix_sort((f0, fw), fnb), radix,
-               shape=f" [face keys {n4}, nbits (16, 32)]")
+               12 * n4, 0, lambda: K.radix_sort((f0, fw), fnb), "radix_",
+               library=lambda: torch.sort(packed, stable=True),
+               shape=f" [face keys {n4}, nbits (16, 32), {npass_f} passes]")
+    launches_per_call(face, 1 + npass_f, "radix_sort face keys")
     rows[-1]["face_keys"] = {k: face[k] for k in (
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-        "library_ms", "device_ms")}
+        "library_ms", "device_ms", "device_launches_per_call",
+        "library_device_ms")}
+    # the key carried in order between a word's passes, against gathering
+    # it every pass (timing only; both exact)
+    saved_carry = K.RADIX_CARRY_KEYS
+    for which, args in (("edge", ((ekey,),)), ("face", ((f0, fw), fnb))):
+        parts = []
+        for carry in (True, False, False, True):
+            K.RADIX_CARRY_KEYS = carry
+            try:
+                if not torch.equal(K.radix_sort(*args),
+                                   order if which == "edge" else forder):
+                    raise RuntimeError(f"radix_sort {which} keys with "
+                                       f"carry={carry} disagrees")
+                ms = _time_ms(lambda: K.radix_sort(*args))
+                dms, _ = _device_ms(lambda: K.radix_sort(*args), "radix_")
+            finally:
+                K.RADIX_CARRY_KEYS = saved_carry
+            parts.append(f"carry {carry}: ms {ms:.4f} device {dms}")
+        print(f"[kernel] radix_sort {which} keys, key carried between a "
+              f"word's passes or gathered: " + "; ".join(parts))
 
-    # K5 prefix sum: one pass's digit histogram (digit-major, block-minor,
-    # as inside K7) and a [6*capT] flag vector
-    tile = K._tile("pm_radix_tile")
-    nb = -(-n6 // tile)
-    digit = (ekey.long() & 0xFF) * nb + torch.arange(n6, device=dev) // tile
+    # K5 prefix sum: the flags of fixed_order_sum's groups at its most
+    # common shape (tet corners -> vertices, [4*capT]: the main path's one
+    # caller of K5), and, as in earlier runs, one digit histogram
+    # (digit-major, block-minor over 2,048-row blocks) and a [6*capT] flag
+    # vector
+    from parmmg_tpu_torch.ops.primitives import _SUM_WIDTH
+    idx4 = torch.where(mesh.tmask[:, None], mesh.tet, capP).T.reshape(-1)
+    k4 = idx4.to(torch.int32).contiguous()
+    k4 = k4[K.radix_sort((k4,), (capP.bit_length(),)).long()]
+    rank4 = (torch.arange(k4.shape[0], dtype=torch.int32, device=dev)
+             - torch.searchsorted(k4, k4, out_int32=True))
+    start4 = (rank4 % _SUM_WIDTH == 0).to(torch.int32)
+    nb = -(-n6 // 2048)
+    digit = (ekey.long() & 0xFF) * nb + torch.arange(n6, device=dev) // 2048
     hist = torch.bincount(digit, minlength=256 * nb).to(torch.int32)
     ks = ekey[order.long()]
     flags = K.segment_flags_plain((ks,)).to(torch.int32)
-    errs = [check("merge_prefix", [K.merge_prefix(x)],
+    for label, x in ((f"fixed_order_sum start flags [4*capT {4 * capT}]",
+                      start4),
+                     (f"histogram {hist.shape[0]}", hist),
+                     (f"flags {n6}", flags)):
+        e = check("merge_prefix", [K.merge_prefix(x)],
                   [K.merge_prefix_plain(x)], 0, 0, exact=True)
-            for x in (hist, flags)]
-    nh = hist.shape[0]
-    rows.append(row(
-        "merge_prefix", "merge_prefix.cu", 358, errs[0],
-        _time_ms(lambda: K.merge_prefix(hist)),
-        _time_ms(lambda: K.merge_prefix_plain(hist)), 8 * nh, nh,
-        lambda: K.merge_prefix(hist), "prefix_",
-        library_ms=_time_ms(lambda: torch.cumsum(hist, 0,
-                                                 dtype=torch.int32)),
-        shape=f" [histogram {nh}]"))
-    fl = row("merge_prefix", "merge_prefix.cu", 358, errs[1],
-             _time_ms(lambda: K.merge_prefix(flags)),
-             _time_ms(lambda: K.merge_prefix_plain(flags)), 8 * n6, n6,
-             lambda: K.merge_prefix(flags), "prefix_",
-             library_ms=_time_ms(lambda: torch.cumsum(flags, 0,
-                                                      dtype=torch.int32)),
-             shape=f" [flags {n6}]")
-    rows[-1]["flags_6capT"] = {k: fl[k] for k in (
-        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-        "library_ms", "device_ms")}
+        nx = x.shape[0]
+        r = row("merge_prefix", "merge_prefix.cu", 358, e,
+                _time_ms(lambda: K.merge_prefix(x)),
+                _time_ms(lambda: K.merge_prefix_plain(x)), 8 * nx, nx,
+                lambda: K.merge_prefix(x), "prefix_",
+                library=lambda: torch.cumsum(x, 0, dtype=torch.int32),
+                shape=f" [{label}]")
+        launches_per_call(r, 1, f"merge_prefix [{label}]")
+        if x is start4:
+            rows.append(r)
+        else:
+            rows[-1]["histogram" if x is hist else "flags_6capT"] = {
+                k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms",
+                                  "device_ms", "device_launches_per_call",
+                                  "library_device_ms")}
 
     # K8 segment flags over the sorted edge keys (no single library call)
     err = check("segment_flags", [K.segment_flags((ks,))],
@@ -613,7 +751,6 @@ def phase_kernels(launches, shapes, launches_ani, shapes_ani, workdir: str):
     # deterministic scatter_reduce, also without the sentinel row's values
     # (timing only: the port calls neither)
     from parmmg_tpu_torch.ops.primitives import fixed_order_sum
-    idx4 = torch.where(mesh.tmask[:, None], mesh.tet, capP).T.reshape(-1)
     idx4 = idx4.long()
     live4 = idx4 < capP
     pay4 = torch.rand((4 * capT, 4), generator=gen, device=dev)
@@ -688,6 +825,7 @@ def main() -> int:
         phase_aniso_repeat(workdir)
         rows = phase_kernels(launches, shapes, launches_ani, shapes_ani,
                              workdir)
+        phase_stress()
         phase_profile(workdir, "cube16")
         phase_profile(workdir, "cube16ani")
     except Exception:

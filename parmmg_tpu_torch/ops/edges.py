@@ -4,7 +4,7 @@
 All 6*capT tet edges are sorted by (min vid, max vid); the first slot of
 each key segment is the unique edge.  The sorts and segment heads run on
 the sort engine as the JAX package runs them on the TPU: ``radix_sort``
-(K7, with K5 inside) and ``segment_flags`` (K8).  ``edge_lengths`` (K1
+(K7) and ``segment_flags`` (K8).  ``edge_lengths`` (K1
 for an iso metric, K2 for a tensor metric) and ``topk_prep`` / ``topk_prep3`` (K3 / K4) dispatch to the CUDA kernels
 of ``ops/kernels.py`` too.
 """

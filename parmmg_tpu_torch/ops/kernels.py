@@ -17,9 +17,13 @@ radix_sort         csrc/radix_sort.cu          radix_sort_pallas (K7)
 segment_flags      csrc/segment_flags.cu       segment_flags_pallas (K8)
 =================  ==========================  ===========================
 
-``radix_sort`` runs one K5 scan per digit pass from its own C entry point;
-those scans count under ``merge_prefix``.  ``f32_sort_u32`` (the float
-image K7 sorts, no ``pallas_call`` in the JAX package) is plain torch.
+``merge_prefix`` is one launch a call (a single-pass scan with decoupled
+look-back); ``radix_sort`` is 1 + npass launches a call (a histogram of
+every digit pass, then one one-sweep pass per 8-bit digit) and runs no K5
+scan.  Both keep scratch on the device between calls (``_scratch``), so
+calls that use them run one after another on one stream.
+``f32_sort_u32`` (the float image K7 sorts, no ``pallas_call`` in the JAX
+package) is plain torch.
 
 A wrapper runs the kernel for CUDA tensors and raises if it cannot
 (missing ``nvcc``, failed build, refused launch); it runs the plain
@@ -56,14 +60,15 @@ _SIGS = {
     "pm_tet_quality": ("tet_quality",
                        [_P, _P, _P, _P, _P, ctypes.c_int,
                         ctypes.c_longlong, _P]),
-    "pm_merge_prefix": ("merge_prefix", [_P, _P, _P, ctypes.c_longlong, _P]),
+    "pm_merge_prefix": ("merge_prefix",
+                        [_P, _P, ctypes.c_longlong, _P, _P,
+                         ctypes.c_longlong, _P]),
     "pm_merge_prefix_tile": ("merge_prefix", []),
     "pm_radix_sort": ("radix_sort",
                       [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_longlong,
-                       _P]),
+                       ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P,
+                       ctypes.c_longlong, ctypes.c_longlong, _P]),
     "pm_radix_tile": ("radix_sort", []),
-    "pm_radix_scan_tile": ("radix_sort", []),
     "pm_segment_flags": ("segment_flags",
                          [_P, _P, _P, ctypes.c_int, _P, ctypes.c_longlong,
                           _P]),
@@ -75,11 +80,18 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+_FNS: dict = {}
+
+
 def _fn(sym: str):
-    src, argtypes = _SIGS[sym]
-    f = getattr(cuda_build.load(src), sym)
-    f.argtypes = argtypes
-    f.restype = ctypes.c_int
+    """The ctypes function ``sym``, bound once."""
+    f = _FNS.get(sym)
+    if f is None:
+        src, argtypes = _SIGS[sym]
+        f = getattr(cuda_build.load(src), sym)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+        _FNS[sym] = f
     return f
 
 
@@ -116,7 +128,8 @@ def _launch(sym, *args):
 
 
 def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream on ``t``'s (CUDA) device."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 # ---------------------------------------------------------------------------
@@ -253,13 +266,39 @@ def tet_quality(vert, tet, tmask, met6=None):
     return out
 
 
+_TILES: dict = {}
+
+
 def _tile(sym) -> int:
-    """A tile size the CUDA source defines (elements per block)."""
-    return int(_fn(sym)())
+    """A tile size the CUDA source defines (elements per block), read
+    once."""
+    t = _TILES.get(sym)
+    if t is None:
+        t = _TILES[sym] = int(_fn(sym)())
+    return t
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+# (kernel, device) -> {name: tensor}: what K5 and K7 keep on the card
+# between calls
+_SCRATCH: dict = {}
+
+
+def _scratch(kernel, dev, sizes):
+    """Scratch of ``kernel`` on ``dev``: ``sizes`` maps a name to (elements,
+    dtype, zeroed).  A buffer is made at first use and remade larger when a
+    call needs more; a zeroed one starts as zeros, and the kernels leave it
+    in the state they expect to find it in."""
+    bufs = _SCRATCH.setdefault((kernel, dev), {})
+    for name, (numel, dtype, zeroed) in sizes.items():
+        b = bufs.get(name)
+        if b is None or b.numel() < numel:
+            make = torch.zeros if zeroed else torch.empty
+            bufs[name] = make(numel, dtype=dtype, device=dev)
+    return bufs
 
 
 # ---------------------------------------------------------------------------
@@ -280,10 +319,15 @@ def merge_prefix(x):
     n = x.shape[0]
     out = torch.empty_like(x)
     if n:
-        totals = torch.empty(_cdiv(n, _tile("pm_merge_prefix_tile")),
-                             dtype=torch.int32, device=x.device)
-        _launch("pm_merge_prefix", x.data_ptr(), out.data_ptr(),
-                totals.data_ptr(), n, _stream(x))
+        # epoch << 32 | tile counter, and one status word a tile, never
+        # cleared after the first zeroing: the epoch tags each call's words
+        sc = _scratch("merge_prefix", x.device, {
+            "ctrl": (1, torch.int64, True),
+            "status": (_cdiv(n, _tile("pm_merge_prefix_tile")), torch.int64,
+                       True)})
+        st = sc["status"]
+        _launch("pm_merge_prefix", x.data_ptr(), out.data_ptr(), n,
+                sc["ctrl"].data_ptr(), st.data_ptr(), st.numel(), _stream(x))
         LAUNCHES["merge_prefix"] += 1
     return out
 
@@ -291,6 +335,12 @@ def merge_prefix(x):
 # ---------------------------------------------------------------------------
 # K7: stable LSD radix sort permutation of 1-3 int32 words
 # ---------------------------------------------------------------------------
+# carry a word's key in sorted order between its digit passes instead of
+# gathering it every pass (chip_smoke.py times both)
+RADIX_CARRY_KEYS = True
+_RADIX_MAX_PASSES = 12
+
+
 def _radix_args(words, nbits):
     words = tuple(words)
     if not words:
@@ -336,19 +386,30 @@ def radix_sort(words, nbits=None):
     out = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return out
-    m = 256 * _cdiv(n, _tile("pm_radix_tile"))
-    tmp = torch.empty(n, dtype=torch.int32, device=dev)
-    hist = torch.empty(m, dtype=torch.int32, device=dev)
-    incl = torch.empty(m, dtype=torch.int32, device=dev)
-    totals = torch.empty(_cdiv(m, _tile("pm_radix_scan_tile")),
-                         dtype=torch.int32, device=dev)
+    tiles = _cdiv(n, _tile("pm_radix_tile"))
+    i32 = torch.int32
+    # ctrl {tile counter, blocks done} and hist are left zeroed by every
+    # call; two sets of per-(tile, digit) status words, cleared by the
+    # kernels themselves
+    need = {"ctrl": (2, i32, True),
+            "hist": (_RADIX_MAX_PASSES * 256, i32, True),
+            "base": (_RADIX_MAX_PASSES * 256, i32, False),
+            "status": (2 * tiles * 256, torch.int64, False),
+            "tmp": (n, i32, False)}
+    carry = RADIX_CARRY_KEYS and max(nbits) > 8
+    if carry:
+        need.update(keys_a=(n, i32, False), keys_b=(n, i32, False))
+    sc = _scratch("radix_sort", dev, need)
     ptrs = [w.data_ptr() for w in words] + [None] * (3 - len(words))
     bits = list(nbits) + [0] * (3 - len(nbits))
     _launch("pm_radix_sort", *ptrs, len(words), *bits, out.data_ptr(),
-            tmp.data_ptr(), hist.data_ptr(), incl.data_ptr(),
-            totals.data_ptr(), n, _stream(out))
+            sc["tmp"].data_ptr(),
+            sc["keys_a"].data_ptr() if carry else None,
+            sc["keys_b"].data_ptr() if carry else None,
+            sc["ctrl"].data_ptr(), sc["hist"].data_ptr(),
+            sc["base"].data_ptr(), sc["status"].data_ptr(),
+            sc["status"].numel() // 512, n, _stream(out))
     LAUNCHES["radix_sort"] += 1
-    LAUNCHES["merge_prefix"] += _radix_passes(nbits)
     return out
 
 

@@ -190,6 +190,21 @@ def test_cuda_kernels_match_plain_versions():
                            K.radix_sort_plain(words, nbits))
     x = torch.randint(-9, 100, (n,), generator=g, dtype=torch.int32).to(dev)
     assert torch.equal(K.merge_prefix(x), K.merge_prefix_plain(x))
+    # K5 on values near +-2**31 whose sums wrap, and K5 / K7 at 2**24 + 3
+    # rows, where the look-back crosses thousands of tiles
+    big = 2 ** 24 + 3
+    xw = torch.randint(2 ** 31 - 64, 2 ** 31, (big,), generator=g,
+                       dtype=torch.int64)
+    xw = torch.where(torch.rand(big, generator=g) < 0.5, xw, -xw)
+    for xs in (xw[:n].to(torch.int32), xw.to(torch.int32)):
+        xs = xs.to(dev)
+        assert torch.equal(K.merge_prefix(xs), K.merge_prefix_plain(xs))
+    kb = torch.randint(-2 ** 31, 2 ** 31, (big,), generator=g,
+                       dtype=torch.int64).to(torch.int32).to(dev)
+    for words, nbits in (((kb,), None), ((kb.flip(0).contiguous() & 0xFFFF,
+                                          kb), (16, 32))):
+        assert torch.equal(K.radix_sort(words, nbits),
+                           K.radix_sort_plain(words, nbits))
     ks = key[K.radix_sort((key,)).long()]
     assert torch.equal(K.segment_flags((ks,)), K.segment_flags_plain((ks,)))
     # the fixed-order float sum: the same bits on every call, close to the

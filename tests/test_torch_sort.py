@@ -128,6 +128,35 @@ def test_radix_float_image_matches_argsort():
     assert np.array_equal(got, ref)
 
 
+@pytest.mark.parametrize("n", [5119, 5121, 2 * 5120 + 3])
+def test_radix_full_range_uint32_order(n):
+    # every 32-bit pattern may occur: negatives sort after the
+    # non-negatives (uint32 order), INT32_MAX is not a tombstone at 32 bits
+    rng = _rng(40 + n)
+    k = rng.integers(-2 ** 31, 2 ** 31, n, dtype=np.int64).astype(np.int32)
+    k[rng.random(n) < 0.1] = -1
+    k[rng.random(n) < 0.1] = I32_MAX
+    k[:4] = (-2 ** 31, 0, -1, I32_MAX)
+    got, ref = _radix_pair((k,))
+    assert np.array_equal(got, ref)
+    assert np.array_equal(got, np.argsort(k.view(np.uint32), kind="stable"))
+
+
+def test_radix_three_words_8_16_32():
+    rng = _rng(44)
+    n = 5121
+    a = rng.integers(0, 255, n).astype(np.int32)
+    b = rng.integers(0, 1 << 16, n).astype(np.int32)
+    c = rng.integers(-2 ** 31, 2 ** 31, n, dtype=np.int64).astype(np.int32)
+    a[rng.random(n) < 0.2] = I32_MAX
+    b[rng.random(n) < 0.2] = I32_MAX
+    got, ref = _radix_pair((a, b, c), nbits=(8, 16, 32))
+    assert np.array_equal(got, ref)
+    ra = np.where(a == I32_MAX, 255, a)
+    rb = np.where(b == I32_MAX, (1 << 16) - 1, b)
+    assert np.array_equal(got, np.lexsort((c.view(np.uint32), rb, ra)))
+
+
 # ---- K5 / K8 ----------------------------------------------------------------
 
 @pytest.mark.parametrize("n", [1, 1023, 1025, 3000])
@@ -137,6 +166,20 @@ def test_merge_prefix_matches_pallas(n):
     assert got.dtype == torch.int32
     ref = np.asarray(pk.merge_prefix_pallas(jnp.asarray(x), interpret=True))
     assert np.array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("n", [4095, 4096, 4097, 3 * 4096 + 5])
+def test_merge_prefix_wrapping_sums(n):
+    # values near +-2**31 whose running sum wraps, over several of the
+    # card scan's 4,096-element tiles and a ragged tail
+    rng = _rng(60 + n)
+    x = rng.integers(2 ** 31 - 64, 2 ** 31, n, dtype=np.int64)
+    x = np.where(rng.random(n) < 0.5, x, -x).astype(np.int32)
+    got = K.merge_prefix(_t(x))
+    ref = np.asarray(pk.merge_prefix_pallas(jnp.asarray(x), interpret=True))
+    assert np.array_equal(got.numpy(), ref)
+    assert np.array_equal(got.numpy(), np.cumsum(x, dtype=np.int32))
+    assert np.abs(np.cumsum(x.astype(np.int64))).max() >= 2 ** 31
 
 
 @pytest.mark.parametrize("case", ["one_word", "two_words", "all_equal"])
