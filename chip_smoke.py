@@ -124,9 +124,15 @@ def _device_ms(fn, kernels, reps: int = 20):
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # the profiler drops device records stamped outside its window, and
+        # the device's clock can sit a little off the host's: keep 10 ms of
+        # host time on either side so that 20 short calls (under 1 ms in
+        # all) all fall inside it
+        time.sleep(0.01)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        time.sleep(0.01)
     tot = 0.0
     count = 0
     for ev in prof.key_averages():
@@ -436,6 +442,28 @@ def phase_stress(repeats: int = 5):
                  lambda: K.radix_sort(words, nbits),
                  K.radix_sort_plain(words, nbits))
             ncase += 1
+    # both kernels on two streams at once, two calls each: every stream
+    # has its own tile counters, epochs and status words
+    x = ints(-9, 100, big).to(torch.int32)
+    full = ints(-2 ** 31, 2 ** 31, big).to(torch.int32)
+    refs = (K.merge_prefix_plain(x), K.radix_sort_plain((full,)))
+    streams = [torch.cuda.Stream(device=dev) for _ in range(2)]
+    for r in range(repeats):
+        torch.cuda.synchronize()
+        outs = []
+        for _ in range(2):
+            for s in streams:
+                with torch.cuda.stream(s):
+                    outs.append((K.merge_prefix(x), K.radix_sort((full,))))
+        torch.cuda.synchronize()
+        for got in outs:
+            for name, g, ref in zip(("merge_prefix", "radix_sort"), got,
+                                    refs):
+                if not torch.equal(g, ref):
+                    raise RuntimeError(
+                        f"[stress] {name} n={big} on two streams at once: "
+                        f"run {r + 1} differs from the plain version")
+    ncase += 2
     print(f"[stress] {ncase} K5 and K7 cases x {repeats} runs equal to the "
           f"plain versions ({time.perf_counter() - t0:.1f} s)")
 
@@ -676,25 +704,6 @@ def phase_kernels(launches, shapes, launches_ani, shapes_ani, workdir: str):
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
         "library_ms", "device_ms", "device_launches_per_call",
         "library_device_ms")}
-    # the key carried in order between a word's passes, against gathering
-    # it every pass (timing only; both exact)
-    saved_carry = K.RADIX_CARRY_KEYS
-    for which, args in (("edge", ((ekey,),)), ("face", ((f0, fw), fnb))):
-        parts = []
-        for carry in (True, False, False, True):
-            K.RADIX_CARRY_KEYS = carry
-            try:
-                if not torch.equal(K.radix_sort(*args),
-                                   order if which == "edge" else forder):
-                    raise RuntimeError(f"radix_sort {which} keys with "
-                                       f"carry={carry} disagrees")
-                ms = _time_ms(lambda: K.radix_sort(*args))
-                dms, _ = _device_ms(lambda: K.radix_sort(*args), "radix_")
-            finally:
-                K.RADIX_CARRY_KEYS = saved_carry
-            parts.append(f"carry {carry}: ms {ms:.4f} device {dms}")
-        print(f"[kernel] radix_sort {which} keys, key carried between a "
-              f"word's passes or gathered: " + "; ".join(parts))
 
     # K5 prefix sum: the flags of fixed_order_sum's groups at its most
     # common shape (tet corners -> vertices, [4*capT]: the main path's one

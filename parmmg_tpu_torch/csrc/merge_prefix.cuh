@@ -40,7 +40,8 @@
 //
 // Scratch, owned by the wrapper, zeroed once and kept with the device:
 // ctrl = epoch << 32 | tile counter, and status[>= tiles], all 64-bit
-// words.  Calls that share it must run one after another (one stream).
+// words.  Calls that share it must run one after another on one stream;
+// the wrapper keeps one set a stream.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -20,8 +20,10 @@ segment_flags      csrc/segment_flags.cu       segment_flags_pallas (K8)
 ``merge_prefix`` is one launch a call (a single-pass scan with decoupled
 look-back); ``radix_sort`` is 1 + npass launches a call (a histogram of
 every digit pass, then one one-sweep pass per 8-bit digit) and runs no K5
-scan.  Both keep scratch on the device between calls (``_scratch``), so
-calls that use them run one after another on one stream.
+scan.  Both keep a few small buffers on the device between calls (tile
+counters, epochs, K5's status words), one set for each stream they are
+called on (``_scratch``); K7 takes its row-sized buffers from PyTorch's
+allocator on every call.
 ``f32_sort_u32`` (the float image K7 sorts, no ``pallas_call`` in the JAX
 package) is plain torch.
 
@@ -129,7 +131,7 @@ def _launch(sym, *args):
 
 def _stream(t):
     """The raw handle of the current stream on ``t``'s (CUDA) device."""
-    return torch._C._cuda_getCurrentRawStream(t.device.index)
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 # ---------------------------------------------------------------------------
@@ -282,17 +284,19 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-# (kernel, device) -> {name: tensor}: what K5 and K7 keep on the card
-# between calls
+# (kernel, device, stream) -> {name: tensor}: the small state K5 and K7
+# keep on the card between calls (tile counters, epochs, status words),
+# one set a stream, so calls on different streams never share it
 _SCRATCH: dict = {}
 
 
-def _scratch(kernel, dev, sizes):
-    """Scratch of ``kernel`` on ``dev``: ``sizes`` maps a name to (elements,
-    dtype, zeroed).  A buffer is made at first use and remade larger when a
-    call needs more; a zeroed one starts as zeros, and the kernels leave it
-    in the state they expect to find it in."""
-    bufs = _SCRATCH.setdefault((kernel, dev), {})
+def _scratch(kernel, dev, stream, sizes):
+    """Scratch of ``kernel`` on ``dev`` for calls on ``stream``: ``sizes``
+    maps a name to (elements, dtype, zeroed).  A buffer is made at first
+    use and remade larger when a call needs more; a zeroed one starts as
+    zeros, and the kernels leave it in the state they expect to find it
+    in."""
+    bufs = _SCRATCH.setdefault((kernel, dev, stream), {})
     for name, (numel, dtype, zeroed) in sizes.items():
         b = bufs.get(name)
         if b is None or b.numel() < numel:
@@ -321,13 +325,14 @@ def merge_prefix(x):
     if n:
         # epoch << 32 | tile counter, and one status word a tile, never
         # cleared after the first zeroing: the epoch tags each call's words
-        sc = _scratch("merge_prefix", x.device, {
+        s = _stream(x)
+        sc = _scratch("merge_prefix", x.device, s, {
             "ctrl": (1, torch.int64, True),
             "status": (_cdiv(n, _tile("pm_merge_prefix_tile")), torch.int64,
                        True)})
         st = sc["status"]
         _launch("pm_merge_prefix", x.data_ptr(), out.data_ptr(), n,
-                sc["ctrl"].data_ptr(), st.data_ptr(), st.numel(), _stream(x))
+                sc["ctrl"].data_ptr(), st.data_ptr(), st.numel(), s)
         LAUNCHES["merge_prefix"] += 1
     return out
 
@@ -335,9 +340,6 @@ def merge_prefix(x):
 # ---------------------------------------------------------------------------
 # K7: stable LSD radix sort permutation of 1-3 int32 words
 # ---------------------------------------------------------------------------
-# carry a word's key in sorted order between its digit passes instead of
-# gathering it every pass (chip_smoke.py times both)
-RADIX_CARRY_KEYS = True
 _RADIX_MAX_PASSES = 12
 
 
@@ -387,28 +389,30 @@ def radix_sort(words, nbits=None):
     if n == 0:
         return out
     tiles = _cdiv(n, _tile("pm_radix_tile"))
-    i32 = torch.int32
-    # ctrl {tile counter, blocks done} and hist are left zeroed by every
-    # call; two sets of per-(tile, digit) status words, cleared by the
-    # kernels themselves
-    need = {"ctrl": (2, i32, True),
-            "hist": (_RADIX_MAX_PASSES * 256, i32, True),
-            "base": (_RADIX_MAX_PASSES * 256, i32, False),
-            "status": (2 * tiles * 256, torch.int64, False),
-            "tmp": (n, i32, False)}
-    carry = RADIX_CARRY_KEYS and max(nbits) > 8
-    if carry:
-        need.update(keys_a=(n, i32, False), keys_b=(n, i32, False))
-    sc = _scratch("radix_sort", dev, need)
+    s = _stream(out)
+    # kept: ctrl {tile counter, blocks done} and hist, left zeroed by every
+    # call, and the digits' bases
+    sc = _scratch("radix_sort", dev, s, {
+        "ctrl": (2, torch.int32, True),
+        "hist": (_RADIX_MAX_PASSES * 256, torch.int32, True),
+        "base": (_RADIX_MAX_PASSES * 256, torch.int32, False)})
+    # per call, in one allocation: two sets of int64 status words a (tile,
+    # digit), cleared by the kernels themselves; the pass order between
+    # passes; and, when a word takes several passes, two buffers that carry
+    # its key in sorted order from one of its passes to the next instead of
+    # gathering it each pass (faster on the card: `tools/k7_variants.py`)
+    nst = 4 * tiles * 256                    # int32 slots of the status words
+    carry = max(nbits) > 8
+    work = torch.empty(nst + (3 if carry else 1) * n, dtype=torch.int32,
+                       device=dev)
+    p = work.data_ptr()
+    tmp = p + 4 * nst
     ptrs = [w.data_ptr() for w in words] + [None] * (3 - len(words))
     bits = list(nbits) + [0] * (3 - len(nbits))
-    _launch("pm_radix_sort", *ptrs, len(words), *bits, out.data_ptr(),
-            sc["tmp"].data_ptr(),
-            sc["keys_a"].data_ptr() if carry else None,
-            sc["keys_b"].data_ptr() if carry else None,
+    _launch("pm_radix_sort", *ptrs, len(words), *bits, out.data_ptr(), tmp,
+            tmp + 4 * n if carry else None, tmp + 8 * n if carry else None,
             sc["ctrl"].data_ptr(), sc["hist"].data_ptr(),
-            sc["base"].data_ptr(), sc["status"].data_ptr(),
-            sc["status"].numel() // 512, n, _stream(out))
+            sc["base"].data_ptr(), p, tiles, n, s)
     LAUNCHES["radix_sort"] += 1
     return out
 
