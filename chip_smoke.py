@@ -34,22 +34,29 @@ Phases (any failure exits non-zero without the final result line):
              reached; K2 and K6's tensor mode on the aniso output and its
              metric), with its tolerance; median CUDA-event times of the
              kernel, the plain version and, where one PyTorch call computes
-             the same function, that call; the least time the card could
-             take (bytes / 3.35 TB/s, operations / 67 TFLOP/s float32).
-6. stress  - K5 and K7 against their plain versions, exactly, each case 5
-             times (look-back order changes from run to run): sizes 1,
+             the same function, that call; the profiler's device time a
+             call, warm and cold (the L2 flushed before every call); the
+             least time the card could take (bytes / 3.35 TB/s, operations
+             / 67 TFLOP/s float32).  K8 runs on the sorted edge keys and
+             face keys and, in its gathered mode, on the unsorted keys with
+             K7's permutation, beside the unfused pair it replaced (the
+             gather, then sorted-mode K8) as its yardstick.
+6. stress  - K5, K7 and K8 against their plain versions, exactly, each case
+             5 times (look-back order changes from run to run): sizes 1,
              tile - 1, tile, tile + 1 and 2**24 + 3 (the look-back crosses
              thousands of tiles); K5 on small values and on values near
              +-2**31 whose sums wrap; K7 on full-range 32-bit keys with
              negatives, all-equal, sorted and reverse-sorted keys, all
              tombstones, (16, 32) bits with tombstones, and 3 words with
-             nbits (8, 16, 32).  A failure here is a look-back or stability
-             bug of the kernel, not a mesh bug.
+             nbits (8, 16, 32); K8 in both modes on 1-3 words with
+             tombstones, aligned and viewed at a 1-element offset.  A
+             failure here is a look-back, stability or tail bug of the
+             kernel, not a mesh bug.
 7. profile - each path once more under torch.profiler.
 
-Phase 5 also prints the CUDA launches per K5 and K7 call (the profiler's
-kernel count over 20 calls / 20) and fails unless K5 is one launch a call
-and K7 1 + npass.
+Phase 5 also prints the CUDA launches per K5, K6, K7 and K8 call (the
+profiler's kernel count over 20 calls / 20) and fails unless K5, K6 and K8
+(both modes) are one launch a call and K7 1 + npass.
 
 The last two lines are one JSON object with the kernel table and one JSON
 object ``{"ok": true, "device": {...}}``.
@@ -111,16 +118,23 @@ def _time_ms(fn, reps: int = 20) -> float:
     return times[len(times) // 2]
 
 
-def _device_ms(fn, kernels, reps: int = 20):
+def _device_ms(fn, kernels, reps: int = 20, cold: bool = False):
     """(device ms, device launches) per call of ``fn`` under torch.profiler
     over ``reps`` calls: the time of the CUDA kernels whose name contains
     one of ``kernels`` (a string or a tuple; None: every kernel, memset and
     copy on the device), None when the profiler records no device time; and
-    every kernel, memset or copy on the device per call."""
+    every kernel, memset or copy on the device per call.  ``cold`` flushes
+    the L2 before every call by writing a 128 MiB buffer, so the card's 50
+    MB L2 holds none of the call's inputs (the write is a fill kernel or
+    a memset, which the names of the kernels timed never match; it is
+    counted in the launches)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     names = (kernels,) if isinstance(kernels, str) else kernels
+    if cold and names is None:
+        raise ValueError("a cold time needs the kernels' names")
+    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -130,6 +144,8 @@ def _device_ms(fn, kernels, reps: int = 20):
         # all) all fall inside it
         time.sleep(0.01)
         for _ in range(reps):
+            if cold:
+                flush.zero_()
             fn()
         torch.cuda.synchronize()
         time.sleep(0.01)
@@ -384,8 +400,8 @@ def phase_aniso_repeat(workdir: str, device: str = "cuda"):
 
 
 def phase_stress(repeats: int = 5):
-    """K5 and K7 exactly against their plain versions at the edges of their
-    tiles and at 2**24 + 3 rows, each case ``repeats`` times."""
+    """K5, K7 and K8 exactly against their plain versions at the edges of
+    their tiles and at 2**24 + 3 rows, each case ``repeats`` times."""
     import torch
     from parmmg_tpu_torch.core.constants import INT32_MAX
     from parmmg_tpu_torch.ops import kernels as K
@@ -442,6 +458,31 @@ def phase_stress(repeats: int = 5):
                  lambda: K.radix_sort(words, nbits),
                  K.radix_sort_plain(words, nbits))
             ncase += 1
+    # K8 in both modes: around one tile of rows, at 2**24 + 3 rows, on 1-3
+    # words with tombstones, and on columns viewed at a 1-element offset
+    # (the kernel's unaligned path)
+    tile = 256 * K._fn("pm_segment_flags_rows")()
+    for n in (1, tile - 1, tile, tile + 1, big):
+        w3 = torch.where(ints(0, 10, 3 * (n + 1)) < 2, INT32_MAX,
+                         ints(0, 3, 3 * (n + 1))).to(torch.int32)
+        w3 = w3.view(3, n + 1)
+        for nw in (1, 2, 3):
+            for off in (0, 1):
+                words = tuple(w3[j, off:off + n] for j in range(nw))
+                perm = K.radix_sort(words)
+                srt = tuple(w[perm.long()] for w in words)
+                view = f"at offset {off}"
+                same(f"segment_flags n={n} {nw} words {view}",
+                     lambda: K.segment_flags(srt),
+                     K.segment_flags_plain(srt))
+                ref = K.segment_flags_plain(words, order=perm)
+
+                def gathered(words=words, perm=perm):
+                    cols, first = K.segment_flags(words, order=perm)
+                    return torch.cat([first.int(), *cols])
+                same(f"segment_flags gathered n={n} {nw} words {view}",
+                     gathered, torch.cat([ref[1].int(), *ref[0]]))
+                ncase += 2
     # both kernels on two streams at once, two calls each: every stream
     # has its own tile counters, epochs and status words
     x = ints(-9, 100, big).to(torch.int32)
@@ -464,8 +505,8 @@ def phase_stress(repeats: int = 5):
                         f"[stress] {name} n={big} on two streams at once: "
                         f"run {r + 1} differs from the plain version")
     ncase += 2
-    print(f"[stress] {ncase} K5 and K7 cases x {repeats} runs equal to the "
-          f"plain versions ({time.perf_counter() - t0:.1f} s)")
+    print(f"[stress] {ncase} K5, K7 and K8 cases x {repeats} runs equal to "
+          f"the plain versions ({time.perf_counter() - t0:.1f} s)")
 
 
 def phase_profile(workdir: str, stem: str):
@@ -549,6 +590,7 @@ def phase_kernels(launches, shapes, launches_ani, shapes_ani, workdir: str):
         b, by = _bound(nbytes, nops)
         library_ms = None if library is None else _time_ms(library)
         dev_ms, per_call = _device_ms(fn, kern)
+        cold_ms = _device_ms(fn, kern, cold=True)[0]
         lib_dev = None if library is None else _device_ms(library, None)[0]
         r = {"name": name, "route": "cuda",
              "source": f"parmmg_tpu_torch/csrc/{src}",
@@ -556,16 +598,24 @@ def phase_kernels(launches, shapes, launches_ani, shapes_ani, workdir: str):
              "launches": int(path[name]), "max_abs_err": err,
              "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
              "bound_by": by, "library_ms": library_ms,
-             "device_ms": dev_ms, "device_launches_per_call": per_call,
+             "device_ms": dev_ms, "device_ms_cold": cold_ms,
+             "device_launches_per_call": per_call,
              "library_device_ms": lib_dev}
         lib = ("-" if library_ms is None else
                f"{library_ms:.4f} (device {lib_dev})")
         which = "aniso" if path is launches_ani else "main"
         print(f"[kernel] {name}{shape}: max_abs_err {err:.3g} ms {ms:.4f} "
-              f"(device {dev_ms}, {per_call:g} device launches a call) "
-              f"plain {plain_ms:.4f} bound {b:.4f} ({by}) library {lib} "
-              f"{which}-path launches {path[name]}")
+              f"(device {dev_ms}, cold {cold_ms}, {per_call:g} device "
+              f"launches a call) plain {plain_ms:.4f} bound {b:.4f} ({by}) "
+              f"library {lib} {which}-path launches {path[name]}")
         return r
+
+    def sub(r, *extra):
+        """A further shape of a kernel's row, for its row's JSON."""
+        return {k: r[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "device_ms", "device_ms_cold",
+            "device_launches_per_call", "library_device_ms") + extra}
 
     def launches_per_call(r, want, what):
         got = r["device_launches_per_call"]
@@ -641,6 +691,7 @@ def phase_kernels(launches, shapes, launches_ani, shapes_ani, workdir: str):
         _time_ms(lambda: K.tet_quality_plain(mesh.vert, tv, tm)),
         12 * capP + 21 * capT, 70 * capT,
         lambda: K.tet_quality(mesh.vert, tv, tm), "tet_quality_kernel"))
+    launches_per_call(rows[-1], 1, "tet_quality iso")
     va, tva, tma = mesh_a.vert, mesh_a.tet, mesh_a.tmask
     capT_a = mesh_a.capT
     got = K.tet_quality(va, tva, tma, met6)
@@ -653,9 +704,8 @@ def phase_kernels(launches, shapes, launches_ani, shapes_ani, workdir: str):
               lambda: K.tet_quality(va, tva, tma, met6),
               "tet_quality_kernel", shape=f" tensor mode [capT {capT_a}]",
               path=launches_ani)
-    rows[-1]["tensor_mode"] = {k: k6a[k] for k in (
-        "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-        "library_ms", "device_ms")}
+    launches_per_call(k6a, 1, "tet_quality tensor mode")
+    rows[-1]["tensor_mode"] = sub(k6a, "launches")
     # K7 radix sort: the packed edge keys [6*capT] (1 word, 4 passes) and
     # the packed face keys [4*capT] (nbits (16, 32), 6 passes), as the
     # sort sites build them; exact against the plain stable-sort chain.
@@ -700,10 +750,7 @@ def phase_kernels(launches, shapes, launches_ani, shapes_ani, workdir: str):
                library=lambda: torch.sort(packed, stable=True),
                shape=f" [face keys {n4}, nbits (16, 32), {npass_f} passes]")
     launches_per_call(face, 1 + npass_f, "radix_sort face keys")
-    rows[-1]["face_keys"] = {k: face[k] for k in (
-        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-        "library_ms", "device_ms", "device_launches_per_call",
-        "library_device_ms")}
+    rows[-1]["face_keys"] = sub(face)
 
     # K5 prefix sum: the flags of fixed_order_sum's groups at its most
     # common shape (tet corners -> vertices, [4*capT]: the main path's one
@@ -739,21 +786,58 @@ def phase_kernels(launches, shapes, launches_ani, shapes_ani, workdir: str):
         if x is start4:
             rows.append(r)
         else:
-            rows[-1]["histogram" if x is hist else "flags_6capT"] = {
-                k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                  "bound_ms", "bound_by", "library_ms",
-                                  "device_ms", "device_launches_per_call",
-                                  "library_device_ms")}
+            rows[-1]["histogram" if x is hist else "flags_6capT"] = sub(r)
 
-    # K8 segment flags over the sorted edge keys (no single library call)
-    err = check("segment_flags", [K.segment_flags((ks,))],
-                [K.segment_flags_plain((ks,))], 0, 0, exact=True)
-    rows.append(row(
-        "segment_flags", "segment_flags.cu", 520, err,
-        _time_ms(lambda: K.segment_flags((ks,))),
-        _time_ms(lambda: K.segment_flags_plain((ks,))), 5 * n6, n6,
-        lambda: K.segment_flags((ks,)), "segment_flags_kernel",
-        shape=f" [sorted edge keys {n6}]"))
+    # K8 segment flags (no single library call): sorted mode over the
+    # sorted edge keys [6*capT] and face keys (f0, fw) [4*capT]; gathered
+    # mode, as the sort sites call it, from the unsorted keys and K7's
+    # permutation, with the pair it replaced beside it as its yardstick
+    # (PyTorch's gather of each key word by the int64 permutation, then
+    # sorted-mode K8: not a library call)
+    k8 = {}
+    for label, words, p32 in ((f"edge keys {n6}", (ekey,), order),
+                              (f"face keys (f0, fw) {n4}", (f0, fw), forder)):
+        perm = p32.long()
+        srt = tuple(w[perm] for w in words)
+        nw = len(words)
+        err = check("segment_flags", [K.segment_flags(srt)],
+                    [K.segment_flags_plain(srt)], 0, 0, exact=True)
+        r = row("segment_flags", "segment_flags.cu", 520, err,
+                _time_ms(lambda: K.segment_flags(srt)),
+                _time_ms(lambda: K.segment_flags_plain(srt)),
+                (4 * nw + 1) * srt[0].shape[0], nw * srt[0].shape[0],
+                lambda: K.segment_flags(srt), "segment_flags_kernel",
+                shape=f" [sorted {label}]")
+        launches_per_call(r, 1, f"segment_flags sorted {label}")
+        k8["sorted", nw] = r
+        got = K.segment_flags(words, order=p32)
+        ref = K.segment_flags_plain(words, order=p32)
+        err = check("segment_flags gathered", [got[1], *got[0]],
+                    [ref[1], *ref[0]], 0, 0, exact=True)
+        n = words[0].shape[0]
+        r = row("segment_flags", "segment_flags.cu", 520, err,
+                _time_ms(lambda: K.segment_flags(words, order=p32)),
+                _time_ms(lambda: K.segment_flags_plain(words, order=p32)),
+                (4 + 8 * nw + 1) * n, nw * n,
+                lambda: K.segment_flags(words, order=p32),
+                "segment_flags_kernel", shape=f" [gathered {label}]")
+        launches_per_call(r, 1, f"segment_flags gathered {label}")
+
+        def pair():
+            return K.segment_flags(tuple(w[perm] for w in words))
+        r["unfused_pair_ms"] = _time_ms(pair)
+        r["unfused_pair_device_ms"], nl = _device_ms(pair, None)
+        print(f"[kernel] segment_flags [gathered {label}] yardstick, the "
+              f"unfused pair (gather by the int64 permutation, then sorted "
+              f"K8): ms {r['unfused_pair_ms']:.4f} device "
+              f"{r['unfused_pair_device_ms']} ({nl:g} device launches a "
+              f"call)")
+        k8["gathered", nw] = r
+    rows.append(k8["sorted", 1])
+    rows[-1]["face_keys"] = sub(k8["sorted", 2])
+    for nw, key in ((1, "gathered_edge_keys"), (2, "gathered_face_keys")):
+        rows[-1][key] = sub(k8["gathered", nw], "unfused_pair_ms",
+                            "unfused_pair_device_ms")
     # the fixed-order float sum at smooth_wave's most common shape (tet
     # corners -> vertices, masked corners to the sentinel row capP; 4 and
     # 1 columns) against scatter_reduce's atomics and against PyTorch's

@@ -1,6 +1,7 @@
-// Tet quality ALPHA * vol * sqrt(det Mbar) / (sum of squared edge lengths in
-// Mbar)^1.5, clamped to <= 1 (<= 0 when inverted), 0 on dead tets.  One
-// thread per tet slot; iso and aniso modes are one template.
+// K6: tet quality ALPHA * vol * sqrt(det Mbar) / (sum of squared edge
+// lengths in Mbar)^1.5, clamped to <= 1 (<= 0 when inverted), 0 on dead
+// tets; Mbar is the mean of the corners' metrics (tensor mode) or the
+// identity (iso mode).  Iso and tensor modes are one template.
 //
 // Replaces parmmg_tpu/ops/pallas_kernels.py:quality_pallas (_qual_kernel),
 // which ops/quality.py:tet_quality feeds.  The TPU version received the
@@ -8,12 +9,44 @@
 // by XLA; here the kernel gathers the corners itself from vert/tet (and
 // met6), so the [capT,4,3] coordinate array never reaches device memory.
 //
-// Bound on the card: bytes.  Per tet it reads 16 bytes of ids + 1 byte of
-// mask and writes 4; the corner rows (12 bytes, +24 aniso) are gathers that
-// mostly hit L2.  Least time = (21 * capT + 12 * capP (+24 * capP aniso))
-// bytes / 3.35 TB/s.  Arithmetic: ~60 (iso) / ~150 (aniso) flops per tet
-// plus one pow, well below the float32 peak for these sizes.  Design: plain
-// grid-stride loop, all math in registers.
+// Bound on the card: bytes.  Per tet it reads 16 bytes of ids and 1 byte of
+// mask and writes 4; each point row (12 bytes, and 24 of metric in tensor
+// mode) is read at least once: least time = (21 * capT + 12 * capP
+// (+ 24 * capP tensor)) bytes / 3.35 TB/s (0.0015 ms iso at capT 220,992,
+// 0.0034 ms tensor at capT 407,648).  Arithmetic: ~70 (iso) / ~160
+// (tensor) float32 operations a tet, far below the card's float32 peak.
+//
+// Design: at these sizes the kernel is about one wave of blocks, so its
+// time is the launch ramp plus the chain of dependent loads each tet waits
+// on: the mask byte, then the ids, then the corners.  The mask byte is read first
+// and a dead tet writes 0 and loads nothing else; the four ids come in one
+// 16-byte load ([capT, 4] int32 rows are 16-byte aligned: the wrapper
+// checks); the corner rows (and the 24-byte metric rows, as three 8-byte
+// loads) come through the read-only path.  A thread takes one tet at a
+// time (TQ_TETS=2: two, striped a block apart, each stage's loads issued
+// for both before it waits on either) in a grid-stride loop over at most
+// 6 resident blocks an SM (TQ_BLOCKS_PER_SM; 0: no cap); rap^1.5 is
+// rap * sqrtf(rap) (powf with TQ_POWF).
+//
+// tools/k6_k8_variants.py chose these (NVIDIA H100 80GB HBM3, 700.00 W).
+// One tet a thread and sqrtf were the fastest in both modes on a
+// structured cube mesh: iso 0.0027-0.0029 ms against 0.0033-0.0035 with two
+// tets and 0.0031-0.0034 with powf; tensor 0.0066-0.0067 against
+// 0.0067-0.0068 and 0.0071-0.0073.  With no cap on the grid (8 blocks of
+// 32-register threads an SM) the kernel ran 4-12% slower in tensor mode
+// than the kernel it replaced (40 registers, 6 blocks an SM) on meshes
+// whose gathers have little locality in two runs, and 3-7% faster in two
+// others; capped at 6 blocks an SM it ran at or below that kernel in all
+// three runs that had it (0.95-0.99x in tensor mode on those meshes).
+//
+// Measured by chip_smoke.py on the same card, on the paths' output meshes
+// (device ms a call, warm L2; share of the bound): iso [capT 220,992]
+// 0.0043 ms, 36%; tensor [capT 407,648] 0.0152 ms, 22%.  On a structured
+// cube mesh of the same capacities the same kernel takes 0.0026 / 0.0062
+// ms (tools/k6_k8_variants.py), so what holds it there is the corner
+// gathers in the path mesh's own order: each 12-byte point row and 24-byte
+// metric row costs one or two 32-byte L2 sectors.  Only a mesh numbered
+// for locality removes that.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -21,96 +54,152 @@ namespace {
 
 constexpr float kEpsd = 1e-30f;
 constexpr float kAlpha = 124.70765814495915f;  // 36 * sqrt(12)
+constexpr int THREADS = 256;
+#ifndef TQ_TETS
+#define TQ_TETS 1
+#endif
+constexpr int TETS = TQ_TETS;  // tets a thread: 1 (2: a variant, slower)
+#ifndef TQ_BLOCKS_PER_SM
+#define TQ_BLOCKS_PER_SM 6
+#endif
+// resident blocks an SM at most (0: no cap, one tet a thread)
+constexpr int BLOCKS_PER_SM = TQ_BLOCKS_PER_SM;
+
+__device__ __forceinline__ float pow15(float x) {
+#ifdef TQ_POWF
+  return powf(x, 1.5f);
+#else
+  return x * sqrtf(x);
+#endif
+}
 
 template <bool ANISO>
-__global__ void tet_quality_kernel(const float* __restrict__ vert,
-                                   const int* __restrict__ tet,
-                                   const uint8_t* __restrict__ tmask,
-                                   const float* __restrict__ met6,
-                                   float* __restrict__ out, int capP,
-                                   long long n) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       t < n; t += stride) {
-    if (!tmask[t]) {
-      out[t] = 0.0f;
-      continue;
-    }
-    float x[4], y[4], z[4];
-    float m[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+__device__ __forceinline__ float quality(const float (&x)[4],
+                                         const float (&y)[4],
+                                         const float (&z)[4],
+                                         const float (&m)[6]) {
+  const float d1x = x[1] - x[0], d1y = y[1] - y[0], d1z = z[1] - z[0];
+  const float d2x = x[2] - x[0], d2y = y[2] - y[0], d2z = z[2] - z[0];
+  const float d3x = x[3] - x[0], d3y = y[3] - y[0], d3z = z[3] - z[0];
+  const float cx = d2y * d3z - d2z * d3y;
+  const float cy = d2z * d3x - d2x * d3z;
+  const float cz = d2x * d3y - d2y * d3x;
+  const float vol = (d1x * cx + d1y * cy + d1z * cz) / 6.0f;
+  const float M11 = 0.25f * m[0], M12 = 0.25f * m[1], M13 = 0.25f * m[2];
+  const float M22 = 0.25f * m[3], M23 = 0.25f * m[4], M33 = 0.25f * m[5];
+  // IARE order: (0,1)(0,2)(0,3)(1,2)(1,3)(2,3)
+  const int ei[6] = {0, 0, 0, 1, 1, 2};
+  const int ej[6] = {1, 2, 3, 2, 3, 3};
+  float rap = 0.0f;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int v = min(max(tet[4 * t + c], 0), capP - 1);
-      x[c] = vert[3 * v];
-      y[c] = vert[3 * v + 1];
-      z[c] = vert[3 * v + 2];
-      if (ANISO) {
-#pragma unroll
-        for (int k = 0; k < 6; ++k) m[k] += met6[6 * v + k];
-      }
-    }
-    const float d1x = x[1] - x[0], d1y = y[1] - y[0], d1z = z[1] - z[0];
-    const float d2x = x[2] - x[0], d2y = y[2] - y[0], d2z = z[2] - z[0];
-    const float d3x = x[3] - x[0], d3y = y[3] - y[0], d3z = z[3] - z[0];
-    const float cx = d2y * d3z - d2z * d3y;
-    const float cy = d2z * d3x - d2x * d3z;
-    const float cz = d2x * d3y - d2y * d3x;
-    const float vol = (d1x * cx + d1y * cy + d1z * cz) / 6.0f;
-    float M11 = 0.f, M12 = 0.f, M13 = 0.f, M22 = 0.f, M23 = 0.f, M33 = 0.f;
+  for (int e = 0; e < 6; ++e) {
+    const float ex = x[ej[e]] - x[ei[e]];
+    const float ey = y[ej[e]] - y[ei[e]];
+    const float ez = z[ej[e]] - z[ei[e]];
     if (ANISO) {
-      M11 = 0.25f * m[0];
-      M12 = 0.25f * m[1];
-      M13 = 0.25f * m[2];
-      M22 = 0.25f * m[3];
-      M23 = 0.25f * m[4];
-      M33 = 0.25f * m[5];
-    }
-    // IARE order: (0,1)(0,2)(0,3)(1,2)(1,3)(2,3)
-    const int ei[6] = {0, 0, 0, 1, 1, 2};
-    const int ej[6] = {1, 2, 3, 2, 3, 3};
-    float rap = 0.0f;
-#pragma unroll
-    for (int e = 0; e < 6; ++e) {
-      const float ex = x[ej[e]] - x[ei[e]];
-      const float ey = y[ej[e]] - y[ei[e]];
-      const float ez = z[ej[e]] - z[ei[e]];
-      if (ANISO) {
-        rap += M11 * ex * ex + M22 * ey * ey + M33 * ez * ez +
-               2.0f * (M12 * ex * ey + M13 * ex * ez + M23 * ey * ez);
-      } else {
-        rap += ex * ex + ey * ey + ez * ez;
-      }
-    }
-    float num;
-    if (ANISO) {
-      const float det = M11 * (M22 * M33 - M23 * M23) -
-                        M12 * (M12 * M33 - M23 * M13) +
-                        M13 * (M12 * M23 - M22 * M13);
-      num = kAlpha * vol * sqrtf(fmaxf(det, 0.0f));
+      rap += M11 * ex * ex + M22 * ey * ey + M33 * ez * ez +
+             2.0f * (M12 * ex * ey + M13 * ex * ez + M23 * ey * ez);
     } else {
-      num = kAlpha * vol;
+      rap += ex * ex + ey * ey + ez * ez;
     }
-    const float q = num / powf(fmaxf(rap, kEpsd), 1.5f);
-    out[t] = vol > 0.0f ? fminf(q, 1.0f) : fminf(q, 0.0f);
+  }
+  float num;
+  if (ANISO) {
+    const float det = M11 * (M22 * M33 - M23 * M23) -
+                      M12 * (M12 * M33 - M23 * M13) +
+                      M13 * (M12 * M23 - M22 * M13);
+    num = kAlpha * vol * sqrtf(fmaxf(det, 0.0f));
+  } else {
+    num = kAlpha * vol;
+  }
+  const float q = num / pow15(fmaxf(rap, kEpsd));
+  return vol > 0.0f ? fminf(q, 1.0f) : fminf(q, 0.0f);
+}
+
+template <bool ANISO>
+__global__ void __launch_bounds__(THREADS)
+    tet_quality_kernel(const float* __restrict__ vert,
+                       const int4* __restrict__ tet,
+                       const uint8_t* __restrict__ tmask,
+                       const float* __restrict__ met6,
+                       float* __restrict__ out, int capP, long long n) {
+  for (long long t0 = (long long)blockIdx.x * THREADS * TETS + threadIdx.x;
+       t0 < n; t0 += (long long)gridDim.x * THREADS * TETS) {
+    bool live[TETS];
+    int4 ids[TETS];
+#pragma unroll
+    for (int u = 0; u < TETS; ++u) {
+      const long long t = t0 + (long long)u * THREADS;
+      live[u] = t < n && __ldg(tmask + t) != 0;
+    }
+#pragma unroll
+    for (int u = 0; u < TETS; ++u)
+      if (live[u]) ids[u] = __ldg(tet + t0 + (long long)u * THREADS);
+    float x[TETS][4], y[TETS][4], z[TETS][4], m[TETS][6];
+#pragma unroll
+    for (int u = 0; u < TETS; ++u) {
+#pragma unroll
+      for (int k = 0; k < 6; ++k) m[u][k] = 0.0f;
+      if (!live[u]) continue;
+      const int id[4] = {ids[u].x, ids[u].y, ids[u].z, ids[u].w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int v = min(max(id[c], 0), capP - 1);
+        const float* p = vert + 3 * (long long)v;
+        x[u][c] = __ldg(p);
+        y[u][c] = __ldg(p + 1);
+        z[u][c] = __ldg(p + 2);
+        if (ANISO) {
+          const float2* r =
+              reinterpret_cast<const float2*>(met6 + 6 * (long long)v);
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            const float2 a = __ldg(r + k);
+            m[u][2 * k] += a.x;
+            m[u][2 * k + 1] += a.y;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < TETS; ++u) {
+      const long long t = t0 + (long long)u * THREADS;
+      if (t < n)
+        out[t] = live[u] ? quality<ANISO>(x[u], y[u], z[u], m[u]) : 0.0f;
+    }
   }
 }
 
 }  // namespace
 
+// tet: [n, 4] int32, 16-byte aligned; met6 (tensor mode, else null):
+// [capP, 6] float32, 8-byte aligned.
 extern "C" int pm_tet_quality(const float* vert, const int* tet,
                               const uint8_t* tmask, const float* met6,
                               float* out, int capP, long long n,
                               void* stream) {
-  const int threads = 256;
-  long long blocks = (n + threads - 1) / threads;
-  if (blocks > 132 * 16) blocks = 132 * 16;
+  if (n <= 0) return 0;
+  if ((uintptr_t)tet % 16 || (uintptr_t)met6 % 8)
+    return (int)cudaErrorMisalignedAddress;
+  const long long per = (long long)THREADS * TETS;
+  long long blocks = (n + per - 1) / per;
+  if (BLOCKS_PER_SM > 0) {
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    blocks = blocks < (long long)sms * BLOCKS_PER_SM
+                 ? blocks : (long long)sms * BLOCKS_PER_SM;
+  }
   cudaStream_t s = (cudaStream_t)stream;
+  const int4* t4 = reinterpret_cast<const int4*>(tet);
   if (met6 != nullptr) {
-    tet_quality_kernel<true><<<(unsigned)blocks, threads, 0, s>>>(
-        vert, tet, tmask, met6, out, capP, n);
+    tet_quality_kernel<true><<<(unsigned)blocks, THREADS, 0, s>>>(
+        vert, t4, tmask, met6, out, capP, n);
   } else {
-    tet_quality_kernel<false><<<(unsigned)blocks, threads, 0, s>>>(
-        vert, tet, tmask, met6, out, capP, n);
+    tet_quality_kernel<false><<<(unsigned)blocks, THREADS, 0, s>>>(
+        vert, t4, tmask, met6, out, capP, n);
   }
   return (int)cudaGetLastError();
 }

@@ -35,27 +35,31 @@ def face_sort(mesh: Mesh):
         # below capP <= PACK_LIMIT < 2^16, so it sorts in 2 digit passes
         w = torch.where(c0 == INT32_MAX, torch.full_like(c0, INT32_MAX),
                         cols[:, 1] * mesh.capP + cols[:, 2])
-        order = kernels.radix_sort((c0, w), nbits=(16, 32)).long()
-        return face_records_from_sorted(mesh, order, c0[order], w[order])
-    c1, c2 = cols[:, 1].contiguous(), cols[:, 2].contiguous()
-    order = kernels.radix_sort((c0, c1, c2)).long()
-    return face_records_from_sorted(mesh, order, c0[order], c1[order],
-                                    c2[order])
+        words, nbits = (c0, w), (16, 32)
+    else:
+        words, nbits = (c0, cols[:, 1].contiguous(),
+                        cols[:, 2].contiguous()), None
+    order = kernels.radix_sort(words, nbits=nbits)
+    # K8 gathers the sorted keys and flags them in one launch
+    keys, first = kernels.segment_flags(words, order=order)
+    return face_records_from_sorted(mesh, order, *keys, first=first)
 
 
-def face_records_from_sorted(mesh: Mesh, order, *keys):
+def face_records_from_sorted(mesh: Mesh, order, *keys, first=None):
     """``face_sort``'s records from a precomputed face sort: ``order`` the
     stable permutation of the 4*capT face slots (tet-major), ``keys`` the
-    ascending key columns (major first)."""
+    ascending key columns (major first), ``first`` their segment flags
+    where the caller has them already."""
     order = order.to(torch.int32)
     t = torch.div(order, 4, rounding_mode="floor")
     f = order % 4
-    return _pair_records(mesh.capT, keys, t, f)
+    return _pair_records(mesh.capT, keys, t, f, first)
 
 
-def _pair_records(capT: int, keys, t, f):
+def _pair_records(capT: int, keys, t, f, first=None):
     """Twin pairing over sorted face keys: matched twins are adjacent."""
-    first = kernels.segment_flags(keys)
+    if first is None:
+        first = kernels.segment_flags(keys)
     eq_next = ~first[1:] & (keys[0][:-1] != INT32_MAX)
     false1 = torch.zeros(1, dtype=torch.bool, device=t.device)
     same_next = torch.cat([eq_next, false1])

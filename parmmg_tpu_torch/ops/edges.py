@@ -39,22 +39,22 @@ def free_rows(mask: torch.Tensor, K: int):
 def sort_pairs(a, b, valid, capP: int):
     """Sort (a, b) id pairs ascending, invalid slots last.  Returns
     (order [n] int64, ka, kb, first) like the JAX package: one packed
-    key when capP <= PACK_LIMIT, two key words otherwise."""
+    key when capP <= PACK_LIMIT, two key words otherwise.  K8 gathers the
+    sorted keys and flags them in one launch."""
     big = torch.full_like(a, INT32_MAX)
     if capP <= PACK_LIMIT:
         key = torch.where(valid, a * capP + b, big).to(torch.int32)
-        order = kernels.radix_sort((key,)).long()
-        ks = key[order]
-        first = kernels.segment_flags((ks,))
+        order = kernels.radix_sort((key,))
+        (ks,), first = kernels.segment_flags((key,), order=order)
         inv = ks == INT32_MAX
         ka = torch.where(inv, big, torch.div(ks, capP, rounding_mode="floor"))
         kb = torch.where(inv, big, ks % capP)
-        return order, ka, kb, first
+        return order.long(), ka, kb, first
     aa = torch.where(valid, a, big).to(torch.int32)
     bb = torch.where(valid, b, big).to(torch.int32)
-    order = kernels.radix_sort((aa, bb)).long()
-    ka, kb = aa[order], bb[order]
-    return order, ka, kb, kernels.segment_flags((ka, kb))
+    order = kernels.radix_sort((aa, bb))
+    (ka, kb), first = kernels.segment_flags((aa, bb), order=order)
+    return order.long(), ka, kb, first
 
 
 def segmented_or(first, values):

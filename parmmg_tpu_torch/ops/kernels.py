@@ -17,13 +17,15 @@ radix_sort         csrc/radix_sort.cu          radix_sort_pallas (K7)
 segment_flags      csrc/segment_flags.cu       segment_flags_pallas (K8)
 =================  ==========================  ===========================
 
-``merge_prefix`` is one launch a call (a single-pass scan with decoupled
-look-back); ``radix_sort`` is 1 + npass launches a call (a histogram of
-every digit pass, then one one-sweep pass per 8-bit digit) and runs no K5
-scan.  Both keep a few small buffers on the device between calls (tile
-counters, epochs, K5's status words), one set for each stream they are
-called on (``_scratch``); K7 takes its row-sized buffers from PyTorch's
-allocator on every call.
+Every wrapper is one launch a call except ``radix_sort``: 1 + npass
+launches (a histogram of every digit pass, then one one-sweep pass per
+8-bit digit), and no K5 scan.  ``merge_prefix`` and ``radix_sort`` keep
+a few small buffers on the device between calls (tile counters, epochs,
+K5's status words), one set for each stream they are called on
+(``_scratch``); K7 takes its row-sized buffers from PyTorch's allocator
+on every call.  ``segment_flags(words, order=perm)`` gathers the columns
+through a sort's permutation in the same launch and returns them with
+their flags, so a sort site needs no separate gather of its keys.
 ``f32_sort_u32`` (the float image K7 sorts, no ``pallas_call`` in the JAX
 package) is plain torch.
 
@@ -72,8 +74,9 @@ _SIGS = {
                        ctypes.c_longlong, ctypes.c_longlong, _P]),
     "pm_radix_tile": ("radix_sort", []),
     "pm_segment_flags": ("segment_flags",
-                         [_P, _P, _P, ctypes.c_int, _P, ctypes.c_longlong,
-                          _P]),
+                         [_P, _P, _P, ctypes.c_int, _P, _P, _P, _P, _P,
+                          ctypes.c_longlong, _P]),
+    "pm_segment_flags_rows": ("segment_flags", []),
 }
 
 
@@ -247,7 +250,9 @@ def tet_quality_plain(vert, tet, tmask, met6=None):
 
 def tet_quality(vert, tet, tmask, met6=None):
     """[capT] quality of every tet slot, 0 where ``tmask`` is False;
-    ``met6`` [capP, 6] selects the aniso mode (tet-mean metric)."""
+    ``met6`` [capP, 6] selects the aniso mode (tet-mean metric).  One
+    launch a call.  On the card ``tet`` must start 16-byte aligned (the
+    kernel loads a row's four ids at once) and ``met6`` 8-byte aligned."""
     capP, capT = vert.shape[0], tet.shape[0]
     _check("vert", vert, torch.float32, (capP, 3))
     _check("tet", tet, torch.int32, (capT, 4))
@@ -258,6 +263,9 @@ def tet_quality(vert, tet, tmask, met6=None):
         ts = ts + (met6,)
     if not _on_card(*ts):
         return tet_quality_plain(vert, tet, tmask, met6)
+    if tet.data_ptr() % 16 or (met6 is not None and met6.data_ptr() % 8):
+        raise ValueError("tet_quality: tet must start 16-byte aligned and "
+                         "met6 8-byte aligned")
     out = torch.empty(capT, dtype=torch.float32, device=vert.device)
     if capT:
         _launch("pm_tet_quality", vert.data_ptr(), tet.data_ptr(),
@@ -429,41 +437,62 @@ def f32_sort_u32(x):
 
 
 # ---------------------------------------------------------------------------
-# K8: segment-start flags over sorted columns
+# K8: segment-start flags over sorted columns, optionally gathered first
 # ---------------------------------------------------------------------------
-def _segment_args(words):
+def _segment_args(words, order):
     words = tuple(words)
     if not words:
         raise ValueError("segment_flags needs at least one column")
     n = words[0].shape[0]
     for j, w in enumerate(words):
         _check(f"words[{j}]", w, torch.int32, (n,))
+    if order is not None:
+        _check("order", order, torch.int32, (n,))
     return words, n
 
 
-def segment_flags_plain(words):
-    words, n = _segment_args(words)
+def segment_flags_plain(words, order=None):
+    words, n = _segment_args(words, order)
+    if order is not None:
+        o = order.long()
+        words = tuple(w[o] for w in words)
     first = torch.ones(n, dtype=torch.bool, device=words[0].device)
     if n > 1:
         neq = words[0][1:] != words[0][:-1]
         for w in words[1:]:
             neq = neq | (w[1:] != w[:-1])
         first[1:] = neq
-    return first
+    return first if order is None else (words, first)
 
 
-def segment_flags(words):
+def segment_flags(words, order=None):
     """[n] bool: True at row 0 and wherever any column differs from the
-    row before (the heads of equal-key runs of sorted columns)."""
-    words, n = _segment_args(words)
-    if not _on_card(*words):
-        return segment_flags_plain(words)
+    row before (the heads of equal-key runs of sorted columns).
+
+    With ``order`` (an int32 [n] permutation, as ``radix_sort`` returns
+    it) the columns are gathered first, ``words[j][order]``, in the same
+    launch: returns (the gathered columns, their flags).  One launch a
+    call in either mode."""
+    words, n = _segment_args(words, order)
+    ts = words if order is None else words + (order,)
+    if not _on_card(*ts):
+        return segment_flags_plain(words, order)
     if len(words) > 3:
         raise ValueError("the CUDA segment flags take 1-3 columns")
-    out = torch.empty(n, dtype=torch.bool, device=words[0].device)
+    if order is not None and n >= 2 ** 31:
+        raise ValueError("gathered segment_flags takes fewer than 2**31 rows")
+    dev = words[0].device
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    srt = (None if order is None else
+           tuple(torch.empty(n, dtype=torch.int32, device=dev)
+                 for _ in words))
     if n:
-        ptrs = [w.data_ptr() for w in words] + [None] * (3 - len(words))
-        _launch("pm_segment_flags", *ptrs, len(words), out.data_ptr(), n,
-                _stream(out))
+        pad = [None] * (3 - len(words))
+        ptrs = [w.data_ptr() for w in words] + pad
+        sptrs = ([None] * 3 if srt is None
+                 else [w.data_ptr() for w in srt] + pad)
+        _launch("pm_segment_flags", *ptrs, len(words),
+                None if order is None else order.data_ptr(), *sptrs,
+                out.data_ptr(), n, _stream(out))
         LAUNCHES["segment_flags"] += 1
-    return out
+    return out if order is None else (srt, out)

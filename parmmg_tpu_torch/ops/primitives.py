@@ -93,11 +93,12 @@ def fixed_order_sum(dst: torch.Tensor, idx: torch.Tensor,
     v = vals.to(dst.dtype).reshape(n, -1)
     nbits = max(1, (dst.shape[0] - 1).bit_length())
     key = idx.to(torch.int32).contiguous()
-    order = kernels.radix_sort((key,), nbits=(min(nbits, 32),)).long()
-    key, v = key[order], v[order]
+    order = kernels.radix_sort((key,), nbits=(min(nbits, 32),))
+    # the first level's keys come sorted and flagged from one K8 launch
+    (key,), first = kernels.segment_flags((key,), order=order)
+    v = v[order.long()]
     while True:
         pos = torch.arange(key.shape[0], dtype=torch.int32, device=dev)
-        first = kernels.segment_flags((key,))
         rank = pos - torch.searchsorted(key, key, out_int32=True)
         col = (rank % _SUM_WIDTH).long()
         start = col == 0
@@ -113,6 +114,7 @@ def fixed_order_sum(dst: torch.Tensor, idx: torch.Tensor,
         key, v = key[start], blk[:, 0]
         if ngrp == nseg:
             break
+        first = kernels.segment_flags((key,))
     k = key.long()
     out[k] = out[k] + v.reshape((ngrp,) + tuple(dst.shape[1:]))
     return out

@@ -84,6 +84,63 @@ def test_tet_quality_matches_pallas(aniso):
     np.testing.assert_allclose(got.numpy(), ref, **tol)
 
 
+@pytest.mark.parametrize("aniso", [False, True])
+def test_tet_quality_edge_cases_match_pallas(aniso):
+    """K6 on dead, inverted and degenerate tets and on ids out of range
+    (clamped to [0, capP)), against the Pallas kernel on the clamped
+    corners.  A tet whose four corners coincide has quality 0 in the port;
+    the Pallas kernel on the CPU gives NaN there (XLA flushes rap^1.5 =
+    1e-45, a denormal, to 0 and divides 0 by it), so that one row is held
+    to 0 instead."""
+    rng = _rng(21 + aniso)
+    P = 64
+    vert = rng.random((P, 3)).astype(np.float32)
+    vert[1] = vert[0]                        # a coincident pair
+    vert[2:5] = vert[5] + np.float32(0.5) * (vert[6] - vert[5]) * (
+        np.arange(3, dtype=np.float32)[:, None])   # 2..6 on one line
+    vert[10:14] = [[0, 0, 0], [1, 0, 0], [0, 1, 0], [1, 1, 0]]  # coplanar
+    vert[20:24] = [[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]]  # vol > 0
+    good = [20, 21, 22, 23]
+    tet = np.array([
+        good,                  # live
+        good,                  # dead
+        [20, 22, 21, 23],      # inverted
+        [10, 11, 12, 13],      # flat
+        [0, 1, 7, 8],          # collapsed edge
+        [2, 3, 4, 9],          # three corners on a line (to rounding)
+        [-5, 3, P + 7, 2 ** 31 - 1],    # ids out of range, clamped
+        [-1, -1, -1, -1],      # all clamped to 0: four equal corners
+        [30, 31, 32, 33],
+    ], np.int32)
+    tet = np.concatenate([tet, rng.integers(0, P, (40, 4), dtype=np.int32)])
+    tmask = np.ones(len(tet), bool)
+    tmask[1] = False
+    tmask[-7:-3] = False
+    met6 = None
+    if aniso:
+        w = (1.0 + 4.0 * rng.random(P)).astype(np.float32)
+        met6 = np.stack([w, 0.1 * w, -0.05 * w, 1.5 * w, 0.02 * w, 0.8 * w],
+                        1).astype(np.float32)
+    tc = np.clip(tet, 0, P - 1)
+    m6bar = None if met6 is None else jnp.asarray(met6[tc].mean(axis=1))
+    ref = np.asarray(pk.quality_pallas(jnp.asarray(vert[tc]), m6bar,
+                                       interpret=True))
+    ref = np.where(tmask, ref, 0.0)
+    got = K.tet_quality(torch.from_numpy(vert), torch.from_numpy(tet),
+                        torch.from_numpy(tmask),
+                        None if met6 is None else torch.from_numpy(met6))
+    got = got.numpy()
+    point = 7
+    assert got[point] == 0.0
+    assert got[1] == 0.0 and (got[-7:-3] == 0.0).all()
+    assert got[2] < 0.0 < got[0]
+    assert (got[3:5] == 0.0).all() and abs(got[5]) < 1e-6
+    keep = np.arange(len(tet)) != point
+    tol = dict(rtol=1e-4, atol=1e-5) if aniso else dict(rtol=3e-5,
+                                                         atol=3e-6)
+    np.testing.assert_allclose(got[keep], ref[keep], **tol)
+
+
 @pytest.mark.parametrize("n", [1, 127, 1000])
 def test_score_kernels_bit_identical(n):
     rng = _rng(n + 11)
@@ -207,6 +264,37 @@ def test_cuda_kernels_match_plain_versions():
                            K.radix_sort_plain(words, nbits))
     ks = key[K.radix_sort((key,)).long()]
     assert torch.equal(K.segment_flags((ks,)), K.segment_flags_plain((ks,)))
+    # K8 in both modes, exactly: around one tile of rows, on a column
+    # viewed at a 1-element offset (the kernel's unaligned path), on 1-3
+    # words; one launch a call
+    tile = 256 * K._fn("pm_segment_flags_rows")()
+    w3 = torch.randint(0, 4, (3, 3 * tile + 9), generator=g,
+                       dtype=torch.int32)
+    w3[:, ::11] = 2147483647
+    w3 = w3.to(dev)
+    for m in (1, tile - 1, tile, tile + 1, 3 * tile + 8):
+        for nw in (1, 2, 3):
+            for off in (0, 1):
+                words = tuple(w3[j, off:off + m] for j in range(nw))
+                perm = K.radix_sort(words)
+                srt = tuple(w[perm.long()].contiguous() for w in words)
+                before = K.LAUNCHES["segment_flags"]
+                assert torch.equal(K.segment_flags(srt),
+                                   K.segment_flags_plain(srt))
+                got = K.segment_flags(words, order=perm)
+                ref = K.segment_flags_plain(words, order=perm)
+                assert K.LAUNCHES["segment_flags"] == before + 2
+                assert torch.equal(got[1], ref[1])
+                assert all(torch.equal(a, b) for a, b in zip(got[0], ref[0]))
+    # K6 at a capT that is not a multiple of its block, dead tets included
+    for m in (1, 511, 513, 20001):
+        tq, mq = tet[:m], tm[:m]
+        torch.testing.assert_close(K.tet_quality(vert, tq, mq),
+                                   K.tet_quality_plain(vert, tq, mq),
+                                   rtol=3e-5, atol=3e-6)
+        torch.testing.assert_close(K.tet_quality(vert, tq, mq, met6),
+                                   K.tet_quality_plain(vert, tq, mq, met6),
+                                   rtol=1e-4, atol=1e-5)
     # the fixed-order float sum: the same bits on every call, close to the
     # CPU's sequential scatter_reduce
     from parmmg_tpu_torch.ops.primitives import reduce_drop

@@ -182,20 +182,54 @@ def test_merge_prefix_wrapping_sums(n):
     assert np.abs(np.cumsum(x.astype(np.int64))).max() >= 2 ** 31
 
 
-@pytest.mark.parametrize("case", ["one_word", "two_words", "all_equal"])
+# case -> (gathered, number of words, n, keys): "random" keys in 0..5,
+# "equal" all 3, "tombstones" random with ~1/4 INT32_MAX rows.  n = 2051
+# crosses the Pallas 1024-element seam; 1029 leaves a ragged tail past the
+# card kernel's 8-row threads; 1 is a lone row.
+_SEG_CASES = {
+    "one_word": (False, 1, 2051, "random"),
+    "two_words": (False, 2, 2051, "random"),
+    "all_equal": (False, 1, 2051, "equal"),
+    "three_words": (False, 3, 2051, "random"),
+    "tombstones_tail": (False, 2, 1029, "tombstones"),
+    "one_row": (False, 1, 1, "random"),
+    "gathered_one_word": (True, 1, 2051, "random"),
+    "gathered_two_words": (True, 2, 2051, "random"),
+    "gathered_three_words": (True, 3, 2051, "random"),
+    "gathered_one_row": (True, 1, 1, "random"),
+    "gathered_tail": (True, 2, 1029, "random"),
+    "gathered_all_equal": (True, 1, 2051, "equal"),
+    "gathered_tombstones": (True, 3, 2051, "tombstones"),
+}
+
+
+@pytest.mark.parametrize("case", list(_SEG_CASES))
 def test_segment_flags_matches_pallas(case):
+    """K8 against ``segment_flags_pallas``: sorted mode on sorted columns;
+    gathered mode on unsorted columns and their stable sort permutation,
+    against the Pallas kernel on the numpy-gathered columns."""
+    gathered, nw, n, kind = _SEG_CASES[case]
     rng = _rng(7)
-    n = 2051                       # crosses the Pallas 1024-element seam
-    if case == "all_equal":
-        words = [np.full(n, 3, np.int32)]
+    if kind == "equal":
+        words = [np.full(n, 3, np.int32) for _ in range(nw)]
     else:
-        words = [rng.integers(0, 6, n).astype(np.int32)
-                 for _ in range(1 if case == "one_word" else 2)]
-        o = np.lexsort(words[::-1])
-        words = [w[o] for w in words]
+        words = [rng.integers(0, 6, n).astype(np.int32) for _ in range(nw)]
+        if kind == "tombstones":
+            for w in words:
+                w[rng.random(n) < 0.25] = I32_MAX
+    o = np.lexsort(words[::-1]).astype(np.int32)     # stable, major first
+    srt = [w[o] for w in words]
     ref = np.asarray(pk.segment_flags_pallas(
-        tuple(jnp.asarray(w) for w in words), interpret=True))
-    got = K.segment_flags(tuple(_t(w) for w in words))
+        tuple(jnp.asarray(w) for w in srt), interpret=True))
+    if gathered:
+        cols, got = K.segment_flags(tuple(_t(w) for w in words),
+                                    order=_t(o))
+        assert len(cols) == nw
+        for c, w in zip(cols, srt):
+            assert c.dtype == torch.int32
+            assert np.array_equal(c.numpy(), w)
+    else:
+        got = K.segment_flags(tuple(_t(w) for w in srt))
     assert np.array_equal(got.numpy(), ref)
 
 
@@ -210,6 +244,16 @@ def test_cpu_sort_wrappers_count_no_launch():
         K.radix_sort((k.long(),))
     with pytest.raises(ValueError):
         K.radix_sort((k,), nbits=(16, 32))
+    # the gathered mode's permutation: int32, contiguous, one a row
+    o = torch.arange(100, dtype=torch.int32)
+    K.segment_flags((k,), order=o)
+    assert all(v == 0 for v in K.LAUNCHES.values())
+    with pytest.raises(TypeError):
+        K.segment_flags((k,), order=o.long())
+    with pytest.raises(ValueError):
+        K.segment_flags((k,), order=o[:99])
+    with pytest.raises(ValueError):
+        K.segment_flags((k,), order=torch.arange(200, dtype=torch.int32)[::2])
 
 
 # ---- sort sites against the JAX package with the engine forced --------------
