@@ -467,10 +467,14 @@ def phase_stress(repeats: int = 5):
                          ints(0, 3, 3 * (n + 1))).to(torch.int32)
         w3 = w3.view(3, n + 1)
         for nw in (1, 2, 3):
+            # sorted columns of n + 1 rows, viewed at each offset below
+            buf = tuple(w3[j] for j in range(nw))
+            pbuf = K.radix_sort(buf).long()
+            sbuf = tuple(w[pbuf] for w in buf)
             for off in (0, 1):
                 words = tuple(w3[j, off:off + n] for j in range(nw))
                 perm = K.radix_sort(words)
-                srt = tuple(w[perm.long()] for w in words)
+                srt = tuple(s[off:off + n] for s in sbuf)
                 view = f"at offset {off}"
                 same(f"segment_flags n={n} {nw} words {view}",
                      lambda: K.segment_flags(srt),

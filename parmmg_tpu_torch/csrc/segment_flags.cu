@@ -16,34 +16,31 @@
 // once (4n a word), writes the sorted words (4n a word) and the flags (n):
 // (4 + 8 * nwords + 1) * n bytes.
 //
-// Design: a block takes a tile of 256 threads x ROWS rows, a thread ROWS
+// Design: a block takes a tile of 256 threads x 8 rows, a thread 8
 // consecutive rows.  The thread loads its rows of each word (and, gathered,
 // of the permutation) as 16-byte vectors, takes the row before its first
 // from the previous lane by __shfl_up_sync (lane 0 loads it itself), and
-// writes its ROWS flags in one ROWS-byte store (and, gathered, the sorted
-// rows as 16-byte vectors).  A thread whose rows run past n, or a call whose
+// writes its 8 flags in one 8-byte store (and, gathered, the sorted rows
+// as 16-byte vectors).  A thread whose rows run past n, or a call whose
 // columns are not 16-byte aligned (a view at an odd offset), takes the
 // scalar path of the same kernel.  The grid covers n with no cap.  (16 rows
-// a thread, SEG_ROWS=16, and the scalar path alone are variants that
+// a thread and the scalar path alone are variants that
 // tools/k6_k8_variants.py times; both were slower.)
 //
-// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W, on the
-// iso path's output mesh (device ms a call, warm L2; share of the bound):
-// sorted edge keys [1,325,952] 0.0023 ms, 86%; sorted face keys (2 words)
-// [883,968] 0.0026 ms, 91%; gathered edge keys 0.0069 ms, 75%; gathered
-// face keys 0.0093 ms, 60%.  The gathered mode's random gathers fetch a
-// 32-byte sector for each 4-byte key, which the byte bound does not count.
+// Measured by chip_smoke.py in the proof run of PERF.md's kernel table
+// (its chip call 14; NVIDIA H100 80GB HBM3, 700.00 W), on the iso path's
+// output mesh (device ms a call, warm L2; share of the bound): sorted edge
+// keys [1,325,952] 0.0023 ms, 86%; sorted face keys (2 words) [883,968]
+// 0.0026 ms, 91%; gathered edge keys 0.0070 ms, 73%; gathered face keys
+// 0.0085 ms, 65%.  The gathered mode's random gathers fetch a 32-byte
+// sector for each 4-byte key, which the byte bound does not count.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int THREADS = 256;
-#ifndef SEG_ROWS
-#define SEG_ROWS 8
-#endif
-constexpr int ROWS = SEG_ROWS;  // rows a thread: 8 (16: a variant, slower)
-static_assert(ROWS == 8 || ROWS == 16, "ROWS: 8 or 16");
+constexpr int ROWS = 8;  // rows a thread
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Cols {
@@ -143,12 +140,7 @@ __global__ void __launch_bounds__(THREADS)
     packed[k / 4] |= (uint32_t)d << (8 * (k % 4));
   }
   if (vec) {
-    if constexpr (ROWS == 8) {
-      *reinterpret_cast<uint2*>(flags + r0) = make_uint2(packed[0], packed[1]);
-    } else {
-      *reinterpret_cast<uint4*>(flags + r0) =
-          make_uint4(packed[0], packed[1], packed[2], packed[3]);
-    }
+    *reinterpret_cast<uint2*>(flags + r0) = make_uint2(packed[0], packed[1]);
   } else {
 #pragma unroll
     for (int k = 0; k < ROWS; ++k)

@@ -18,35 +18,25 @@
 //
 // Design: at these sizes the kernel is about one wave of blocks, so its
 // time is the launch ramp plus the chain of dependent loads each tet waits
-// on: the mask byte, then the ids, then the corners.  The mask byte is read first
-// and a dead tet writes 0 and loads nothing else; the four ids come in one
-// 16-byte load ([capT, 4] int32 rows are 16-byte aligned: the wrapper
-// checks); the corner rows (and the 24-byte metric rows, as three 8-byte
-// loads) come through the read-only path.  A thread takes one tet at a
-// time (TQ_TETS=2: two, striped a block apart, each stage's loads issued
-// for both before it waits on either) in a grid-stride loop over at most
-// 6 resident blocks an SM (TQ_BLOCKS_PER_SM; 0: no cap); rap^1.5 is
-// rap * sqrtf(rap) (powf with TQ_POWF).
+// on: the mask byte, then the ids, then the corners.  One thread takes one
+// tet, over a full grid.  The mask byte is read first and a dead tet
+// writes 0 and loads nothing else; the four ids come in one 16-byte load
+// ([capT, 4] int32 rows are 16-byte aligned: the wrapper checks); the
+// corner rows (and the 24-byte metric rows, as three 8-byte loads) come
+// through the read-only path; rap^1.5 is rap * sqrtf(rap).
 //
-// tools/k6_k8_variants.py chose these (NVIDIA H100 80GB HBM3, 700.00 W).
-// One tet a thread and sqrtf were the fastest in both modes on a
-// structured cube mesh: iso 0.0027-0.0029 ms against 0.0033-0.0035 with two
-// tets and 0.0031-0.0034 with powf; tensor 0.0066-0.0067 against
-// 0.0067-0.0068 and 0.0071-0.0073.  With no cap on the grid (8 blocks of
-// 32-register threads an SM) the kernel ran 4-12% slower in tensor mode
-// than the kernel it replaced (40 registers, 6 blocks an SM) on meshes
-// whose gathers have little locality in two runs, and 3-7% faster in two
-// others; capped at 6 blocks an SM it ran at or below that kernel in all
-// three runs that had it (0.95-0.99x in tensor mode on those meshes).
-//
-// Measured by chip_smoke.py on the same card, on the paths' output meshes
-// (device ms a call, warm L2; share of the bound): iso [capT 220,992]
-// 0.0043 ms, 36%; tensor [capT 407,648] 0.0152 ms, 22%.  On a structured
-// cube mesh of the same capacities the same kernel takes 0.0026 / 0.0062
-// ms (tools/k6_k8_variants.py), so what holds it there is the corner
-// gathers in the path mesh's own order: each 12-byte point row and 24-byte
-// metric row costs one or two 32-byte L2 sectors.  Only a mesh numbered
-// for locality removes that.
+// Measured by chip_smoke.py in the proof run of PERF.md's kernel table
+// (its chip call 14; NVIDIA H100 80GB HBM3, 700.00 W), on the paths'
+// output meshes (device ms a call, warm L2; share of the bound): iso [capT
+// 220,992] 0.0041 ms, 37%; tensor [capT 407,648] 0.0134 ms, 25%.  On a
+// structured cube mesh of the same capacities the same kernel takes 0.0025
+// / 0.0063 ms (the profiler in tools/k6_k8_variants.py, same call), so
+// what holds it on the paths is the corner gathers in the mesh's own
+// order: each 12-byte point row and 24-byte metric row costs one or two
+// 32-byte L2 sectors.  Only a mesh numbered for locality removes that.  None
+// of the tool's variants (two tets a thread, a grid capped at 6 or 4
+// blocks an SM, powf, six 4-byte metric loads, L2-only loads, no loop) was
+// faster on every row.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -55,23 +45,8 @@ namespace {
 constexpr float kEpsd = 1e-30f;
 constexpr float kAlpha = 124.70765814495915f;  // 36 * sqrt(12)
 constexpr int THREADS = 256;
-#ifndef TQ_TETS
-#define TQ_TETS 1
-#endif
-constexpr int TETS = TQ_TETS;  // tets a thread: 1 (2: a variant, slower)
-#ifndef TQ_BLOCKS_PER_SM
-#define TQ_BLOCKS_PER_SM 6
-#endif
-// resident blocks an SM at most (0: no cap, one tet a thread)
-constexpr int BLOCKS_PER_SM = TQ_BLOCKS_PER_SM;
 
-__device__ __forceinline__ float pow15(float x) {
-#ifdef TQ_POWF
-  return powf(x, 1.5f);
-#else
-  return x * sqrtf(x);
-#endif
-}
+__device__ __forceinline__ float pow15(float x) { return x * sqrtf(x); }
 
 template <bool ANISO>
 __device__ __forceinline__ float quality(const float (&x)[4],
@@ -123,50 +98,41 @@ __global__ void __launch_bounds__(THREADS)
                        const uint8_t* __restrict__ tmask,
                        const float* __restrict__ met6,
                        float* __restrict__ out, int capP, long long n) {
-  for (long long t0 = (long long)blockIdx.x * THREADS * TETS + threadIdx.x;
-       t0 < n; t0 += (long long)gridDim.x * THREADS * TETS) {
-    bool live[TETS];
-    int4 ids[TETS];
-#pragma unroll
-    for (int u = 0; u < TETS; ++u) {
-      const long long t = t0 + (long long)u * THREADS;
-      live[u] = t < n && __ldg(tmask + t) != 0;
-    }
-#pragma unroll
-    for (int u = 0; u < TETS; ++u)
-      if (live[u]) ids[u] = __ldg(tet + t0 + (long long)u * THREADS);
-    float x[TETS][4], y[TETS][4], z[TETS][4], m[TETS][6];
-#pragma unroll
-    for (int u = 0; u < TETS; ++u) {
-#pragma unroll
-      for (int k = 0; k < 6; ++k) m[u][k] = 0.0f;
-      if (!live[u]) continue;
-      const int id[4] = {ids[u].x, ids[u].y, ids[u].z, ids[u].w};
+  // The grid covers n, so the loop runs once a thread.  Written so, with
+  // the ids loaded before the corners' branch, ptxas issues a tensor tet's
+  // 24 corner and metric loads back to back in two runs; the same body
+  // without the loop interleaves more of them with the sums and runs
+  // slower on scattered meshes (the "flat" variant of
+  // tools/k6_k8_variants.py).
+  for (long long t = (long long)blockIdx.x * THREADS + threadIdx.x; t < n;
+       t += (long long)gridDim.x * THREADS) {
+    // the mask byte first: a dead tet loads nothing else
+    const bool live = __ldg(tmask + t) != 0;
+    int4 ids;
+    if (live) ids = __ldg(tet + t);
+    float x[4], y[4], z[4], m[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (live) {
+      const int id[4] = {ids.x, ids.y, ids.z, ids.w};
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int v = min(max(id[c], 0), capP - 1);
         const float* p = vert + 3 * (long long)v;
-        x[u][c] = __ldg(p);
-        y[u][c] = __ldg(p + 1);
-        z[u][c] = __ldg(p + 2);
+        x[c] = __ldg(p);
+        y[c] = __ldg(p + 1);
+        z[c] = __ldg(p + 2);
         if (ANISO) {
           const float2* r =
               reinterpret_cast<const float2*>(met6 + 6 * (long long)v);
 #pragma unroll
           for (int k = 0; k < 3; ++k) {
             const float2 a = __ldg(r + k);
-            m[u][2 * k] += a.x;
-            m[u][2 * k + 1] += a.y;
+            m[2 * k] += a.x;
+            m[2 * k + 1] += a.y;
           }
         }
       }
     }
-#pragma unroll
-    for (int u = 0; u < TETS; ++u) {
-      const long long t = t0 + (long long)u * THREADS;
-      if (t < n)
-        out[t] = live[u] ? quality<ANISO>(x[u], y[u], z[u], m[u]) : 0.0f;
-    }
+    out[t] = live ? quality<ANISO>(x, y, z, m) : 0.0f;
   }
 }
 
@@ -181,17 +147,7 @@ extern "C" int pm_tet_quality(const float* vert, const int* tet,
   if (n <= 0) return 0;
   if ((uintptr_t)tet % 16 || (uintptr_t)met6 % 8)
     return (int)cudaErrorMisalignedAddress;
-  const long long per = (long long)THREADS * TETS;
-  long long blocks = (n + per - 1) / per;
-  if (BLOCKS_PER_SM > 0) {
-    int dev = 0, sms = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-    blocks = blocks < (long long)sms * BLOCKS_PER_SM
-                 ? blocks : (long long)sms * BLOCKS_PER_SM;
-  }
+  const long long blocks = (n + THREADS - 1) / THREADS;
   cudaStream_t s = (cudaStream_t)stream;
   const int4* t4 = reinterpret_cast<const int4*>(tet);
   if (met6 != nullptr) {

@@ -45,21 +45,18 @@ def face_sort(mesh: Mesh):
     return face_records_from_sorted(mesh, order, *keys, first=first)
 
 
-def face_records_from_sorted(mesh: Mesh, order, *keys, first=None):
+def face_records_from_sorted(mesh: Mesh, order, *keys, first):
     """``face_sort``'s records from a precomputed face sort: ``order`` the
     stable permutation of the 4*capT face slots (tet-major), ``keys`` the
-    ascending key columns (major first), ``first`` their segment flags
-    where the caller has them already."""
+    ascending key columns (major first), ``first`` their segment flags."""
     order = order.to(torch.int32)
     t = torch.div(order, 4, rounding_mode="floor")
     f = order % 4
     return _pair_records(mesh.capT, keys, t, f, first)
 
 
-def _pair_records(capT: int, keys, t, f, first=None):
+def _pair_records(capT: int, keys, t, f, first):
     """Twin pairing over sorted face keys: matched twins are adjacent."""
-    if first is None:
-        first = kernels.segment_flags(keys)
     eq_next = ~first[1:] & (keys[0][:-1] != INT32_MAX)
     false1 = torch.zeros(1, dtype=torch.bool, device=t.device)
     same_next = torch.cat([eq_next, false1])

@@ -274,10 +274,15 @@ def test_cuda_kernels_match_plain_versions():
     w3 = w3.to(dev)
     for m in (1, tile - 1, tile, tile + 1, 3 * tile + 8):
         for nw in (1, 2, 3):
+            # sorted columns of m + 1 rows, viewed at each offset below
+            buf = tuple(w3[j, :m + 1] for j in range(nw))
+            pbuf = K.radix_sort(buf).long()
+            sbuf = tuple(w[pbuf] for w in buf)
             for off in (0, 1):
                 words = tuple(w3[j, off:off + m] for j in range(nw))
                 perm = K.radix_sort(words)
-                srt = tuple(w[perm.long()].contiguous() for w in words)
+                srt = tuple(s[off:off + m] for s in sbuf)
+                assert off == 0 or srt[0].data_ptr() % 16
                 before = K.LAUNCHES["segment_flags"]
                 assert torch.equal(K.segment_flags(srt),
                                    K.segment_flags_plain(srt))

@@ -16,15 +16,17 @@ The committed sources and their variants:
   K8 vec16   16 rows a thread
   K8 scalar  the committed kernel with its vector path turned off (every
              thread on the scalar path)
-  K6 t1      the source as it is (1 tet a thread at a time, a grid of at
-             most 6 blocks an SM, rap * sqrtf(rap))
-  K6 nocap   no cap on the grid: one tet a thread, 8 blocks an SM resident
-  K6 cap4    at most 4 blocks an SM
-  K6 t2      2 tets a thread at a time, striped a block apart
+  K6 t1      the source as it is (one tet a thread, a full grid of them,
+             rap * sqrtf(rap))
+  K6 flat    the same body without its loop (which runs once a thread)
+  K6 t2      2 tets a thread, a block apart, the loop unrolled
+  K6 cap6    a grid of at most 6 resident blocks an SM, the loop striding
+  K6 cap4    the same, at most 4 blocks an SM
   K6 powf    powf(rap, 1.5f)
   K6 met1    the metric rows as six 4-byte loads instead of three 8-byte
   K6 ldcg    the corner and metric rows through L2 only (__ldcg), not L1
 
+Each variant is the committed source with a few lines replaced.
 Every library is built with the port's nvcc flags (one ``nvcc`` each, all
 started together).  Each K8 variant is checked exactly against
 ``segment_flags_plain`` in both modes (the rows below, tails and a column
@@ -239,24 +241,61 @@ extern "C" int pm_tet_quality(const float* vert, const int* tet,
 # K8 "scalar": the vector path turned off
 _SCALAR_OLD = "  bool aligned = aligned_to(flags, ROWS) && aligned_to(order, 16);\n"
 _SCALAR_NEW = "  bool aligned = false;\n"
-# K6 "met1" and "ldcg": the metric rows' loads, and the corner rows'
+# K8 "vec16": 16 rows a thread, the flags in one 16-byte store
+_K8_ROWS = "constexpr int ROWS = 8;  // rows a thread\n"
+_K8_STORE8 = ("    *reinterpret_cast<uint2*>(flags + r0) = "
+              "make_uint2(packed[0], packed[1]);\n")
+_K8_STORE16 = ("    *reinterpret_cast<uint4*>(flags + r0) =\n"
+               "        make_uint4(packed[0], packed[1], packed[2], "
+               "packed[3]);\n")
+# K6: the kernel's loop and grid ("flat", "t2", "cap6", "cap4"), rap^1.5
+# ("powf"), the metric rows' loads ("met1") and the corner rows' ("ldcg")
+_K6_HEAD = """\
+  for (long long t = (long long)blockIdx.x * THREADS + threadIdx.x; t < n;
+       t += (long long)gridDim.x * THREADS) {
+"""
+_K6_HEAD_FLAT = """\
+  {
+    const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
+    if (t >= n) return;
+"""
+_K6_HEAD_T2 = """\
+  for (long long t0 = (long long)blockIdx.x * 2 * THREADS + threadIdx.x;
+       t0 < n; t0 += (long long)gridDim.x * 2 * THREADS)
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const long long t = t0 + u * THREADS;
+    if (t >= n) break;
+"""
+_K6_GRID = "  const long long blocks = (n + THREADS - 1) / THREADS;\n"
+_K6_GRID_T2 = ("  const long long blocks = (n + 2 * THREADS - 1) / "
+               "(2 * THREADS);\n")
+_K6_GRID_CAP = """\
+  long long blocks = (n + THREADS - 1) / THREADS;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (blocks > (long long)sms * {cap}) blocks = (long long)sms * {cap};
+"""
+_K6_POW = "float pow15(float x) { return x * sqrtf(x); }"
+_K6_POWF = "float pow15(float x) { return powf(x, 1.5f); }"
 _K6_MET2 = """\
           const float2* r =
               reinterpret_cast<const float2*>(met6 + 6 * (long long)v);
 #pragma unroll
           for (int k = 0; k < 3; ++k) {
             const float2 a = __ldg(r + k);
-            m[u][2 * k] += a.x;
-            m[u][2 * k + 1] += a.y;
+            m[2 * k] += a.x;
+            m[2 * k + 1] += a.y;
           }
 """
 _K6_MET1 = """\
 #pragma unroll
           for (int k = 0; k < 6; ++k)
-            m[u][k] += __ldg(met6 + 6 * (long long)v + k);
+            m[k] += __ldg(met6 + 6 * (long long)v + k);
 """
-_K6_CORNERS = ("        x[u][c] = __ldg(p);\n        y[u][c] = __ldg(p + 1);\n"
-               "        z[u][c] = __ldg(p + 2);\n")
+_K6_CORNERS = ("        x[c] = __ldg(p);\n        y[c] = __ldg(p + 1);\n"
+               "        z[c] = __ldg(p + 2);\n")
 
 
 def _read(name: str) -> str:
@@ -274,23 +313,29 @@ def _patch(text: str, *pairs) -> str:
 
 
 def variants() -> dict:
-    """(kernel, variant) -> (CUDA source, extra nvcc flags)."""
+    """(kernel, variant) -> CUDA source."""
     k8, k6 = _read("segment_flags.cu"), _read("tet_quality.cu")
+
+    def cap(c):
+        return _patch(k6, (_K6_GRID, _K6_GRID_CAP.format(cap=c)))
     return {
-        ("k8", "prev"): (PREV_K8, []),
-        ("k8", "vec8"): (k8, []),
-        ("k8", "vec16"): (k8, ["-DSEG_ROWS=16"]),
-        ("k8", "scalar"): (_patch(k8, (_SCALAR_OLD, _SCALAR_NEW)), []),
-        ("k6", "prev"): (PREV_K6, []),
-        ("k6", "t1"): (k6, []),
-        ("k6", "t2"): (k6, ["-DTQ_TETS=2"]),
-        ("k6", "powf"): (k6, ["-DTQ_POWF"]),
-        ("k6", "nocap"): (k6, ["-DTQ_BLOCKS_PER_SM=0"]),
-        ("k6", "cap4"): (k6, ["-DTQ_BLOCKS_PER_SM=4"]),
-        ("k6", "met1"): (_patch(k6, (_K6_MET2, _K6_MET1)), []),
-        ("k6", "ldcg"): (_patch(k6, (_K6_MET2, _K6_MET2.replace(
+        ("k8", "prev"): PREV_K8,
+        ("k8", "vec8"): k8,
+        ("k8", "vec16"): _patch(k8, (_K8_ROWS, _K8_ROWS.replace("8", "16")),
+                                (_K8_STORE8, _K8_STORE16)),
+        ("k8", "scalar"): _patch(k8, (_SCALAR_OLD, _SCALAR_NEW)),
+        ("k6", "prev"): PREV_K6,
+        ("k6", "t1"): k6,
+        ("k6", "flat"): _patch(k6, (_K6_HEAD, _K6_HEAD_FLAT)),
+        ("k6", "t2"): _patch(k6, (_K6_HEAD, _K6_HEAD_T2),
+                             (_K6_GRID, _K6_GRID_T2)),
+        ("k6", "cap6"): cap(6),
+        ("k6", "cap4"): cap(4),
+        ("k6", "powf"): _patch(k6, (_K6_POW, _K6_POWF)),
+        ("k6", "met1"): _patch(k6, (_K6_MET2, _K6_MET1)),
+        ("k6", "ldcg"): _patch(k6, (_K6_MET2, _K6_MET2.replace(
             "__ldg", "__ldcg")), (_K6_CORNERS, _K6_CORNERS.replace(
-                "__ldg", "__ldcg"))), []),
+                "__ldg", "__ldcg"))),
     }
 
 
@@ -299,14 +344,14 @@ def build(srcs: dict) -> dict:
     is printed and left out."""
     from parmmg_tpu_torch.ops import cuda_build
     procs = {}
-    for (kern, name), (text, flags) in srcs.items():
+    for (kern, name), text in srcs.items():
         d = os.path.join(OUT, f"{kern}_{name}")
         os.makedirs(d, exist_ok=True)
         src, lib = os.path.join(d, "k.cu"), os.path.join(d, "lib.so")
         with open(src, "w") as f:
             f.write(text)
         procs[(kern, name)] = (lib, subprocess.Popen(
-            [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, *flags,
+            [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS,
              "-Xptxas", "-v", "-o", lib, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
