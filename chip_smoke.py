@@ -29,7 +29,33 @@ Phases (any failure exits non-zero without the final result line):
              phase 2, with qmin > 0 in the tensor metric's quality, the tet
              count within 2% of the JAX CLI's 210,234, a SOL_TENSOR output
              ``.sol``, and a second run writing the same bytes.
-5. kernels - each kernel against its plain PyTorch version on the card, on
+5. field   - the CLI remesh of sphere_mesh(16) (4,913 points, 24,576 tets,
+             the unit ball) read from a ``.vtu`` file with three point
+             fields: ``metric``, the shock size map carried onto the ball,
+             (3/16) (0.2 + 2 |x|) (the cube16 map with lengths doubled;
+             the JAX CLI writes 98,439 tets from it), and ``temp`` and
+             ``vel``, a scalar and a 3-vector linear in x, y and z.  All
+             flags default but ``-niter 1``: the hausd bound, ridge
+             detection and the curved-boundary moves are on, and the two
+             fields are P1-interpolated from a background copy of the
+             input.  Launch counts zeroed just before and read just after:
+             K1 and K3-K8 must have launched (K7 and K8 also from the
+             field step's surface triangulation), K2 must not.
+             ``driver.interpolate_fields`` is wrapped to capture its
+             inputs, outputs and wall time.  Checked: the written
+             ``.vtu`` read back is conforming with qmin > 0; the tet count
+             within 2% of the JAX CLI's; at the interior output vertices
+             whose walk did not fail, temp and vel equal the linear
+             functions within 1e-4 max|f|; the captured meshes run through
+             ``interpolate_fields`` on the CPU give every value within
+             1e-5 max|f| of the card's; ``surface_triangulation`` on the
+             card equals its CPU run bit for bit.  Prints the
+             interpolation's wall time, the walk steps (mean, max), the
+             failed walks that took the exhaustive search and the boundary
+             points that took the surface walk, and the wall times of the
+             volume walk, the exhaustive search and the surface location,
+             each run again alone.
+6. kernels - each kernel against its plain PyTorch version on the card, on
              the output mesh of its path (the capacities that path
              reached; K2 and K6's tensor mode on the aniso output and its
              metric), with its tolerance; median CUDA-event times of the
@@ -41,7 +67,7 @@ Phases (any failure exits non-zero without the final result line):
              face keys and, in its gathered mode, on the unsorted keys with
              K7's permutation, beside the unfused pair it replaced (the
              gather, then sorted-mode K8) as its yardstick.
-6. stress  - K5, K7 and K8 against their plain versions, exactly, each case
+7. stress  - K5, K7 and K8 against their plain versions, exactly, each case
              5 times (look-back order changes from run to run): sizes 1,
              tile - 1, tile, tile + 1 and 2**24 + 3 (the look-back crosses
              thousands of tiles); K5 on small values and on values near
@@ -52,7 +78,7 @@ Phases (any failure exits non-zero without the final result line):
              tombstones, aligned and viewed at a 1-element offset.  A
              failure here is a look-back, stability or tail bug of the
              kernel, not a mesh bug.
-7. profile - each path once more under torch.profiler.
+8. profile - the cube16 paths once more under torch.profiler.
 
 Phase 5 also prints the CUDA launches per K5, K6, K7 and K8 call (the
 profiler's kernel count over 20 calls / 20) and fails unless K5, K6 and K8
@@ -78,7 +104,8 @@ F32_OPS_PER_S = 67e12               # H100 SXM float32 outside tensor cores
 # the JAX CLI's tet count on each path's input, and how far the port's
 # may lie from it: tools/jax_cli_reference.py 16 [--aniso] (CPU); on the
 # aniso input the port's CPU run wrote 210,860 tets, 0.30% away
-JAX_CLI_NTETS = {"cube16": 111116, "cube16ani": 210234}
+# and on sphere16: tools/jax_cli_reference.py 16 --sphere (CPU)
+JAX_CLI_NTETS = {"cube16": 111116, "cube16ani": 210234, "sphere16": 98439}
 NTETS_BOUND = 0.02
 # the kernels each path must launch, and the one it must not
 PATH_KERNELS = {
@@ -88,6 +115,9 @@ PATH_KERNELS = {
     "cube16ani": ({"edge_lengths_ani", "score_count", "score3_count",
                    "tet_quality", "merge_prefix", "radix_sort",
                    "segment_flags"}, "edge_lengths_iso"),
+    "sphere16": ({"edge_lengths_iso", "score_count", "score3_count",
+                  "tet_quality", "merge_prefix", "radix_sort",
+                  "segment_flags"}, "edge_lengths_ani"),
 }
 
 
@@ -397,6 +427,170 @@ def phase_aniso_repeat(workdir: str, device: str = "cuda"):
                     os.path.join(workdir, f"{stem}.r2{ext}"))
     print(f"[aniso] second run: {rec['ntets']} tets, wall {wall:.3f} s, "
           f"byte-identical .mesh and .sol")
+
+
+def phase_field(workdir: str, device: str = "cuda"):
+    """The [field] path: sphere16.vtu with its metric and two linear
+    fields through the CLI on the card; returns its launch counts."""
+    import numpy as np
+    import torch
+    from parmmg_tpu_torch import cli, driver
+    from parmmg_tpu_torch.core.constants import MG_BDY
+    from parmmg_tpu_torch.core.mesh import MESH_FIELDS, Mesh, make_mesh, \
+        tet_volumes
+    from parmmg_tpu_torch.io.vtk import read_vtu, write_vtu
+    from parmmg_tpu_torch.ops import interp, kernels
+    from parmmg_tpu_torch.ops.adjacency import build_adjacency, \
+        check_adjacency
+    from parmmg_tpu_torch.ops.quality import tet_quality
+    from parmmg_tpu_torch.utils.fixtures import (ball_shock_metric,
+                                                 linear_fields, sphere_mesh)
+    stem = "sphere16"
+    vert, tet = sphere_mesh(16)
+    temp, vel = linear_fields(vert)
+    src = os.path.join(workdir, f"{stem}.vtu")
+    out = os.path.join(workdir, f"{stem}.o.vtu")
+    write_vtu(src, vert, tet, point_data={
+        "metric": ball_shock_metric(vert), "temp": temp, "vel": vel})
+    seen = []
+    real = driver.interpolate_fields
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    def capture(bg, fields, new):
+        sync()
+        t0 = time.perf_counter()
+        res = real(bg, fields, new)
+        sync()
+        seen.append((bg, [f.copy() for f in fields], new, res,
+                     time.perf_counter() - t0))
+        return res
+    driver.interpolate_fields = capture
+    kernels.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["-in", src, "-out", out, "-niter", "1", "-v", "1",
+                           "-bench-json", "-device", device])
+        sync()
+    finally:
+        driver.interpolate_fields = real
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    log = buf.getvalue()
+    with open(out + ".log", "w") as f:
+        f.write(log)
+    if rc != 0:
+        raise RuntimeError(f"[field] cli.main returned {rc}:\n{log[-2000:]}")
+    rec = json.loads([ln for ln in log.splitlines() if ln.startswith("{")][-1])
+    if len(seen) != 1:
+        raise RuntimeError(f"[field] interpolate_fields ran {len(seen)} "
+                           "times, not once")
+    bg, fields, new, res, interp_wall = seen[0]
+    if not (np.array_equal(fields[0], temp) and
+            np.array_equal(fields[1], vel)):
+        raise RuntimeError("[field] the fields given to interpolate_fields "
+                           "are not the .vtu's temp and vel")
+
+    # the written .vtu, read back
+    dev = torch.device(device)
+    v_o, cells, _, _ = read_vtu(out)
+    mesh = build_adjacency(make_mesh(v_o, cells[10], device=dev))
+    bad = check_adjacency(mesh)
+    nneg = int(((tet_volumes(mesh) <= 0) & mesh.tmask).sum())
+    q = tet_quality(mesh)
+    qmin = float(q[mesh.tmask].min())
+    qmean = float(q[mesh.tmask].mean())
+    if bad["asymmetric"] or bad["face_mismatch"] or nneg or qmin <= 0:
+        raise RuntimeError(f"[field] output not conforming: {bad}, "
+                           f"nonpositive volumes {nneg}, qmin {qmin}")
+    print(f"[field] {stem}.vtu -niter 1 (metric, temp, vel): ntets "
+          f"{rec['ntets']} qmin {rec['qmin']:.6f} qmean {rec['qmean']:.6f} "
+          f"cycles {rec['cycles']} splits {rec['nsplit']} collapses "
+          f"{rec['ncollapse']} swaps {rec['nswap']} wall {wall:.3f} s")
+    print(f"[field] re-read output: {int(mesh.tmask.sum())} tets, "
+          f"{len(v_o)} points, adjacency {bad}, qmin {qmin:.6f} qmean "
+          f"{qmean:.6f}")
+    print(f"[field] launches {launches}")
+    must, must_not = PATH_KERNELS[stem]
+    missing = sorted(k for k in must if launches[k] == 0)
+    if device == "cuda" and (missing or launches[must_not]):
+        raise RuntimeError(f"{stem}: kernels never launched {missing}, "
+                           f"{must_not} launched {launches[must_not]} "
+                           f"times ({launches})")
+    ref = JAX_CLI_NTETS[stem]
+    if abs(rec["ntets"] - ref) > NTETS_BOUND * ref:
+        raise RuntimeError(f"{rec['ntets']} tets: not within "
+                           f"{NTETS_BOUND:.0%} of the JAX CLI's {ref} on "
+                           "this input")
+
+    # the walks of the captured run, again, for their statistics and
+    # their wall times: the volume location (walk + exhaustive search of
+    # the failed walks), the exhaustive search alone, the surface location
+    pts = new.vert[new.vmask]
+    on_bdy = (new.vtag[new.vmask] & MG_BDY) != 0
+
+    def timed(fn, *a):
+        sync()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        sync()
+        return out, time.perf_counter() - t0
+    loc, t_vol = timed(interp.locate_points, bg, pts, torch.zeros(
+        pts.shape[0], dtype=torch.int32, device=dev))
+    _, t_exh = timed(interp.exhaustive_tets, bg, pts[loc.failed])
+    sloc, t_bdy = timed(interp.locate_points_bdy, bg, pts[on_bdy])
+    steps = loc.steps.float()
+    nfail = int(loc.failed.sum())
+    print(f"[field] interpolation wall {interp_wall:.3f} s on {device} "
+          f"({pts.shape[0]} points, 2 fields); again alone: volume walk "
+          f"{t_vol - t_exh:.3f} s + exhaustive search {t_exh:.3f} s, "
+          f"surface location {t_bdy:.3f} s")
+    print(f"[field] volume walk steps mean {float(steps.mean()):.2f} max "
+          f"{int(steps.max())}; failed walks (exhaustive search) {nfail}; "
+          f"boundary points on the surface walk {int(on_bdy.sum())} "
+          f"(closest-triangle search kept for {int(sloc.failed.sum())})")
+
+    # linear fields are exact at the interior vertices of working walks
+    p64 = pts.double().cpu().numpy()
+    ok = (~loc.failed & ~on_bdy).cpu().numpy()
+    for name, got, want in zip(("temp", "vel"), res, linear_fields(p64)):
+        err = float(np.abs(got - want)[ok].max()) / float(np.abs(want).max())
+        print(f"[field] {name}: max error at {int(ok.sum())} interior "
+              f"vertices {err:.3g} max|f|")
+        if err > 1e-4:
+            raise RuntimeError(f"[field] {name} not exact at interior "
+                               f"vertices: {err:.3g} max|f| > 1e-4")
+
+    # the same inputs through the CPU
+    cpu = torch.device("cpu")
+
+    def on_cpu(m):
+        return Mesh(**{f: getattr(m, f).to(cpu) for f in MESH_FIELDS})
+    bg_c, new_c = on_cpu(bg), on_cpu(new)
+    t0 = time.perf_counter()
+    res_c = real(bg_c, fields, new_c)
+    cpu_wall = time.perf_counter() - t0
+    for name, got, want in zip(("temp", "vel"), res, res_c):
+        err = float(np.abs(got - want).max()) / float(np.abs(want).max())
+        same = int((got == want).all(axis=-1).sum() if got.ndim > 1
+                   else (got == want).sum())
+        print(f"[field] {name}: card against CPU max diff {err:.3g} max|f|, "
+              f"{same} of {len(got)} values bit-equal (CPU wall "
+              f"{cpu_wall:.3f} s)")
+        if err > 1e-5:
+            raise RuntimeError(f"[field] {name}: card and CPU differ by "
+                               f"{err:.3g} max|f| > 1e-5")
+    st_d = interp.surface_triangulation(bg)
+    st_c = interp.surface_triangulation(bg_c)
+    for name, a, b in zip(("tri", "fm", "tadj"), st_d, st_c):
+        if not torch.equal(a.cpu(), b):
+            raise RuntimeError(f"[field] surface_triangulation {name} on the "
+                               "card differs from its CPU run")
+    print(f"[field] surface_triangulation: tri, fm, tadj bit-equal to the "
+          f"CPU run ({int(st_c[1].sum())} boundary faces)")
+    return launches
 
 
 def phase_stress(repeats: int = 5):
@@ -920,6 +1114,7 @@ def main() -> int:
         phase_repeat(workdir)
         launches_ani, shapes_ani = phase_path(workdir, "cube16ani")
         phase_aniso_repeat(workdir)
+        launches_field = phase_field(workdir)
         rows = phase_kernels(launches, shapes, launches_ani, shapes_ani,
                              workdir)
         phase_stress()
@@ -929,6 +1124,8 @@ def main() -> int:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    for r in rows:
+        r["field_launches"] = int(launches_field[r["name"]])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

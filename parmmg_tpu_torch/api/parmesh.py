@@ -1,11 +1,14 @@
 """ParMesh: the public mesh-adaptation object (port of ``api/parmesh.py``).
 
-The set/get surface the CLI and the README example use: numpy staging
-arrays in, one flat torch Mesh adapted on ``device`` (``"cuda"`` unless the
-caller asks for ``"cpu"``), numpy arrays out.  The metric is a scalar size
-per vertex or a packed symmetric tensor (m11, m12, m13, m22, m23, m33).
-Distributed communicators, user fields and prisms/quads belong to later
-slices.
+The set/get surface of the JAX class: numpy staging arrays in, one flat
+torch Mesh adapted on ``device`` (``"cuda"`` unless the caller asks for
+``"cpu"``), numpy arrays out; entity ids are 1-based.  The metric is a
+scalar size per vertex or a packed symmetric tensor (m11, m12, m13, m22,
+m23, m33).  User solution fields at vertices are carried through the
+remesh by P1 interpolation from a background copy of the input
+(``driver.interpolate_fields``).  Prisms and quadrilaterals pass through
+untouched, their vertices frozen.  The distributed communicators belong to
+a later slice.
 """
 from __future__ import annotations
 
@@ -46,38 +49,103 @@ class ParMesh:
         self.device = resolve_device(device)
         self.info = Info()
         self.np_ = self.ne_ = self.nt_ = self.na_ = 0
+        self.nprism_ = self.nquad_ = 0
         self.vert = self.vref = self.vreq = self.vcrn = None
-        self.tetra = self.tref = None
-        self.tria = self.triaref = None
-        self.edge = self.edgeref = self.edge_ridge = None
+        self.vnormal = None
+        self.tetra = self.tref = self.tetra_req = None
+        self.tria = self.triaref = self.tria_req = None
+        self.edge = self.edgeref = self.edge_ridge = self.edge_req = None
+        self.prism = self.prism_ref = self.quad = self.quad_ref = None
         self.met = None
         self.met_type = 0
+        self.fields: list[np.ndarray] = []
+        self.field_types: list[int] = []
         self._out = None
         self._out_met = None
         self._out_stats = None
+        self._drop_out_caches()
+
+    def _drop_out_caches(self) -> None:
+        self._glonum = None
+        self._out_vn = None
+        self._out_ridge_nn = None
+        self._out_vtag_cache = None
         self._out_host_cache = None
         self._out_edges_cache = None
         self._out_tria_cache = None
+        self._out_ftag_cache = None
 
     # -- sizes and entities (1-based ids, like the reference API) ---------
     def set_mesh_size(self, np_: int, ne: int, nprism: int = 0, nt: int = 0,
                       nquad: int = 0, na: int = 0) -> None:
-        if nprism or nquad:
-            raise NotImplementedError(
-                "prisms / quadrilaterals are not yet ported to "
-                "parmmg_tpu_torch")
         self.np_, self.ne_, self.nt_, self.na_ = np_, ne, nt, na
+        self.nprism_, self.nquad_ = nprism, nquad
         self.vert = _grow(self.vert, np_, 3, np.float64)
         self.vref = _grow(self.vref, np_, None, np.int32)
         self.vreq = _grow(self.vreq, np_, None, bool)
         self.vcrn = _grow(self.vcrn, np_, None, bool)
         self.tetra = _grow(self.tetra, ne, 4, np.int64)
         self.tref = _grow(self.tref, ne, None, np.int32)
+        self.tetra_req = _grow(self.tetra_req, ne, None, bool)
         self.tria = _grow(self.tria, nt, 3, np.int64)
         self.triaref = _grow(self.triaref, nt, None, np.int32)
+        self.tria_req = _grow(self.tria_req, nt, None, bool)
         self.edge = _grow(self.edge, na, 2, np.int64)
         self.edgeref = _grow(self.edgeref, na, None, np.int32)
         self.edge_ridge = _grow(self.edge_ridge, na, None, bool)
+        self.edge_req = _grow(self.edge_req, na, None, bool)
+        self.prism = _grow(self.prism, nprism, 6, np.int64)
+        self.prism_ref = _grow(self.prism_ref, nprism, None, np.int32)
+        self.quad = _grow(self.quad, nquad, 4, np.int64)
+        self.quad_ref = _grow(self.quad_ref, nquad, None, np.int32)
+
+    def get_mesh_size(self):
+        """(np, ne, nprism, nt, nquad, na) of the current mesh: after
+        run() the adapted output's, with its rebuilt feature-edge count."""
+        if self._out is not None:
+            vert, tet, _, _, _ = self._out_host()
+            return len(vert), len(tet), self.nprism_, self._out_ntria(), \
+                self.nquad_, len(self.get_edges()[0])
+        return self.np_, self.ne_, self.nprism_, self.nt_, self.nquad_, \
+            self.na_
+
+    def set_vertex(self, x, y, z, ref: int, pos: int) -> None:
+        self.vert[pos - 1] = (x, y, z)
+        self.vref[pos - 1] = ref
+
+    def set_tetrahedron(self, v0, v1, v2, v3, ref: int, pos: int) -> None:
+        self.tetra[pos - 1] = (v0, v1, v2, v3)
+        self.tref[pos - 1] = ref
+
+    def set_triangle(self, v0, v1, v2, ref: int, pos: int) -> None:
+        self.tria[pos - 1] = (v0, v1, v2)
+        self.triaref[pos - 1] = ref
+
+    def set_edge(self, v0, v1, ref: int, pos: int) -> None:
+        self.edge[pos - 1] = (v0, v1)
+        self.edgeref[pos - 1] = ref
+
+    def set_prism(self, vs, ref: int, pos: int) -> None:
+        self.prism[pos - 1] = vs
+        self.prism_ref[pos - 1] = ref
+
+    def set_quadrilateral(self, vs, ref: int, pos: int) -> None:
+        self.quad[pos - 1] = vs
+        self.quad_ref[pos - 1] = ref
+
+    def set_required_tetrahedron(self, pos: int) -> None:
+        self.tetra_req[pos - 1] = True
+
+    def set_required_triangle(self, pos: int) -> None:
+        self.tria_req[pos - 1] = True
+
+    def set_required_edge(self, pos: int) -> None:
+        self.edge_req[pos - 1] = True
+
+    def set_normal_at_vertex(self, pos: int, nx, ny, nz) -> None:
+        if self.vnormal is None:
+            self.vnormal = np.zeros((self.np_, 3))
+        self.vnormal[pos - 1] = (nx, ny, nz)
 
     def set_vertices(self, coords, refs=None) -> None:
         self.vert[:] = np.asarray(coords, np.float64).reshape(self.np_, 3)
@@ -119,6 +187,9 @@ class ParMesh:
         self.met_type = typ
         self.met = _grow(None, np_, None if typ == 1 else 6, np.float64)
 
+    def set_scalar_met(self, m: float, pos: int) -> None:
+        self.met[pos - 1] = m
+
     def set_scalar_mets(self, m) -> None:
         self.met[:] = np.asarray(m, np.float64).reshape(self.np_)
 
@@ -127,6 +198,24 @@ class ParMesh:
 
     def set_tensor_mets(self, m) -> None:
         self.met[:] = np.asarray(m, np.float64).reshape(self.np_, 6)
+
+    def set_sols_at_vertices_size(self, nsols: int, types) -> None:
+        """Declare user fields at vertices: type 1 scalar, 2 vector (3
+        components), 3 tensor (6)."""
+        self.fields = []
+        self.field_types = list(types)
+        for t in types:
+            self.fields.append(_grow(None, self.np_, {1: None, 2: 3, 3: 6}[t],
+                                     np.float64))
+
+    def set_ith_sol_in_sols_at_vertices(self, i: int, vals) -> None:
+        f = self.fields[i - 1]
+        self.fields[i - 1] = np.asarray(vals, np.float64).reshape(f.shape)
+
+    def get_ith_sol_in_sols_at_vertices(self, i: int) -> np.ndarray:
+        """The i-th field: the staged values before run(), the values at
+        the output vertices (float32) after it."""
+        return self.fields[i - 1]
 
     def set_local_parameter(self, typ: int, ref: int, hmin: float,
                             hmax: float, hausd: float) -> None:
@@ -158,6 +247,18 @@ class ParMesh:
         vtag[: self.np_][self.vreq] |= C.MG_REQ
         vtag[: self.np_][self.vcrn] |= C.MG_CRN
         mesh = replace(mesh, vtag=torch.from_numpy(vtag).to(self.device))
+        mesh = self._freeze_hybrid(mesh)
+        if self.tetra_req is not None and self.tetra_req.any():
+            # required tets: all their faces, edges and vertices get MG_REQ
+            req = np.flatnonzero(self.tetra_req)
+            ftag = mesh.ftag.cpu().numpy().copy()
+            etag = mesh.etag.cpu().numpy().copy()
+            vtag = mesh.vtag.cpu().numpy().copy()
+            ftag[req] |= C.MG_REQ
+            etag[req] |= C.MG_REQ
+            vtag[mesh.tet.cpu().numpy()[req].reshape(-1)] |= C.MG_REQ
+            mesh = replace(mesh, ftag=self._dev(ftag), etag=self._dev(etag),
+                           vtag=self._dev(vtag))
         if self.nt_:
             mesh = self._apply_user_triangles(mesh)
         if self.na_:
@@ -174,6 +275,31 @@ class ParMesh:
             m[self.np_:] = spare
             met = torch.from_numpy(m).to(self.device, torch.float32)
         return mesh, met
+
+    def _freeze_hybrid(self, mesh):
+        """Prism and quadrilateral vertices get MG_REQ, and so do the tet
+        faces and edges whose vertices are all such vertices: a split
+        there would hang a point on a pass-through element."""
+        hybrid = np.concatenate([
+            self.prism.reshape(-1) if self.nprism_ else np.zeros(0, np.int64),
+            self.quad.reshape(-1) if self.nquad_ else np.zeros(0, np.int64)])
+        if not len(hybrid):
+            return mesh
+        from ..core.mesh import replace
+        hyb = np.zeros(mesh.capP, bool)
+        hyb[(hybrid - 1).astype(np.int64)] = True
+        vtag = mesh.vtag.cpu().numpy().copy()
+        vtag[hyb] |= C.MG_REQ
+        hv = hyb[np.clip(mesh.tet.cpu().numpy(), 0, mesh.capP - 1)] \
+            & mesh.tmask.cpu().numpy()[:, None]
+        ftag = mesh.ftag.cpu().numpy().copy()
+        etag = mesh.etag.cpu().numpy().copy()
+        for f in range(4):
+            ftag[hv[:, C.IDIR[f]].all(axis=1), f] |= C.MG_REQ
+        for e in range(6):
+            etag[hv[:, C.IARE[e]].all(axis=1), e] |= C.MG_REQ
+        return replace(mesh, vtag=self._dev(vtag), ftag=self._dev(ftag),
+                       etag=self._dev(etag))
 
     def _dev(self, a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -206,6 +332,8 @@ class ParMesh:
         tids = tria_of[fseg][hit]
         slots = o[face_rows[hit]]
         fref[slots] = self.triaref[tids]
+        ftag[slots] |= np.where(self.tria_req[tids], C.MG_REQ, 0).astype(
+            np.int32)
         if self.info.opnbdy:
             interior = nfaces[fseg][hit] == 2
             ftag[slots[interior]] |= C.MG_BDY | C.MG_OPNBDY
@@ -221,6 +349,7 @@ class ParMesh:
         ue = np.sort(self.edge - 1, axis=1)
         etag = mesh.etag.cpu().numpy().copy().reshape(-1)
         add = np.where(self.edge_ridge, C.MG_GEO, 0) | \
+            np.where(self.edge_req, C.MG_REQ, 0) | \
             np.where(self.edgeref != 0, C.MG_REF, 0)
         key = ev2[:, 0].astype(np.int64) << 32 | ev2[:, 1]
         ukey = ue[:, 0].astype(np.int64) << 32 | ue[:, 1]
@@ -242,9 +371,7 @@ class ParMesh:
                 print(f"  ## Error: {e}.")
             return C.PMMG_STRONGFAILURE
         self._out, self._out_met, self._out_stats = out, met, stats
-        self._out_host_cache = None
-        self._out_edges_cache = None
-        self._out_tria_cache = None
+        self._drop_out_caches()
         return stats.status
 
     # -- output getters ------------------------------------------------------
@@ -256,6 +383,10 @@ class ParMesh:
             self._out_host_cache = mesh_to_host(self._out)
         return self._out_host_cache
 
+    def _out_ntria(self) -> int:
+        m = self._out
+        return int((((m.ftag & C.MG_BDY) != 0) & m.tmask[:, None]).sum())
+
     def get_vertices(self):
         vert, _, vref, _, _ = self._out_host()
         return vert, vref
@@ -263,6 +394,118 @@ class ParMesh:
     def get_tetrahedra(self):
         _, tet, _, tref, _ = self._out_host()
         return tet + 1, tref
+
+    def get_vertex(self, pos: int):
+        """(x, y, z, ref, isCorner, isRequired) of output vertex ``pos``."""
+        vert, _, vref, _, vtag = self._out_host()
+        t = int(vtag[pos - 1])
+        return (*map(float, vert[pos - 1]), int(vref[pos - 1]),
+                bool(t & C.MG_CRN), bool(t & C.MG_REQ))
+
+    def get_tetrahedron(self, pos: int):
+        """(v0..v3 1-based, ref, isRequired); required reads as all four
+        faces MG_REQ, the mark ``set_required_tetrahedron`` leaves."""
+        _, tet, _, tref, _ = self._out_host()
+        if self._out_ftag_cache is None:
+            m = self._out
+            self._out_ftag_cache = m.ftag.cpu().numpy()[m.tmask.cpu().numpy()]
+        req = bool((self._out_ftag_cache[pos - 1] & C.MG_REQ).all())
+        return tuple(int(v) + 1 for v in tet[pos - 1]) + \
+            (int(tref[pos - 1]), req)
+
+    def get_triangle(self, pos: int):
+        """(v0..v2 1-based, ref, isRequired) of an output boundary face."""
+        tris, refs, req, _ = self._out_triangles()
+        return tuple(int(v) for v in tris[pos - 1]) + \
+            (int(refs[pos - 1]), bool(req[pos - 1]))
+
+    def get_edge(self, pos: int):
+        """(v0, v1 1-based, ref, isRidge, isRequired)."""
+        e, r, rid, req = self.get_edges()
+        return (int(e[pos - 1, 0]), int(e[pos - 1, 1]), int(r[pos - 1]),
+                bool(rid[pos - 1]), bool(req[pos - 1]))
+
+    def _input_vertex_remap(self):
+        """Output 1-based id of each staged input vertex (meaningful for
+        frozen vertices, such as those of prisms and quadrilaterals)."""
+        if self._out is None:
+            return None
+        return np.cumsum(self._out.vmask.cpu().numpy())[: self.np_]
+
+    def get_prisms(self):
+        """Prisms, passed through untouched, renumbered to the output
+        vertex ids after run()."""
+        if self._out is not None and self.nprism_:
+            return self._input_vertex_remap()[self.prism - 1], self.prism_ref
+        return self.prism, self.prism_ref
+
+    def get_quadrilaterals(self):
+        if self._out is not None and self.nquad_:
+            return self._input_vertex_remap()[self.quad - 1], self.quad_ref
+        return self.quad, self.quad_ref
+
+    def get_normals(self):
+        """Unit outward normals at the output vertices [np, 3] (zero off
+        the surface)."""
+        if self._out_vn is None:
+            from ..ops.analysis import analyze_mesh
+            vn = analyze_mesh(self._out).vnormal
+            self._out_vn = vn.cpu().numpy()[self._out.vmask.cpu().numpy()]
+        return self._out_vn
+
+    def get_normal_at_vertex(self, pos: int):
+        """(nx, ny, nz) at output vertex ``pos``; at a ridge point the
+        first side's normal (both: :meth:`get_ridge_normals_at_vertex`)."""
+        if self._out_vtag_cache is None:
+            self._out_vtag_cache = \
+                self._out.vtag.cpu().numpy()[self._out.vmask.cpu().numpy()]
+        t = int(self._out_vtag_cache[pos - 1])
+        if (t & (C.MG_GEO | C.MG_REF)) and not (t & (C.MG_CRN | C.MG_NOM)):
+            return self.get_ridge_normals_at_vertex(pos)[0]
+        n = self.get_normals()[pos - 1]
+        return float(n[0]), float(n[1]), float(n[2])
+
+    def get_ridge_normals_at_vertex(self, pos: int):
+        """Both per-side normals (n1, n2) at a ridge vertex; zeros at
+        other points."""
+        if self._out_ridge_nn is None:
+            from ..ops.analysis import ridge_vertex_normals
+            n1, n2 = ridge_vertex_normals(self._out)
+            vm = self._out.vmask.cpu().numpy()
+            self._out_ridge_nn = (n1.cpu().numpy()[vm], n2.cpu().numpy()[vm])
+        n1, n2 = self._out_ridge_nn
+        return (tuple(float(x) for x in n1[pos - 1]),
+                tuple(float(x) for x in n2[pos - 1]))
+
+    def get_scalar_met(self, pos: int) -> float:
+        return float(self.get_metric()[pos - 1])
+
+    def get_scalar_mets(self):
+        return self.get_metric()
+
+    def get_vertex_glonum(self, pos: int) -> int:
+        if self._glonum is None:
+            self._compute_glonum()
+        return int(self._glonum[pos - 1])
+
+    def get_vertices_glonum(self):
+        if self._glonum is None:
+            self._compute_glonum()
+        return self._glonum
+
+    def _compute_glonum(self):
+        """Global vertex numbering of the output: the identity on one
+        device."""
+        vert = self._out_host()[0]
+        self._glonum = np.arange(1, len(vert) + 1, dtype=np.int64)
+
+    def get_triangle_glonum(self, pos: int) -> int:
+        """Global id of an output boundary triangle: the identity on one
+        device."""
+        return pos
+
+    def get_triangles_glonum(self):
+        return np.arange(1, self._out_ntria() + 1, dtype=np.int64)
 
     def get_metric(self):
         """The output metric of the live vertices: [np] sizes or [np, 6]

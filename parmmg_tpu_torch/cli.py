@@ -1,13 +1,20 @@
 """Command-line interface of the PyTorch port (port of ``cli.py``).
 
-    python -m parmmg_tpu_torch.cli -in X.mesh [-sol X.sol] -out Y.mesh
+    python -m parmmg_tpu_torch.cli -in X.mesh [-sol X.sol] [-field F.sol]
+                                   -out Y.mesh
 
-Runs on the CUDA device unless ``-device cpu`` is given.  The metric file
-holds a scalar size (``SOL_SCALAR``) or a packed symmetric tensor
-(``SOL_TENSOR``) per vertex; the output ``.sol`` has the input's kind.  The
-single-device flags of the JAX package's CLI are accepted; ``-ndev > 1``,
-``-field``, ``-distributed-output`` and VTK files are not yet ported and
-exit with an error saying so.
+Runs on the CUDA device unless ``-device cpu`` is given.  The input is a
+Medit ``.mesh``/``.meshb`` file, an ascii ``.vtu`` file (its ``metric`` /
+``sol`` point field is the metric, its other point fields are solution
+fields carried through the remesh), or a distributed set
+``name.<rank>.mesh`` (reassembled into one mesh).  The metric file holds a
+scalar size (``SOL_SCALAR``) or a packed symmetric tensor (``SOL_TENSOR``)
+per vertex; the output ``.sol`` has the input's kind.  ``-field`` names a
+``.sol`` file of solution fields, P1-interpolated onto the new mesh.  The
+output is ``.mesh``/``.meshb``, ``.vtu`` or ``.pvtu``; with
+``-distributed-output`` it is written as the distributed file
+``name.0.mesh``.  Every flag of the JAX package's CLI is accepted; only
+``-ndev > 1`` is not yet ported and exits with an error saying so.
 """
 from __future__ import annotations
 
@@ -29,17 +36,31 @@ def build_parser() -> argparse.ArgumentParser:
         prog="parmmg_tpu_torch", prefix_chars="-",
         description="PyTorch/CUDA tetrahedral remesher (single device)")
     a = p.add_argument
-    a("-in", dest="inp", metavar="file", help="input mesh (.mesh/.meshb)")
+    a("-in", dest="inp", metavar="file",
+      help="input mesh (.mesh/.meshb/.vtu, or name.<rank>.mesh shards)")
     a("-out", dest="out", metavar="file", help="output mesh")
     a("-sol", "-met", dest="sol", metavar="file", help="metric file")
-    a("-field", dest="field", metavar="file", help="(not yet ported)")
+    a("-field", dest="field", metavar="file",
+      help="solution fields to interpolate (.sol)")
     a("-noout", action="store_true", help="no output mesh")
     a("-v", dest="verbose", type=int, default=1, help="verbosity")
+    a("-mmg-v", dest="mmg_verbose", type=int, default=-1,
+      help="remesh-kernel verbosity")
     a("-m", dest="mem", type=int, default=-1, help="memory budget MB")
+    a("-d", dest="debug", action="store_true", help="debug mode")
     a("-niter", type=int, default=C.NITER_DEFAULT,
       help="adaptation iterations")
     a("-mesh-size", dest="mesh_size", type=int,
       default=C.TARGET_MESH_SIZE_SENTINEL, help="target group mesh size")
+    a("-metis-ratio", dest="metis_ratio", type=int,
+      default=C.RATIO_MMG_METIS_SENTINEL,
+      help="ratio of migration groups to remesh groups (multi-device)")
+    a("-nlayers", type=int, default=C.MVIFCS_NLAYERS,
+      help="interface displacement layers (grouped runs)")
+    a("-groups-ratio", dest="groups_ratio", type=float, default=C.GRPS_RATIO,
+      help="allowed group imbalance (multi-device)")
+    a("-nobalance", action="store_true",
+      help="no load balancing (multi-device)")
     a("-ndev", type=int, default=1, help="number of devices")
     a("-device", default="cuda", choices=("cuda", "cpu"),
       help="torch device (default cuda)")
@@ -54,6 +75,8 @@ def build_parser() -> argparse.ArgumentParser:
     a("-nr", dest="noridge", action="store_true", help="no ridge detection")
     a("-A", dest="aniso", action="store_true",
       help="anisotropic metric computation (reference -A flag)")
+    a("-mmg-d", dest="mmg_debug", action="store_true",
+      help="remesh-kernel debug mode")
     a("-optim", action="store_true", help="preserve current sizing")
     a("-optimLES", action="store_true")
     a("-noinsert", action="store_true")
@@ -62,9 +85,13 @@ def build_parser() -> argparse.ArgumentParser:
     a("-nosurf", action="store_true")
     a("-nofem", action="store_true")
     a("-opnbdy", action="store_true", help="preserve open boundaries")
+    a("-octree", type=int, default=-1, help="(accepted, unused)")
+    a("-rn", type=int, default=-1, help="(renumbering: accepted, unused)")
     a("-centralized-output", dest="cent_out", action="store_true")
     a("-distributed-output", dest="dist_out", action="store_true",
-      help="(not yet ported)")
+      help="write the output as the distributed file name.0.mesh")
+    a("-resume", action="store_true",
+      help="resume a grouped run (grouped runs are not yet ported)")
     a("-val", action="store_true", help="print default values and exit")
     a("-bench-json", dest="bench_json", action="store_true",
       help="print one JSON line with timing/quality stats")
@@ -74,13 +101,6 @@ def build_parser() -> argparse.ArgumentParser:
 def _not_yet(args) -> str | None:
     if args.ndev > 1:
         return "-ndev > 1 (multi-device runs)"
-    if args.field:
-        return "-field (user-field interpolation)"
-    if args.dist_out:
-        return "-distributed-output"
-    for f in (args.inp, args.out):
-        if f and Path(f).suffix in (".vtu", ".pvtu"):
-            return "VTK input/output"
     return None
 
 
@@ -100,16 +120,31 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     from .io import medit
+    from .io.distributed import load_distributed_mesh, probe_distributed
 
     t0 = time.perf_counter()
     pm = ParMesh(device=args.device)
     inp = Path(args.inp)
-    if inp.suffix not in (".mesh", ".meshb"):
-        inp = inp.with_suffix(".mesh")
-    if not inp.exists():
-        print(f"cannot open {inp}", file=sys.stderr)
-        return 1
-    m = medit.read_mesh(inp)
+    vtu_met = vtu_fields = None
+    if inp.suffix == ".vtu":
+        from .io.vtk import read_vtu_medit
+        if not inp.exists():
+            print(f"cannot open {inp}", file=sys.stderr)
+            return 1
+        m, vtu_met, vtu_fields = read_vtu_medit(inp)
+    else:
+        if inp.suffix not in (".mesh", ".meshb"):
+            inp = inp.with_suffix(".mesh")
+        if inp.exists():
+            m = medit.read_mesh(inp)
+        elif probe_distributed(inp, 0):
+            parts = []
+            while probe_distributed(inp, len(parts)):
+                parts.append(load_distributed_mesh(inp, len(parts))[0])
+            m = _concat_shards(parts)
+        else:
+            print(f"cannot open {inp}", file=sys.stderr)
+            return 1
     pm.set_mesh_size(np_=len(m.vert), ne=len(m.tetra), nt=len(m.tria),
                      na=len(m.edges))
     pm.set_vertices(m.vert, m.vref)
@@ -132,11 +167,54 @@ def main(argv=None) -> int:
         else:
             pm.set_met_size(1, len(m.vert))
             pm.set_scalar_mets(vals.reshape(len(m.vert)))
+    elif vtu_met is not None:
+        if vtu_met.ndim == 2 and vtu_met.shape[1] == 6:
+            pm.set_met_size(3, len(m.vert))
+            pm.set_tensor_mets(vtu_met)
+        else:
+            pm.set_met_size(1, len(m.vert))
+            pm.set_scalar_mets(np.asarray(vtu_met).reshape(len(m.vert)))
+    if args.field:
+        vals, types = medit.read_sol(args.field)
+        pm.set_sols_at_vertices_size(len(types), types)
+        vals2 = vals.reshape(len(m.vert), -1)
+        off = 0
+        for i, t in enumerate(types):
+            w = {1: 1, 2: 3, 3: 6}[t]
+            chunk = vals2[:, off:off + w]
+            pm.set_ith_sol_in_sols_at_vertices(
+                i + 1, chunk if w > 1 else chunk[:, 0])
+            off += w
+    elif vtu_fields:
+        # the other point fields ride along as solution fields: 1, 3 and
+        # 6 components map to the Medit sol types, others are dropped
+        carried, types = [], []
+        for nm, arr in vtu_fields.items():
+            a = np.asarray(arr, np.float64).reshape(len(m.vert), -1)
+            typ = {1: medit.SOL_SCALAR, 3: medit.SOL_VECTOR,
+                   6: medit.SOL_TENSOR}.get(a.shape[1])
+            if typ is None:
+                print(f"warning: dropping VTU point field '{nm}' "
+                      f"({a.shape[1]} components)", file=sys.stderr)
+                continue
+            carried.append(a[:, 0] if a.shape[1] == 1 else a)
+            types.append(typ)
+        if carried:
+            pm.set_sols_at_vertices_size(len(types), types)
+            for i, chunk in enumerate(carried):
+                pm.set_ith_sol_in_sols_at_vertices(i + 1, chunk)
 
     info = pm.info
     info.imprim = args.verbose
+    info.mmg_imprim = args.mmg_verbose
+    info.debug = args.debug
+    info.mmg_debug = args.mmg_debug
     info.niter = args.niter
     info.target_mesh_size = args.mesh_size
+    info.metis_ratio = args.metis_ratio
+    info.ifc_layers = args.nlayers
+    info.grps_ratio = args.groups_ratio
+    info.nobalancing = args.nobalance
     info.n_devices = args.ndev
     info.hmin, info.hmax = args.hmin, args.hmax
     info.hsiz = args.hsiz
@@ -155,7 +233,9 @@ def main(argv=None) -> int:
     info.fem = not args.nofem
     info.opnbdy = args.opnbdy
     info.mem_budget_mb = args.mem
+    info.centralized_output = not args.dist_out
     info.noout = args.noout
+    info.resume = args.resume
 
     parfile = Path(args.inp).with_suffix(".mmg3d")
     if parfile.exists():
@@ -219,6 +299,41 @@ def _parse_parfile(path):
     return out
 
 
+def _concat_shards(parts):
+    """One mesh from distributed shard files, interface vertices merged on
+    equal coordinates (rounded to 1e-12); ``src_part`` is each tet's
+    shard."""
+    from .io.medit import MeditMesh
+    m = MeditMesh()
+    off = 0
+    vs, vr, ts, tr, src = [], [], [], [], []
+    for k, p in enumerate(parts):
+        vs.append(p.vert)
+        vr.append(p.vref)
+        ts.append(p.tetra + off)
+        tr.append(p.tref)
+        src.append(np.full(len(p.tetra), k, np.int32))
+        off += len(p.vert)
+    m.vert = np.concatenate(vs)
+    m.vref = np.concatenate(vr)
+    m.tetra = np.concatenate(ts)
+    m.tref = np.concatenate(tr)
+    m.src_part = np.concatenate(src)
+    uniq, inv = np.unique(m.vert.round(12), axis=0, return_inverse=True)
+    if len(uniq) < len(m.vert):
+        inv = inv.reshape(-1)
+        # the first vertex of each coordinate keeps its place
+        seen = np.full(len(uniq), len(inv), np.int64)
+        np.minimum.at(seen, inv, np.arange(len(inv)))
+        keep = np.zeros(len(m.vert), bool)
+        keep[seen] = True
+        newid = np.cumsum(keep) - 1
+        m.tetra = newid[seen[inv[m.tetra]]].astype(np.int32)
+        m.vert = m.vert[keep]
+        m.vref = m.vref[keep]
+    return m
+
+
 def _report(pm, dt, as_json, verbose):
     from .ops.quality import tet_quality
     q = tet_quality(pm._out, pm._out_met).cpu().numpy()
@@ -247,6 +362,12 @@ def _save_outputs(pm, args):
         Path(args.inp).with_name(Path(args.inp).stem + ".o.mesh")
     vert, vref = pm.get_vertices()
     tet, tref = pm.get_tetrahedra()
+    if out.suffix in (".vtu", ".pvtu"):
+        from .io.vtk import write_pvtu, write_vtu
+        vtu = write_vtu(out.with_suffix(".vtu"), vert, tet - 1)
+        if out.suffix == ".pvtu":
+            write_pvtu(out, [vtu])
+        return
     tris, trefs = pm.get_triangles()
     m = MeditMesh()
     m.vert, m.vref = vert.astype(np.float64), vref
@@ -262,7 +383,11 @@ def _save_outputs(pm, args):
     m.required_vert = np.flatnonzero(
         ((vtag & C.MG_REQ) != 0) & ((vtag & C.MG_PARBDY) == 0)
     ).astype(np.int32)
-    write_mesh(out, m)
+    if args.dist_out:
+        from .io.distributed import save_distributed_mesh
+        save_distributed_mesh(out, 0, m)
+    else:
+        write_mesh(out, m)
     met = pm.get_metric()
     if met is not None:
         write_sol(out.with_suffix(".sol"), met.reshape(len(vert), -1),

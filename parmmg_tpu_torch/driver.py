@@ -1,8 +1,9 @@
 """The adaptation loop driver (port of ``driver.py``): the single-device,
-whole-mesh path.  Metric synthesis, ``niter`` calls of the adaptation
-operator, then the run tail (sequential repair, FEM conformity, quality
-report).  Multi-device runs, grouped ``-mesh-size`` runs and user-field
-interpolation are not yet ported and raise."""
+whole-mesh path.  Metric synthesis, a background copy of the mesh when the
+run carries user fields, ``niter`` calls of the adaptation operator, then
+the run tail (sequential repair, FEM conformity, P1 interpolation of the
+user fields from the background, quality report).  Multi-device runs and
+grouped ``-mesh-size`` runs are not yet ported and raise."""
 from __future__ import annotations
 
 import time
@@ -11,7 +12,7 @@ import numpy as np
 import torch
 
 from .core import constants as C
-from .core.mesh import Mesh, replace
+from .core.mesh import MESH_FIELDS, Mesh, replace
 from .ops.adapt import AdaptStats, adapt_mesh
 from .ops.metric import clamp_metric, gradation, metric_hsiz, metric_optim
 
@@ -131,6 +132,11 @@ def parmmg_run(pm) -> tuple:
                              mesh.vtag))
     met = build_metric(mesh, met, info)
 
+    # background copy for the field interpolation, on the device
+    bg_fields = [np.array(f, copy=True) for f in pm.fields]
+    bg_mesh = Mesh(**{f: getattr(mesh, f).clone() for f in MESH_FIELDS}) \
+        if bg_fields else None
+
     stats = AdaptStats()
     hausd = info.hausd
     for _typ, _ref, _hm, _hx, _hd in info.local_params:
@@ -153,11 +159,12 @@ def parmmg_run(pm) -> tuple:
         stats += st
     _log(C.PMMG_VERB_STEPS,
          f"  -- adaptation {time.perf_counter() - t0:.3f} s", info.imprim)
-    return _finish_run(mesh, met, stats, info)
+    return _finish_run(pm, mesh, met, stats, info, bg_mesh, bg_fields)
 
 
-def _finish_run(mesh, met, stats, info):
-    """Run tail: sequential sliver repair, FEM conformity, report."""
+def _finish_run(pm, mesh, met, stats, info, bg_mesh, bg_fields):
+    """Run tail: sequential sliver repair, FEM conformity, user-field
+    interpolation, report."""
     if not (info.noinsert and info.noswap and info.nomove):
         from .ops.repair import repair_mesh
         mesh, nrep = repair_mesh(mesh, met,
@@ -185,6 +192,8 @@ def _finish_run(mesh, met, stats, info):
             _log(C.PMMG_VERB_VERSION,
                  "  ## Warning: fem conformity pass did not converge "
                  f"({nf} edges remain).", info.imprim)
+    if bg_fields:
+        pm.fields = interpolate_fields(bg_mesh, bg_fields, mesh)
     if info.imprim >= C.PMMG_VERB_QUAL:
         print_quality_report(mesh, met, info)
     return mesh, met, stats
@@ -208,3 +217,30 @@ def print_quality_report(mesh: Mesh, met, info) -> None:
         lines.append(f"  -- EDGE LENGTHS   min {float(lmin):.4f} ; "
                      f"max {float(lmax):.4f} ; mean {float(lmean):.4f}")
     _log(C.PMMG_VERB_QUAL, "\n".join(lines), info.imprim)
+
+
+def interpolate_fields(bg: Mesh, fields: list, new: Mesh) -> list:
+    """P1 interpolation of user fields (float64 [np_bg, ...] numpy arrays)
+    from the background mesh onto the live vertices of ``new``, computed
+    in float32 on ``bg``'s device as the JAX package computes them.
+    Boundary vertices take the surface location
+    (``ops.interp.locate_points_bdy``), run on the boundary subset only.
+    Returns float32 numpy arrays [np_new, ...]."""
+    from .ops.interp import (interp_p1, interp_p1_tri, locate_points,
+                             locate_points_bdy)
+    pts = new.vert[new.vmask]
+    on_bdy = (new.vtag[new.vmask] & C.MG_BDY) != 0
+    loc = locate_points(bg, pts, torch.zeros(pts.shape[0], dtype=torch.int32,
+                                             device=pts.device))
+    bidx = on_bdy.nonzero().squeeze(1)
+    sloc = locate_points_bdy(bg, pts[bidx]) if bidx.numel() else None
+    out = []
+    for f in fields:
+        full = np.zeros((bg.capP,) + f.shape[1:], f.dtype)
+        full[: len(f)] = f
+        full = torch.from_numpy(full).to(bg.device, torch.float32)
+        vals = interp_p1(full, bg.tet, loc)
+        if sloc is not None:
+            vals[bidx] = interp_p1_tri(full, bg, sloc)
+        out.append(vals.cpu().numpy())
+    return out

@@ -45,6 +45,67 @@ def cube_mesh(n: int = 4):
     return vert, tet.astype(np.int32)
 
 
+def sphere_mesh(n: int = 8):
+    """Unit ball: cube_mesh(n) mapped radially onto the ball (graded)."""
+    vert, tet = cube_mesh(n)
+    c = vert * 2.0 - 1.0
+    linf = np.max(np.abs(c), axis=1)
+    l2 = np.linalg.norm(c, axis=1)
+    scale = np.where(l2 > 1e-12, linf / np.maximum(l2, 1e-12), 1.0)
+    vert = c * scale[:, None]
+    tet = _orient_positive(vert, tet)
+    return vert, tet.astype(np.int32)
+
+
+def torus_mesh(nu: int = 12, nc: int = 4, R: float = 1.0, r: float = 0.4):
+    """Solid torus of centreline radius R and tube radius r: a square
+    cross-section of nc cells mapped onto the disk, extruded around nu
+    stations with periodic Kuhn cells (conforming across the wrap)."""
+    kc = nc + 1
+    g = np.arange(kc) / nc * 2.0 - 1.0
+    A, B = np.meshgrid(g, g, indexing="ij")
+    ab = np.stack([A.ravel(), B.ravel()], axis=1)
+    linf = np.max(np.abs(ab), axis=1)
+    l2 = np.linalg.norm(ab, axis=1)
+    scale = np.where(l2 > 1e-12, linf / np.maximum(l2, 1e-12), 1.0)
+    disk = ab * scale[:, None] * r
+    vert = []
+    for u in np.arange(nu) / nu * 2.0 * np.pi:
+        x = (R + disk[:, 0]) * np.cos(u)
+        y = (R + disk[:, 0]) * np.sin(u)
+        vert.append(np.stack([x, y, disk[:, 1]], axis=1))
+    vert = np.concatenate(vert)
+
+    def vid(i, j, l):
+        return (i % nu) * (kc * kc) + j * kc + l
+
+    ii, jj, ll = np.meshgrid(np.arange(nu), np.arange(nc), np.arange(nc),
+                             indexing="ij")
+    base = np.stack([ii.ravel(), jj.ravel(), ll.ravel()], 1)
+    corners = np.empty((base.shape[0], 8), np.int64)
+    for c in range(8):
+        off = np.array([c & 1, (c >> 1) & 1, (c >> 2) & 1])
+        q = base + off
+        corners[:, c] = vid(q[:, 0], q[:, 1], q[:, 2])
+    tet = corners[:, _KUHN_TETS].reshape(-1, 4)
+    tet = _orient_positive(vert, tet)
+    return vert, tet.astype(np.int32)
+
+
+def cylinder_mesh(n: int = 6, r: float = 0.5):
+    """Solid cylinder (radius r, height 1, axis z): cube_mesh(n) with the
+    (x, y) cross-section mapped onto the disk; the cap rims are curved
+    ridge lines."""
+    vert, tet = cube_mesh(n)
+    c = vert[:, :2] * 2.0 - 1.0
+    linf = np.max(np.abs(c), axis=1)
+    l2 = np.linalg.norm(c, axis=1)
+    scale = np.where(l2 > 1e-12, linf / np.maximum(l2, 1e-12), 1.0)
+    vert = np.concatenate([c * scale[:, None] * r, vert[:, 2:]], axis=1)
+    tet = _orient_positive(vert, tet)
+    return vert, tet.astype(np.int32)
+
+
 def _orient_positive(vert, tet):
     p = vert[tet]
     det = np.einsum("ti,ti->t", p[:, 1] - p[:, 0],
@@ -80,3 +141,19 @@ def analytic_ani_metric(vert: np.ndarray, kind: str = "shock",
         m[:, 5] = 1.0 / h_tan ** 2
         return m
     raise ValueError(kind)
+
+
+def ball_shock_metric(vert: np.ndarray, h: float = 3.0 / 16.0):
+    """The planar "shock" iso size map of ``analytic_iso_metric`` carried
+    from the unit cube onto the ball [-1, 1]^3 (lengths doubled): size
+    ``h (0.2 + 2 |x|)``, smallest on the plane x = 0."""
+    return h * (0.2 + 2.0 * np.abs(vert[:, 0]))
+
+
+def linear_fields(vert: np.ndarray):
+    """A scalar and a 3-vector field, both linear in (x, y, z), which P1
+    interpolation reproduces exactly: (temp [n], vel [n, 3])."""
+    x, y, z = vert[:, 0], vert[:, 1], vert[:, 2]
+    temp = 1.0 + 2.0 * x - 3.0 * y + 0.5 * z
+    vel = np.stack([x + y, 2.0 * y - z + 1.0, 3.0 * z - x], axis=1)
+    return temp, vel

@@ -46,27 +46,7 @@ from parmmg_tpu_torch.ops import quality as TQ
 from parmmg_tpu_torch.io.medit import MeditMesh, read_mesh, read_sol, \
     write_mesh, write_sol
 from parmmg_tpu_torch.utils.fixtures import analytic_ani_metric, cube_mesh
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _jax_ledger_listener_compat():
-    """The JAX package's compile-ledger listener takes (event, duration)
-    while jax >= 0.9 also passes keyword metadata (``fun_name``), which
-    makes every compile raise once the listener is installed.  Install
-    it, then wrap it to drop the keywords for this module's tests."""
-    import parmmg_tpu.ops.adapt  # noqa: F401  (installs the listener)
-    from jax._src import monitoring
-    from parmmg_tpu.utils.compilecache import CompileLedger
-    saved = list(monitoring._event_duration_secs_listeners)
-
-    def tolerant(cb):
-        if getattr(cb, "__func__", None) is CompileLedger._on_event:
-            return lambda event, duration, **_kw: cb(event, duration)
-        return cb
-    monitoring._event_duration_secs_listeners[:] = [tolerant(c)
-                                                    for c in saved]
-    yield
-    monitoring._event_duration_secs_listeners[:] = saved
+from torch_parity import jax_ledger_listener_compat  # noqa: F401
 
 
 def _spd(rng, n, repeated=False):

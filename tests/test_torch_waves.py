@@ -47,29 +47,9 @@ from parmmg_tpu_torch.ops import quality as TQ, smooth as TS, split as TP
 from parmmg_tpu_torch.ops import swap as TW, swapgen as TG
 from parmmg_tpu_torch.utils.fixtures import (analytic_ani_metric,
                                              analytic_iso_metric, cube_mesh)
+from torch_parity import jax_ledger_listener_compat  # noqa: F401
 
 IDENTITY6 = np.array([1, 0, 0, 1, 0, 1], np.float32)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _jax_ledger_listener_compat():
-    """The JAX package's compile-ledger listener takes (event, duration)
-    while jax >= 0.9 also passes keyword metadata (``fun_name``), which
-    makes every compile raise once the listener is installed.  Install
-    it, then wrap it to drop the keywords for this module's tests."""
-    import parmmg_tpu.ops.adapt  # noqa: F401  (installs the listener)
-    from jax._src import monitoring
-    from parmmg_tpu.utils.compilecache import CompileLedger
-    saved = list(monitoring._event_duration_secs_listeners)
-
-    def tolerant(cb):
-        if getattr(cb, "__func__", None) is CompileLedger._on_event:
-            return lambda event, duration, **_kw: cb(event, duration)
-        return cb
-    monitoring._event_duration_secs_listeners[:] = [tolerant(c)
-                                                    for c in saved]
-    yield
-    monitoring._event_duration_secs_listeners[:] = saved
 
 
 def _jit(fn, **static):

@@ -2,15 +2,27 @@
 """Run the JAX package's CLI on an input that ``chip_smoke.py`` remeshes
 with the port, and print its one-line JSON report.
 
-    JAX_PLATFORMS=cpu python tools/jax_cli_reference.py [n] [workdir] [--aniso]
+    JAX_PLATFORMS=cpu python tools/jax_cli_reference.py [n] [workdir] \
+        [--aniso | --sphere]
 
 The input is cube_mesh(n) (default 16), written as Medit ``.mesh``/``.sol``;
 the run is ``-niter 1``.  The metric is the planar "shock" iso metric
 h = 1.5/n, or with ``--aniso`` the planar "shock" tensor metric
 ``analytic_ani_metric(vert, "shock", h=1.5/(3n), h_tan=0.1)`` (spacing
-0.2-2.2 h across the plane x = 0.5, 0.1 along it).  The port's own result
-on the same input is what ``chip_smoke.py`` prints on its ``[main]`` and
-``[aniso]`` lines, so the two can be set side by side.
+0.2-2.2 h across the plane x = 0.5, 0.1 along it).
+
+With ``--sphere`` the input is sphere_mesh(n), written as ``sphere<n>.vtu``
+with three point fields: ``metric``, the shock size map carried onto the
+unit ball, ``(3/16) (0.2 + 2 |x|)``; ``temp`` and ``vel``, a scalar and a
+3-vector linear in x, y and z (``parmmg_tpu_torch.utils.fixtures``
+``ball_shock_metric`` and ``linear_fields``).  The CLI reads the metric
+from the file, carries the other two fields through the remesh by P1
+interpolation, and writes ``sphere<n>.jax.vtu``; all other flags keep
+their defaults (hausd bound, ridge detection, curved-boundary moves).
+
+The port's own result on the same input is what ``chip_smoke.py`` prints
+on its ``[main]``, ``[aniso]`` and ``[field]`` lines, so the two can be set
+side by side.
 
 The JAX package's compile-ledger listener takes (event, duration) while
 newer jax also passes keyword metadata; the listener is wrapped to drop
@@ -40,13 +52,35 @@ def _tolerant_ledger_listener():
         tolerant(c) for c in monitoring._event_duration_secs_listeners]
 
 
+def write_sphere_input(workdir: str, n: int) -> str:
+    """sphere_mesh(n) with its metric, temp and vel point fields, as
+    ``<workdir>/sphere<n>.vtu``; returns the path."""
+    from parmmg_tpu.io.vtk import write_vtu
+    from parmmg_tpu.utils.fixtures import sphere_mesh
+    from parmmg_tpu_torch.utils.fixtures import (ball_shock_metric,
+                                                 linear_fields)
+    vert, tet = sphere_mesh(n)
+    temp, vel = linear_fields(vert)
+    path = os.path.join(workdir, f"sphere{n}.vtu")
+    write_vtu(path, vert, tet, point_data={
+        "metric": ball_shock_metric(vert), "temp": temp, "vel": vel})
+    return path
+
+
 def main(argv) -> int:
     sys.path.insert(0, HERE)
     aniso = "--aniso" in argv
-    argv = [a for a in argv if a != "--aniso"]
+    sphere = "--sphere" in argv
+    argv = [a for a in argv if a not in ("--aniso", "--sphere")]
     n = int(argv[0]) if argv else 16
     workdir = argv[1] if len(argv) > 1 else tempfile.mkdtemp()
     from parmmg_tpu import cli
+    if sphere:
+        _tolerant_ledger_listener()
+        src = write_sphere_input(workdir, n)
+        return cli.main(["-in", src, "-out",
+                         os.path.join(workdir, f"sphere{n}.jax.vtu"),
+                         "-niter", "1", "-v", "1", "-bench-json"])
     from parmmg_tpu.io.medit import MeditMesh, write_mesh, write_sol
     from parmmg_tpu.utils.fixtures import (analytic_ani_metric,
                                            analytic_iso_metric, cube_mesh)
