@@ -11,29 +11,44 @@ Phases (any failure exits non-zero without the final result line):
 2. main    - the port's CLI remesh (``parmmg_tpu_torch.cli.main``) of the
              structured cube_mesh(16) (24,576 tets) under the planar "shock"
              iso metric h = 1.5/16 * (0.2 + 4 |x - 0.5|), one iteration, on
-             the card.  Kernel launch counts are zeroed just before and read
-             just after; every kernel of the iso path (K1, K3-K8) must have
-             launched, and K2 must not.  The output mesh is read back and
-             checked: conforming adjacency, no live tet of volume <= 0,
-             qmin > 0, tet count within 2% of the JAX CLI's 111,116 on this
-             input.
+             the card, at the default: blocks of 9 self-width-selecting
+             cycles (``ops/active.py``), the JAX package's accelerator
+             configuration.  Kernel launch counts are zeroed just before
+             and read just after; every kernel of the iso path (K1, K3-K8)
+             must have launched, and K2 must not.  The output mesh is read
+             back and checked: conforming adjacency, no live tet of volume
+             <= 0, qmin > 0, tet count within 2% of the JAX CLI's at
+             PARMMG_CYCLE_BLOCK=9 on this input (139,206).  Prints the
+             cycles, how many ran narrow (on an [A]-row sub-mesh) and how
+             many narrow attempts were discarded, the active tets against
+             A (mean, max), the host reads a cycle (the synchronizing calls
+             inside ``adapt_mesh``, polish included, that PyTorch's sync
+             debug mode reports) and the sorts (K7, K8) at sub-mesh widths,
+             all of which must have launched their kernel.  Fails unless a
+             cycle ran narrow (the JAX CLI ran 27 of its 50 narrow).
 3. repeat  - the main path twice more: once as it is, once with the sort
              engine's wrappers (radix_sort, merge_prefix, segment_flags)
              swapped for their plain versions.  Both must write the same
-             bytes (.mesh and .sol) as phase 2's run.
+             bytes (.mesh and .sol) as phase 2's run.  Then once at
+             ``cycle_block=1``, one full-width cycle a dispatch: conforming,
+             its tet count within 2% of the JAX CLI's 111,116 at block 1,
+             its wall printed beside the block-9 run's.
 4. aniso   - the same CLI on cube_mesh(16) under the planar "shock" tensor
              metric (spacing 1.5/48 * (0.2 + 4 |x - 0.5|) across the plane
              x = 0.5, 0.1 along it), one iteration, launch counts zeroed
              just before and read just after: every kernel of the tensor
              path (K2-K8) must have launched, and K1 must not.  Checked as
              phase 2, with qmin > 0 in the tensor metric's quality, the tet
-             count within 2% of the JAX CLI's 210,234, a SOL_TENSOR output
-             ``.sol``, and a second run writing the same bytes.
+             count within 2% of the JAX CLI's at block 9 (327,908), a
+             SOL_TENSOR output ``.sol``, and a second run writing the same
+             bytes.
+             Prints the narrow-cycle lines of phase 2.
 5. field   - the CLI remesh of sphere_mesh(16) (4,913 points, 24,576 tets,
              the unit ball) read from a ``.vtu`` file with three point
              fields: ``metric``, the shock size map carried onto the ball,
              (3/16) (0.2 + 2 |x|) (the cube16 map with lengths doubled;
-             the JAX CLI writes 98,439 tets from it), and ``temp`` and
+             the JAX CLI writes 131,901 tets from it at block 9), and
+             ``temp`` and
              ``vel``, a scalar and a 3-vector linear in x, y and z.  All
              flags default but ``-niter 1``: the hausd bound, ridge
              detection and the curved-boundary moves are on, and the two
@@ -54,7 +69,7 @@ Phases (any failure exits non-zero without the final result line):
              failed walks that took the exhaustive search and the boundary
              points that took the surface walk, and the wall times of the
              volume walk, the exhaustive search and the surface location,
-             each run again alone.
+             each run again alone, and the narrow-cycle lines of phase 2.
 6. kernels - each kernel against its plain PyTorch version on the card, on
              the output mesh of its path (the capacities that path
              reached; K2 and K6's tensor mode on the aniso output and its
@@ -101,11 +116,17 @@ import traceback
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory
 F32_OPS_PER_S = 67e12               # H100 SXM float32 outside tensor cores
-# the JAX CLI's tet count on each path's input, and how far the port's
-# may lie from it: tools/jax_cli_reference.py 16 [--aniso] (CPU); on the
-# aniso input the port's CPU run wrote 210,860 tets, 0.30% away
-# and on sphere16: tools/jax_cli_reference.py 16 --sphere (CPU)
-JAX_CLI_NTETS = {"cube16": 111116, "cube16ani": 210234, "sphere16": 98439}
+# the JAX CLI's tet count on each path's input in its accelerator
+# configuration (blocks of 9 auto cycles), and how far the port's may lie
+# from it: tools/jax_cli_reference.py 16 [--aniso | --sphere] --block 9
+# (on the CPU); and the cycles of those runs that ran narrow, of 50
+JAX_CLI_NTETS = {"cube16": 139206, "cube16ani": 327908,
+                 "sphere16": 131901}
+JAX_CLI_NARROW = {"cube16": 27, "cube16ani": 10, "sphere16": 27}
+# the same at one cycle a dispatch (--block 1, the JAX package's default
+# off the TPU)
+JAX_CLI_NTETS_BLOCK1 = {"cube16": 111116, "cube16ani": 210234,
+                        "sphere16": 98439}
 NTETS_BOUND = 0.02
 # the kernels each path must launch, and the one it must not
 PATH_KERNELS = {
@@ -257,11 +278,8 @@ def phase_path(workdir: str, stem: str, device: str = "cuda"):
     """One path of the CLI remesh (phase 2 "cube16" or phase 4
     "cube16ani"): launch counts, output checks; returns (launches, the
     largest shapes each kernel wrapper was given)."""
-    from parmmg_tpu_torch.core.mesh import tet_volumes
     from parmmg_tpu_torch.io.medit import SOL_TENSOR
     from parmmg_tpu_torch.ops import kernels
-    from parmmg_tpu_torch.ops.adjacency import check_adjacency
-    from parmmg_tpu_torch.ops.quality import tet_quality
 
     tag = "main" if stem == "cube16" else "aniso"
     _write_input(workdir, stem)
@@ -281,21 +299,15 @@ def phase_path(workdir: str, stem: str, device: str = "cuda"):
         wrapped[name] = fn
         setattr(kernels, name, rec_shape)
     try:
-        launches, rec, wall = _run_main(workdir, stem, out, device)
+        with _cycle_watch(count_reads=device == "cuda") as info:
+            launches, rec, wall = _run_main(workdir, stem, out, device)
     finally:
         for name, fn in wrapped.items():
             setattr(kernels, name, fn)
     mesh, met, types = _read_output(out, device)
     aniso = met.dim() == 2
-    bad = check_adjacency(mesh)
+    bad, qmin, qmean = _check_conforming(stem, mesh, met if aniso else None)
     nbnd = int(((mesh.adja < 0) & mesh.tmask[:, None]).sum())
-    nneg = int(((tet_volumes(mesh) <= 0) & mesh.tmask).sum())
-    q = tet_quality(mesh, met if aniso else None)
-    qmin = float(q[mesh.tmask].min())
-    qmean = float(q[mesh.tmask].mean())
-    if bad["asymmetric"] or bad["face_mismatch"] or nneg or qmin <= 0:
-        raise RuntimeError(f"{stem} output not conforming: {bad}, "
-                           f"nonpositive volumes {nneg}, qmin {qmin}")
     if aniso != stem.endswith("ani") or (aniso and types != [SOL_TENSOR]):
         raise RuntimeError(f"{stem}: output .sol types {types}")
     print(f"[{tag}] {stem} -niter 1: ntets {rec['ntets']} qmin "
@@ -308,6 +320,10 @@ def phase_path(workdir: str, stem: str, device: str = "cuda"):
           f"{types}")
     print(f"[{tag}] launches {launches}; largest capP {shapes['capP']} "
           f"capT {shapes['capT']} capE {shapes['capE']}")
+    _print_cycles(tag, stem, info, device)
+    if tag == "main" and JAX_CLI_NARROW[stem] and not info["narrow"]:
+        raise RuntimeError(f"{stem}: no cycle ran narrow; the JAX CLI ran "
+                           f"{JAX_CLI_NARROW[stem]} narrow on this input")
     must, must_not = PATH_KERNELS[stem]
     missing = sorted(k for k in must if launches[k] == 0)
     if missing or launches[must_not]:
@@ -320,6 +336,101 @@ def phase_path(workdir: str, stem: str, device: str = "cuda"):
                            f"{NTETS_BOUND:.0%} of the JAX CLI's {ref} on "
                            "this input")
     return launches, shapes
+
+
+@contextlib.contextmanager
+def _cycle_watch(count_reads: bool):
+    """Watch one CLI run's adaptation: yields a dict filled when the run
+    is over with ``stats`` (the AdaptStats of ``adapt_mesh``), the auto
+    blocks' narrow widths ``A`` and their counts rows, the narrow cycles
+    discarded (``ops/active.COUNTS``), the sort calls (K7, K8) at a
+    sub-mesh width and how many of them launched their kernel and, with
+    ``count_reads``, ``reads``: the synchronizing calls inside
+    ``adapt_mesh`` that PyTorch's sync debug mode reports (one warning
+    each)."""
+    import warnings
+    import torch
+    from parmmg_tpu_torch import driver
+    from parmmg_tpu_torch.ops import active, kernels
+    info = {"stats": [], "blocks": [], "reads": 0, "narrow_sorts": 0,
+            "narrow_sort_launches": 0}
+    widths = set()
+    real_adapt, real_auto = driver.adapt_mesh, active.adapt_cycles_auto
+    real_sorts = {n: getattr(kernels, n)
+                  for n in ("radix_sort", "segment_flags")}
+
+    def adapt(*a, **k):
+        if not count_reads:
+            out = real_adapt(*a, **k)
+        else:
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = real_adapt(*a, **k)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            info["reads"] += sum("synchroniz" in str(w.message)
+                                 for w in seen)
+        info["stats"].append(out[2])
+        return out
+
+    def auto(mesh, *a, **k):
+        A = active.narrow_rows(mesh.capT)
+        if A < mesh.capT:
+            widths.update((4 * A, 6 * A))
+        out = real_auto(mesh, *a, **k)
+        info["blocks"].append((A, out[4].tolist()))
+        return out
+
+    def sort_watch(name):
+        def call(words, *a, **k):
+            before = kernels.LAUNCHES[name]
+            out = real_sorts[name](words, *a, **k)
+            if words[0].shape[0] in widths:
+                info["narrow_sorts"] += 1
+                info["narrow_sort_launches"] += \
+                    kernels.LAUNCHES[name] - before
+            return out
+        return call
+    c0 = dict(active.COUNTS)
+    driver.adapt_mesh, active.adapt_cycles_auto = adapt, auto
+    for n in real_sorts:
+        setattr(kernels, n, sort_watch(n))
+    try:
+        yield info
+    finally:
+        driver.adapt_mesh, active.adapt_cycles_auto = real_adapt, real_auto
+        for n, fn in real_sorts.items():
+            setattr(kernels, n, fn)
+        info.update({k: active.COUNTS[k] - c0[k] for k in c0})
+
+
+def _print_cycles(tag: str, stem: str, info: dict, device: str = "cuda"):
+    """The narrow-cycle lines of a watched run (:func:`_cycle_watch`); on
+    the card every sort at a sub-mesh width must have launched."""
+    import numpy as np
+    cycles = sum(st.cycles for st in info["stats"])
+    rows = [(A, r) for A, rr in info["blocks"] for r in rr]
+    info["narrow"] = sum(r[7] for _, r in rows)
+    ratio = np.array([r[8] / A for A, r in rows]) if rows else np.zeros(1)
+    As = sorted({A for A, _ in info["blocks"]})
+    print(f"[{tag}] {stem} cycles {cycles}: {len(rows)} in "
+          f"{len(info['blocks'])} auto blocks, narrow {info['narrow']} "
+          f"(the JAX CLI at block 9: {JAX_CLI_NARROW[stem]} of 50), "
+          f"narrow attempts discarded {info['discarded']}")
+    print(f"[{tag}] active tets / A over the auto cycles: mean "
+          f"{float(ratio.mean()):.4f} max {float(ratio.max()):.4f} "
+          f"(A {As}; a narrow cycle needs <= 0.75)")
+    if info["reads"]:
+        print(f"[{tag}] host reads {info['reads']} in adapt_mesh (polish "
+              f"included) = {info['reads'] / max(cycles, 1):.1f} a cycle")
+    print(f"[{tag}] sorts at sub-mesh widths: {info['narrow_sorts']} K7/K8 "
+          f"calls, {info['narrow_sort_launches']} launched their kernel")
+    if device == "cuda" and \
+            info["narrow_sorts"] != info["narrow_sort_launches"]:
+        raise RuntimeError(f"[{tag}] a sort at a sub-mesh width did not "
+                           "launch its kernel")
 
 
 def _run_main(workdir: str, stem: str, out: str, device: str = "cuda"):
@@ -352,6 +463,23 @@ def _run_main(workdir: str, stem: str, out: str, device: str = "cuda"):
     return launches, rec, wall
 
 
+def _check_conforming(what: str, mesh, met=None):
+    """(adjacency check, qmin, qmean) of a re-read output; raises unless
+    it is conforming with no live tet of volume <= 0 and qmin > 0."""
+    from parmmg_tpu_torch.core.mesh import tet_volumes
+    from parmmg_tpu_torch.ops.adjacency import check_adjacency
+    from parmmg_tpu_torch.ops.quality import tet_quality
+    bad = check_adjacency(mesh)
+    nneg = int(((tet_volumes(mesh) <= 0) & mesh.tmask).sum())
+    q = tet_quality(mesh, met)
+    qmin = float(q[mesh.tmask].min())
+    qmean = float(q[mesh.tmask].mean())
+    if bad["asymmetric"] or bad["face_mismatch"] or nneg or qmin <= 0:
+        raise RuntimeError(f"{what} output not conforming: {bad}, "
+                           f"nonpositive volumes {nneg}, qmin {qmin}")
+    return bad, qmin, qmean
+
+
 def _same_bytes(a: str, b: str):
     """Raise with the first differing line unless files a and b are
     byte-identical."""
@@ -373,11 +501,11 @@ def phase_repeat(workdir: str, device: str = "cuda"):
     byte-identical to phase_main's."""
     from parmmg_tpu_torch.ops import kernels
     ref = os.path.join(workdir, "cube16.o")
-    launches, rec, wall = _run_main(
+    launches, rec2, wall2 = _run_main(
         workdir, "cube16", os.path.join(workdir, "cube16.r2.mesh"), device)
     for ext in (".mesh", ".sol"):
         _same_bytes(ref + ext, os.path.join(workdir, "cube16.r2" + ext))
-    print(f"[repeat] second run: {rec['ntets']} tets, wall {wall:.3f} s, "
+    print(f"[repeat] second run: {rec2['ntets']} tets, wall {wall2:.3f} s, "
           f"byte-identical .mesh and .sol")
     names = ("radix_sort", "merge_prefix", "segment_flags")
     saved = {n: getattr(kernels, n) for n in names}
@@ -415,6 +543,30 @@ def phase_repeat(workdir: str, device: str = "cuda"):
         primitives.fixed_order_sum = fixed
     print(f"[repeat] float sums by scatter_reduce atomics instead (timing "
           f"only): {rec['ntets']} tets, wall {wall:.3f} s")
+    # one cycle a dispatch, full width (the configuration before the
+    # worklist cycles): checked against the JAX CLI at block 1
+    from parmmg_tpu_torch.ops import adapt
+    default = adapt.default_cycle_block
+    adapt.default_cycle_block = lambda _device: 1
+    out1 = os.path.join(workdir, "cube16.b1.mesh")
+    try:
+        with _cycle_watch(count_reads=False) as info:
+            _, rec1, wall1 = _run_main(workdir, "cube16", out1, device)
+    finally:
+        adapt.default_cycle_block = default
+    mesh, _, _ = _read_output(out1, device)
+    _check_conforming("cube16 at cycle_block=1", mesh)
+    ref1 = JAX_CLI_NTETS_BLOCK1["cube16"]
+    cycles1 = sum(st.cycles for st in info["stats"])
+    print(f"[repeat] cycle_block=1: {rec1['ntets']} tets (the JAX CLI at "
+          f"block 1: {ref1}), qmin {rec1['qmin']:.6f} qmean "
+          f"{rec1['qmean']:.6f}, {cycles1} cycles, {len(info['blocks'])} "
+          f"auto blocks, wall {wall1:.3f} s; cycle_block=9 (second run "
+          f"above): {rec2['ntets']} tets, wall {wall2:.3f} s")
+    if info["blocks"] or abs(rec1["ntets"] - ref1) > NTETS_BOUND * ref1:
+        raise RuntimeError(f"cycle_block=1: {rec1['ntets']} tets, not "
+                           f"within {NTETS_BOUND:.0%} of {ref1}, or "
+                           f"{len(info['blocks'])} auto blocks")
 
 
 def phase_aniso_repeat(workdir: str, device: str = "cuda"):
@@ -470,7 +622,8 @@ def phase_field(workdir: str, device: str = "cuda"):
     t0 = time.perf_counter()
     buf = io.StringIO()
     try:
-        with contextlib.redirect_stdout(buf):
+        with contextlib.redirect_stdout(buf), \
+                _cycle_watch(count_reads=device == "cuda") as info:
             rc = cli.main(["-in", src, "-out", out, "-niter", "1", "-v", "1",
                            "-bench-json", "-device", device])
         sync()
@@ -513,6 +666,7 @@ def phase_field(workdir: str, device: str = "cuda"):
           f"{len(v_o)} points, adjacency {bad}, qmin {qmin:.6f} qmean "
           f"{qmean:.6f}")
     print(f"[field] launches {launches}")
+    _print_cycles("field", stem, info, device)
     must, must_not = PATH_KERNELS[stem]
     missing = sorted(k for k in must if launches[k] == 0)
     if device == "cuda" and (missing or launches[must_not]):

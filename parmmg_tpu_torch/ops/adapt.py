@@ -5,10 +5,15 @@ third cycle and near convergence) and smoothing moves, with adjacency
 rebuilt at the cycle's end; the host loop reads the per-cycle counts to
 decide convergence and to grow capacity.  This is the configuration the
 JAX package runs on the TPU (sort engine on, swap23 paired off the face
-sort, which gives the same bits as its off-TPU pairing off ``adja``),
-except that cycles run one per dispatch, not in fused blocks.  The
-collapse donor band is on; there is no active-set / incremental topology
-/ smoothing-cadence machinery.
+sort, which gives the same bits as its off-TPU pairing off ``adja``), and
+on the card so is its dispatch: ``adapt_mesh`` runs blocks of
+``default_cycle_block`` = 9 self-width-selecting cycles
+(``ops/active.adapt_cycles_auto``: a worklist of dirty vertices, narrow
+cycles on an [A]-row sub-mesh of the active tets, and collapses, swaps
+and smoothing limited to a rotating morton window).  On the CPU it runs
+one full-width cycle per dispatch, as the JAX package does off the TPU.
+The collapse donor band is on; the incremental topology and the
+smoothing cadence are not ported.
 """
 from __future__ import annotations
 
@@ -52,8 +57,20 @@ class AdaptStats:
 def adapt_cycle_impl(mesh: Mesh, met: torch.Tensor, wave: int,
                      do_swap: bool = True, do_smooth: bool = True,
                      do_insert: bool = True, hausd: float | None = None,
-                     budget_div: int = 8, wide: bool = False):
-    """One cycle: split -> collapse -> [swap] -> [smooth] -> adjacency.
+                     budget_div: int = 8, wide: bool = False,
+                     et0=None, vact: torch.Tensor | None = None,
+                     submesh: bool = False,
+                     wwin: torch.Tensor | None = None,
+                     final_rebuild: bool = True):
+    """One cycle: split -> collapse -> [swap] -> [smooth] -> [adjacency].
+
+    ``et0``: a caller's edge table of THIS mesh.  ``vact`` [capP] bool:
+    the narrow cycle's active vertices (candidates of every wave need
+    their endpoints active); ``submesh``: ``mesh`` is an active sub-mesh,
+    so no adjacency rebuild tags its cut faces MG_BDY; ``wwin`` [capP]
+    bool: the morton window that limits collapses, swaps and smoothing
+    (``ops/active.py``).  ``final_rebuild=False`` skips the closing
+    ``build_adjacency`` (a fused block rebuilds once at its end).
 
     Returns (mesh, met, counts) with ``counts`` the int32 row
     [nsplit, ncollapse, nswap, nmoved, overflow, live_tets, deferred, 0]
@@ -63,20 +80,21 @@ def adapt_cycle_impl(mesh: Mesh, met: torch.Tensor, wave: int,
     defer = torch.zeros((), dtype=torch.bool, device=dev)
     defer_sw = torch.zeros((), dtype=torch.bool, device=dev)
     if do_insert:
-        et0 = unique_edges(mesh, shell_slots=0)
+        if et0 is None:
+            et0 = unique_edges(mesh, shell_slots=0)
         lens0 = edge_lengths(mesh, et0, met)
         vtan0 = None
         if hausd is not None:
             vtan0 = ridge_vertex_tangents(mesh, et=et0)
         res = split_wave(mesh, met, hausd=hausd, budget_div=budget_div,
                          et=et0, lens=lens0, vtan=vtan0,
-                         prescreen=not wide)
+                         prescreen=not wide, vact=vact)
         mesh, met = res.mesh, res.met
         nsplit, overflow = res.nsplit, res.overflow
         defer = defer | res.deferred
         col = collapse_wave(mesh, met, hausd=hausd, budget_div=budget_div,
                             et=et0, lens=lens0, stale_tets=res.modified,
-                            vtan=vtan0)
+                            vtan=vtan0, vact=vact, wwin=wwin)
         defer = defer | col.deferred
         mesh = boundary_edge_tags(col.mesh) if bool(col.surface_changed) \
             else col.mesh
@@ -87,20 +105,23 @@ def adapt_cycle_impl(mesh: Mesh, met: torch.Tensor, wave: int,
 
     nswap = zero
     if do_swap:
-        sew = swap_edges_wave(mesh, met, hausd=hausd, budget_div=budget_div)
-        s23 = swap23_wave(sew.mesh, met, budget_div=budget_div,
-                          facesort=True)
+        sew = swap_edges_wave(mesh, met, hausd=hausd, budget_div=budget_div,
+                              vact=vact, wwin=wwin)
+        s23 = swap23_wave(sew.mesh, met, budget_div=budget_div, wwin=wwin,
+                          facesort=True, set_bdy_tags=not submesh)
         mesh = s23.mesh
         nswap = sew.nswap + s23.nswap
         defer_sw = defer_sw | sew.deferred | s23.deferred
 
     nmoved = zero
     if do_smooth:
-        sm = smooth_wave(mesh, met, wave=wave)
+        sm = smooth_wave(mesh, met, wave=wave,
+                         vact=vact if vact is not None else wwin)
         mesh = sm.mesh
         nmoved = sm.nmoved
 
-    mesh = build_adjacency(mesh)
+    if final_rebuild:
+        mesh = build_adjacency(mesh, set_bdy_tags=not submesh)
     row = [nsplit, ncol, nswap, nmoved, overflow.to(torch.int32),
            mesh.tmask.sum(dtype=torch.int32),
            defer.to(torch.int32) + 2 * defer_sw.to(torch.int32), zero]
@@ -156,22 +177,40 @@ def grow_mesh_met(mesh: Mesh, met: torch.Tensor, newP: int, newT: int):
     return with_capacity(mesh, newP, newT), meth
 
 
+def default_cycle_block(device) -> int:
+    """Cycles a dispatch of ``adapt_mesh`` runs: 9 on the card (the JAX
+    package's 9 on its accelerator), 1 on the CPU."""
+    return 9 if torch.device(device).type == "cuda" else 1
+
+
 def adapt_mesh(mesh: Mesh, met: torch.Tensor, max_cycles: int = 50,
                verbose: int = 0, headroom: float = 0.85,
                swap_every: int = 3, noinsert: bool = False,
                noswap: bool = False, nomove: bool = False,
                angedg: float | None = None,
-               hausd: float | None = None) -> tuple:
+               hausd: float | None = None,
+               cycle_block: int | None = None) -> tuple:
     """Host driver: cycles until no topological change (with a wide-budget
     verification cycle), capacity managed by regrowth; then the sliver
     polish.  ``met`` is an iso size map [capP] or a packed tensor map
-    [capP, 6].  Returns (mesh, met, AdaptStats)."""
+    [capP, 6].
+
+    Cycles run in blocks of ``cycle_block`` (default
+    :func:`default_cycle_block` of the mesh's device) through
+    ``ops/active.adapt_cycles_auto``, which thread a worklist across
+    blocks; a single full-width cycle runs instead (and drops the
+    worklist) at block 1, for the wide verification cycle and while the
+    mesh is near convergence.  Returns (mesh, met, AdaptStats)."""
     stats = AdaptStats()
     mesh = analyze_mesh(mesh, ANGEDG if angedg is None else angedg).mesh
+    if cycle_block is None:
+        cycle_block = default_cycle_block(mesh.device)
     quiet = 0
     wide_check = False
     converged = False
     cycle = 0
+    dirty = None                # the worklist; None: none yet
+    okflag = False
     while cycle < max_cycles and not converged:
         n_p, n_t = mesh.np_counts()
         if n_p > headroom * mesh.capP or n_t > headroom * mesh.capT:
@@ -179,43 +218,73 @@ def adapt_mesh(mesh: Mesh, met: torch.Tensor, max_cycles: int = 50,
                                       max(mesh.capP, int(2 * n_p)),
                                       max(mesh.capT, int(2 * n_t)))
             stats.regrows += 1
+            dirty = None        # the regrow renumbered the vertices
+            okflag = False
         was_wide = wide_check
-        do_swap = ((cycle % swap_every == swap_every - 1) or quiet > 0) \
-            and not noswap
-        mesh, met, counts = adapt_cycle_impl(
-            mesh, met, cycle, do_swap=do_swap, do_smooth=not nomove,
-            do_insert=not noinsert, hausd=hausd,
-            budget_div=2 if wide_check else 8, wide=wide_check)
-        ns, nc, nw, nm, ovf = (int(v) for v in counts[:5].tolist())
-        stats.nsplit += ns
-        stats.ncollapse += nc
-        stats.nswap += nw
-        stats.nmoved += nm
-        stats.cycles += 1
-        if verbose >= 3:
-            print(f"  cycle {cycle:3d}: split {ns:6d} collapse {nc:6d} "
-                  f"swap {nw:6d} move {nm:6d}")
-        cycle += 1
-        if ovf:
-            quiet = 0
-            wide_check = False
+        if wide_check or cycle_block == 1 or quiet > 0:
+            do_swap = ((cycle % swap_every == swap_every - 1)
+                       or quiet > 0) and not noswap
+            mesh, met, counts = adapt_cycle_impl(
+                mesh, met, cycle, do_swap=do_swap, do_smooth=not nomove,
+                do_insert=not noinsert, hausd=hausd,
+                budget_div=2 if wide_check else 8, wide=wide_check)
+            rows = [(do_swap, counts[:5].tolist())]
+            dirty = None
+            okflag = False
+        else:
+            from .active import adapt_cycles_auto
+            nblk = min(cycle_block, max_cycles - cycle)
+            flags = tuple(((cycle + c) % swap_every == swap_every - 1)
+                          and not noswap for c in range(nblk))
+            if dirty is None:
+                dirty = torch.zeros(mesh.capP, dtype=torch.bool,
+                                    device=mesh.device)
+                okflag = False
+            mesh, met, dirty, okflag, counts_all = adapt_cycles_auto(
+                mesh, met, dirty, okflag, cycle, swap_flags=flags,
+                hausd=hausd, do_smooth=not nomove, do_insert=not noinsert)
+            ca = counts_all.tolist()
+            rows = [(flags[c], ca[c][:5]) for c in range(nblk)]
+
+        ovf_any = False
+        for do_swap, (ns, nc, nw, nm, ovf) in rows:
+            stats.nsplit += ns
+            stats.ncollapse += nc
+            stats.nswap += nw
+            stats.nmoved += nm
+            stats.cycles += 1
+            if verbose >= 3:
+                print(f"  cycle {cycle:3d}: split {ns:6d} collapse {nc:6d} "
+                      f"swap {nw:6d} move {nm:6d}")
+            cycle += 1
+            if ovf:
+                # a capacity-cut cycle cannot witness convergence
+                ovf_any = True
+                quiet = 0
+                wide_check = False
+                converged = False
+                continue
+            if converged:
+                continue        # rows after convergence: stats only
+            if ns == 0 and nc == 0 and (noswap or (nw == 0 and do_swap)):
+                quiet += 1
+                if quiet >= 2 or nm == 0 or nomove:
+                    if was_wide or (noinsert and noswap):
+                        converged = True
+                        continue
+                    wide_check = True
+                    quiet = 1
+            elif ns == 0 and nc == 0 and not do_swap and not noswap:
+                quiet = max(quiet, 1)
+            else:
+                quiet = 0
+                wide_check = False
+        if ovf_any:
             mesh, met = grow_mesh_met(mesh, met, 2 * mesh.capP,
                                       2 * mesh.capT)
             stats.regrows += 1
-            continue
-        if ns == 0 and nc == 0 and (noswap or (nw == 0 and do_swap)):
-            quiet += 1
-            if quiet >= 2 or nm == 0 or nomove:
-                if was_wide or (noinsert and noswap):
-                    converged = True
-                    continue
-                wide_check = True
-                quiet = 1
-        elif ns == 0 and nc == 0 and not do_swap and not noswap:
-            quiet = max(quiet, 1)
-        else:
-            quiet = 0
-            wide_check = False
+            okflag = False
+            dirty = None
 
     if noinsert and noswap and nomove:
         return mesh, met, stats

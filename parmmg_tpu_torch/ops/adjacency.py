@@ -77,14 +77,18 @@ def bdy_tags_from_sort(mesh: Mesh, t, f, matched, valid_s) -> Mesh:
     return replace(mesh, ftag=torch.where(hit, mesh.ftag | MG_BDY, mesh.ftag))
 
 
-def build_adjacency(mesh: Mesh) -> Mesh:
+def build_adjacency(mesh: Mesh, set_bdy_tags: bool = True) -> Mesh:
     """``adja[t,f] = 4*t' + f'`` for every matched face, -1 otherwise;
-    unmatched faces of live tets get MG_BDY."""
+    unmatched faces of live tets get MG_BDY unless ``set_bdy_tags`` is
+    False: on an active sub-mesh (``ops/active.py``) a face whose twin
+    lies outside is unmatched without being boundary."""
     t, f, partner, matched, _ = face_sort(mesh)
-    return adjacency_from_records(mesh, t, f, partner, matched)
+    return adjacency_from_records(mesh, t, f, partner, matched,
+                                  set_bdy_tags=set_bdy_tags)
 
 
-def adjacency_from_records(mesh: Mesh, t, f, partner, matched) -> Mesh:
+def adjacency_from_records(mesh: Mesh, t, f, partner, matched,
+                           set_bdy_tags: bool = True) -> Mesh:
     """``build_adjacency``'s scatter epilogue from face-sort records."""
     p = partner.long()
     adj_val = torch.where(matched, 4 * t[p] + f[p], torch.full_like(t, -1))
@@ -92,6 +96,8 @@ def adjacency_from_records(mesh: Mesh, t, f, partner, matched) -> Mesh:
                       device=mesh.device)
     adja[t.long(), f.long()] = adj_val          # (t, f) is a permutation
     adja = torch.where(mesh.tmask[:, None], adja, torch.full_like(adja, -1))
+    if not set_bdy_tags:
+        return replace(mesh, adja=adja)
     is_bdy = (adja < 0) & mesh.tmask[:, None]
     ftag = torch.where(is_bdy, mesh.ftag | MG_BDY, mesh.ftag)
     return replace(mesh, adja=adja, ftag=ftag)

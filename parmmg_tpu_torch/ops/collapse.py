@@ -52,11 +52,14 @@ def collapse_wave(mesh: Mesh, met: torch.Tensor, lmin: float = LSHRT,
                   lmax: float = LLONG, sliver_q: float | None = None,
                   hausd: float | None = None, budget_div: int = 8,
                   et=None, lens=None, stale_tets=None,
-                  vtan=None) -> CollapseResult:
+                  vtan=None, vact=None, wwin=None) -> CollapseResult:
     """One independent-set collapse wave; ``sliver_q`` switches to the
     bad-element mode (edges of tets below ``sliver_q``, strict ball
     improvement).  ``et``/``lens``/``stale_tets``: shared-table mode, the
-    split's modification footprint defers stale candidates."""
+    split's modification footprint defers stale candidates.  ``vact``
+    (active vertices of a narrow cycle) and ``wwin`` (the morton window,
+    ``ops/active.py``) [capP] bool keep the edges with both endpoints
+    in the set."""
     capT, capP = mesh.capT, mesh.capP
     dev = mesh.device
     if et is None:
@@ -85,6 +88,10 @@ def collapse_wave(mesh: Mesh, met: torch.Tensor, lmin: float = LSHRT,
             torch.zeros(Efull, dtype=torch.bool, device=dev),
             et.edge_id.reshape(-1), bad_tet.repeat_interleave(6), "amax")
         short = et.emask & bad_edge & ~frozen_edge & (lens < lmax)
+    if vact is not None:
+        short = short & vact[va_f] & vact[vb_f]
+    if wwin is not None:
+        short = short & wwin[va_f] & wwin[vb_f]
     ta_f, tb_f = mesh.vtag[va_f], mesh.vtag[vb_f]
     rem_b_f = _removable(tb_f, ta_f, et.etag)
     rem_a_f = _removable(ta_f, tb_f, et.etag)

@@ -11,7 +11,7 @@ import torch
 from ..core.constants import (EPSD, IDIR, MG_BDY, MG_CRN, MG_GEO, MG_NOM,
                               MG_PARBDY, MG_REF, MG_REQ, QUAL_FLOOR)
 from ..core.mesh import Mesh, replace
-from .edges import PRI_MIN, _mul32, to_int32_bits
+from .edges import PRI_MIN, _mul32, morton_codes, to_int32_bits
 from .primitives import reduce_drop
 from .quality import corner_metric, quality_from_points
 
@@ -36,11 +36,31 @@ def _wave_hash(capP: int, wave: int, device) -> torch.Tensor:
     return to_int32_bits(h)
 
 
+def morton_window_mask(vert: torch.Tensor, vmask: torch.Tensor, wave,
+                       nwin: int) -> torch.Tensor:
+    """[capP] bool: the vertices of the ``wave % nwin``-th contiguous,
+    equal-population segment of the morton curve (the window rotation of
+    ``ops/active.py``).  15-bit codes, a 1024-bin histogram of the live
+    vertices and its CDF rank: integer arithmetic only."""
+    code = morton_codes(vert, vmask, bits=5)
+    b = (code >> 5).long()
+    hist = torch.zeros(1024, dtype=torch.int32, device=vert.device)
+    hist = hist.index_add(0, b, vmask.to(torch.int32))
+    cdf = torch.cumsum(hist, 0, dtype=torch.int32)
+    n_live = torch.clamp(cdf[-1], min=1)
+    rank0 = (cdf - hist)[b]
+    win = torch.div(rank0 * nwin, n_live, rounding_mode="floor")
+    return win == int(wave) % nwin
+
+
 def smooth_wave(mesh: Mesh, met: torch.Tensor, wave: int = 0,
                 relax: float = 1.0,
-                opt_q: float | None = None) -> SmoothResult:
+                opt_q: float | None = None,
+                vact: torch.Tensor | None = None) -> SmoothResult:
     """One smoothing wave; ``opt_q`` moves interior vertices of balls
-    below ``opt_q`` along the height of their worst tet instead."""
+    below ``opt_q`` along the height of their worst tet instead.
+    ``vact`` [capP] bool restricts the moves to active vertices (the
+    narrow cycles and windows of ``ops/active.py``)."""
     capT, capP = mesh.capT, mesh.capP
     dev = mesh.device
     inf = float("inf")
@@ -49,6 +69,9 @@ def smooth_wave(mesh: Mesh, met: torch.Tensor, wave: int = 0,
     reg_bdy = mesh.vmask & ((mesh.vtag & MG_BDY) != 0) & \
         ((mesh.vtag & (MG_REQ | MG_CRN | MG_PARBDY | MG_GEO | MG_NOM |
                        MG_REF)) == 0)
+    if vact is not None:
+        movable_int = movable_int & vact
+        reg_bdy = reg_bdy & vact
     tv = mesh.tet
     tvl = tv.long()
     vpos = mesh.vert[tvl]

@@ -59,10 +59,13 @@ def split_wave(mesh: Mesh, met: torch.Tensor, lmax: float = LLONG,
                fem_only: bool = False, et: EdgeTable | None = None,
                lens: torch.Tensor | None = None,
                vtan: torch.Tensor | None = None,
-               prescreen: bool = True) -> SplitResult:
+               prescreen: bool = True,
+               vact: torch.Tensor | None = None) -> SplitResult:
     """One independent-set split wave (see the JAX package's docstring:
     ``fem_only`` targets interior edges with both endpoints on the
-    boundary; ``et``/``lens`` share a caller's table of THIS mesh)."""
+    boundary; ``et``/``lens`` share a caller's table of THIS mesh).
+    ``vact`` [capP] bool keeps the edges with both endpoints active (the
+    narrow cycles of ``ops/active.py``); splits are not window-limited."""
     capT, capP = mesh.capT, mesh.capP
     dev = mesh.device
     if et is None:
@@ -79,6 +82,8 @@ def split_wave(mesh: Mesh, met: torch.Tensor, lmax: float = LLONG,
             ~frozen_edge
     else:
         cand = et.emask & (lens > lmax) & ~frozen_edge
+    if vact is not None:
+        cand = cand & vact[va] & vact[vb]
     lift_corr = None
     if hausd is not None:
         lift_corr = _lift_corrections(mesh, et, va, vb, vtan)

@@ -58,9 +58,14 @@ def _first_dup(x0, x1, win, capP):
 
 def swap_edges_wave(mesh: Mesh, met: torch.Tensor,
                     hausd: float | None = None,
-                    budget_div: int = 8) -> SwapResult:
+                    budget_div: int = 8,
+                    vact: torch.Tensor | None = None,
+                    wwin: torch.Tensor | None = None) -> SwapResult:
     """Combined edge-swap wave: 3-2 interior + 2-2 boundary, one pass
-    over the K worst shells (see the JAX package's docstring)."""
+    over the K worst shells (see the JAX package's docstring).  ``vact``
+    (active vertices of a narrow cycle) and ``wwin`` (the morton window,
+    ``ops/active.py``) [capP] bool keep the edges with both endpoints in
+    the set."""
     capT, capP = mesh.capT, mesh.capP
     dev = mesh.device
     et = unique_edges(mesh)
@@ -85,6 +90,12 @@ def swap_edges_wave(mesh: Mesh, met: torch.Tensor,
                            MG_REF | MG_OPNBDY)) != 0
     pre22 = et.emask & (et.nshell == 2) & ((et.etag & MG_BDY) != 0) & \
         ~frozen22 & pair_ok_f
+    for keep in (vact, wwin):
+        if keep is not None:
+            ok = keep[et.ev[:, 0].clamp(0, capP - 1).long()] & \
+                keep[et.ev[:, 1].clamp(0, capP - 1).long()]
+            pre32 = pre32 & ok
+            pre22 = pre22 & ok
     pre = pre32 | pre22
     K = min(Efull, wave_budget(capT, budget_div))
     neg, npre = topk_prep3(pre, qs0, qs1, qs2)
@@ -349,17 +360,20 @@ def _pair_fields_adja(mesh: Mesh, q_tet, capT: int):
     return fstar, nb_s[arT, fstar], nf_s[arT, fstar], own[arT, fstar]
 
 
-def _pair_fields_facesort(mesh: Mesh, q_tet, capT: int):
+def _pair_fields_facesort(mesh: Mesh, q_tet, capT: int,
+                          set_bdy_tags: bool = True):
     """swap23 pairing straight off the face-sort records, with no [capT,4]
     ``adja``: bit-identical to :func:`_pair_fields_adja` on every row the
     wave reads (matched twins are the ``adja >= 0`` entries; the
     two-channel max over (-q_twin, -f) reproduces argmin's first-index
     tie-break; rows that are no candidate hold 0, and every read of them
-    is masked by ``cand_full``).  The MG_BDY tagging of the
-    ``build_adjacency`` it replaces is applied from the same sort.
+    is masked by ``cand_full``).  With ``set_bdy_tags`` the MG_BDY
+    tagging of the ``build_adjacency`` it replaces is applied from the
+    same sort (not on a sub-mesh, whose cut faces are not boundary).
     Returns (mesh, fstar, t2_full, f2_full, cand_full)."""
     t, f, partner, matched, valid_s = face_sort(mesh)
-    mesh = bdy_tags_from_sort(mesh, t, f, matched, valid_s)
+    if set_bdy_tags:
+        mesh = bdy_tags_from_sort(mesh, t, f, matched, valid_s)
     p = partner.long()
     tp, fp = t[p], f[p]
     tl, fl, tpl, fpl = t.long(), f.long(), tp.long(), fp.long()
@@ -377,23 +391,29 @@ def _pair_fields_facesort(mesh: Mesh, q_tet, capT: int):
 
 
 def swap23_wave(mesh: Mesh, met: torch.Tensor, budget_div: int = 8,
-                facesort: bool = False) -> SwapResult:
+                wwin: torch.Tensor | None = None, facesort: bool = False,
+                set_bdy_tags: bool = True) -> SwapResult:
     """2-to-3 swap: interior faces whose two tets improve as an edge fan
     (T1, T2 sharing (p,q,r) with apexes a, b become (p,q,a,b), (q,r,a,b),
     (r,p,a,b)).  Reads ``adja``, or with ``facesort`` pairs the faces off
     the face sort of ``mesh`` as it stands (replaying the MG_BDY tagging
-    of the ``build_adjacency`` call that path skips) and leaves ``adja``
-    stale, as the JAX package does."""
+    of the ``build_adjacency`` call that path skips, unless
+    ``set_bdy_tags`` is False) and leaves ``adja`` stale, as the JAX
+    package does.  ``wwin`` [capP] bool keeps the pairs whose first tet
+    lies wholly in the morton window (``ops/active.py``)."""
     capT, capP = mesh.capT, mesh.capP
     dev = mesh.device
     inf = float("inf")
     q_tet = _quality(mesh.vert, mesh.tet.long(), met)
     if facesort:
         mesh, fstar, t2_full, f2_full, cand_full = _pair_fields_facesort(
-            mesh, q_tet, capT)
+            mesh, q_tet, capT, set_bdy_tags)
     else:
         fstar, t2_full, f2_full, cand_full = _pair_fields_adja(mesh, q_tet,
                                                                capT)
+    if wwin is not None:
+        cand_full = cand_full & \
+            wwin[mesh.tet.clamp(0, capP - 1).long()].all(dim=1)
     q_pair = torch.minimum(q_tet, torch.where(cand_full, q_tet[t2_full],
                                               torch.full_like(q_tet, inf)))
     F = min(capT, wave_budget(capT, budget_div))

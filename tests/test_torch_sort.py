@@ -403,10 +403,11 @@ def test_cli_facesort_on_off_byte_identical(tmp_path, monkeypatch):
     # off a rebuilt adja, as the JAX package runs it off the TPU
     calls = []
 
-    def adja_pairing(mesh, met, budget_div=8, facesort=False):
+    def adja_pairing(mesh, met, budget_div=8, wwin=None, facesort=False,
+                     set_bdy_tags=True):
         calls.append(facesort)
-        return TW.swap23_wave(TA.build_adjacency(mesh), met,
-                              budget_div=budget_div)
+        return TW.swap23_wave(TA.build_adjacency(mesh, set_bdy_tags), met,
+                              budget_div=budget_div, wwin=wwin)
     outs = []
     for on in (True, False):
         if not on:

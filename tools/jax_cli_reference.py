@@ -3,7 +3,7 @@
 with the port, and print its one-line JSON report.
 
     JAX_PLATFORMS=cpu python tools/jax_cli_reference.py [n] [workdir] \
-        [--aniso | --sphere]
+        [--aniso | --sphere] [--block N]
 
 The input is cube_mesh(n) (default 16), written as Medit ``.mesh``/``.sol``;
 the run is ``-niter 1``.  The metric is the planar "shock" iso metric
@@ -20,6 +20,13 @@ from the file, carries the other two fields through the remesh by P1
 interpolation, and writes ``sphere<n>.jax.vtu``; all other flags keep
 their defaults (hausd bound, ridge detection, curved-boundary moves).
 
+``--block N`` sets ``PARMMG_CYCLE_BLOCK=N`` for the run, the JAX package's
+own knob for the cycles per dispatch: 9 is its accelerator configuration
+(fused blocks of self-width-selecting cycles, ``ops/active.py``), 1 the
+default on the CPU.  After the CLI's line the tool prints a second JSON
+line: the run's cycles, its auto blocks and how many cycles ran narrow
+(counts column 7 of ``adapt_cycles_auto``'s rows), and the block.
+
 The port's own result on the same input is what ``chip_smoke.py`` prints
 on its ``[main]``, ``[aniso]`` and ``[field]`` lines, so the two can be set
 side by side.
@@ -30,6 +37,7 @@ the keywords before the run, as the parity tests do.
 """
 from __future__ import annotations
 
+import json
 import os
 import sys
 import tempfile
@@ -52,6 +60,38 @@ def _tolerant_ledger_listener():
         tolerant(c) for c in monitoring._event_duration_secs_listeners]
 
 
+def _count_cycles(tally: dict) -> None:
+    """Wrap adapt_mesh and adapt_cycles_auto to count the run's cycles,
+    its blocks and the narrow cycles into ``tally``."""
+    from parmmg_tpu import driver
+    from parmmg_tpu.ops import active
+    tally.update(cycles=0, narrow=0, blocks=0)
+    cap = {}
+    adapt_mesh, auto = driver.adapt_mesh, active.adapt_cycles_auto
+
+    def counted_adapt_mesh(*a, **kw):
+        out = adapt_mesh(*a, **kw)
+        tally["cycles"] += out[2].cycles
+        return out
+
+    def counted_auto(mesh, *a, **kw):
+        # capacities only grow, so the compiled blocks of an outgrown
+        # capacity never run again: dropping them keeps the process under
+        # the kernel's count of memory mappings, which the tensor path's
+        # 9-cycle blocks otherwise exhaust (LLVM "Cannot allocate memory")
+        if cap.setdefault("T", mesh.capT) != mesh.capT:
+            import jax
+            jax.clear_caches()
+            cap["T"] = mesh.capT
+        out = auto(mesh, *a, **kw)
+        rows = np.asarray(out[4])
+        tally["blocks"] += 1
+        tally["narrow"] += int(rows[:, 7].sum())
+        return out
+    driver.adapt_mesh = counted_adapt_mesh
+    active.adapt_cycles_auto = counted_auto
+
+
 def write_sphere_input(workdir: str, n: int) -> str:
     """sphere_mesh(n) with its metric, temp and vel point fields, as
     ``<workdir>/sphere<n>.vtu``; returns the path."""
@@ -72,9 +112,24 @@ def main(argv) -> int:
     aniso = "--aniso" in argv
     sphere = "--sphere" in argv
     argv = [a for a in argv if a not in ("--aniso", "--sphere")]
+    if "--block" in argv:
+        i = argv.index("--block")
+        os.environ["PARMMG_CYCLE_BLOCK"] = str(int(argv[i + 1]))
+        del argv[i:i + 2]
+    rc = _run(argv, aniso, sphere)
+    print(json.dumps(dict(TALLY, block=int(
+        os.environ.get("PARMMG_CYCLE_BLOCK", "0") or 0))))
+    return rc
+
+
+TALLY: dict = {}
+
+
+def _run(argv, aniso: bool, sphere: bool) -> int:
     n = int(argv[0]) if argv else 16
     workdir = argv[1] if len(argv) > 1 else tempfile.mkdtemp()
     from parmmg_tpu import cli
+    _count_cycles(TALLY)
     if sphere:
         _tolerant_ledger_listener()
         src = write_sphere_input(workdir, n)
