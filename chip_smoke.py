@@ -2,6 +2,13 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --pairs N
+
+With ``--pairs N`` it builds the kernels and runs only N alternating
+pairs of each cube16 path (phases 2 and 4) at ``cycle_block=1`` and at
+the default, blocks of 9, after one unmeasured pair, and prints the walls,
+the output sizes and qualities and the paired wall differences as one
+JSON line before the last.  Without arguments:
 
 Phases (any failure exits non-zero without the final result line):
 
@@ -24,8 +31,10 @@ Phases (any failure exits non-zero without the final result line):
              A (mean, max), the host reads a cycle (the synchronizing calls
              inside ``adapt_mesh``, polish included, that PyTorch's sync
              debug mode reports) and the sorts (K7, K8) at sub-mesh widths,
-             all of which must have launched their kernel.  Fails unless a
-             cycle ran narrow (the JAX CLI ran 27 of its 50 narrow).
+             all of which must have launched their kernel, and there must
+             be some where a cycle ran narrow.  Fails unless a cycle ran
+             narrow (the JAX CLI ran 27 of its 50 narrow); so do phases 4
+             and 5 (10 and 27 of 50).
 3. repeat  - the main path twice more: once as it is, once with the sort
              engine's wrappers (radix_sort, merge_prefix, segment_flags)
              swapped for their plain versions.  Both must write the same
@@ -321,9 +330,6 @@ def phase_path(workdir: str, stem: str, device: str = "cuda"):
     print(f"[{tag}] launches {launches}; largest capP {shapes['capP']} "
           f"capT {shapes['capT']} capE {shapes['capE']}")
     _print_cycles(tag, stem, info, device)
-    if tag == "main" and JAX_CLI_NARROW[stem] and not info["narrow"]:
-        raise RuntimeError(f"{stem}: no cycle ran narrow; the JAX CLI ran "
-                           f"{JAX_CLI_NARROW[stem]} narrow on this input")
     must, must_not = PATH_KERNELS[stem]
     missing = sorted(k for k in must if launches[k] == 0)
     if missing or launches[must_not]:
@@ -343,6 +349,7 @@ def _cycle_watch(count_reads: bool):
     """Watch one CLI run's adaptation: yields a dict filled when the run
     is over with ``stats`` (the AdaptStats of ``adapt_mesh``), the auto
     blocks' narrow widths ``A`` and their counts rows, the narrow cycles
+    at an ``A`` below the mesh's capT (``narrow_sub``), the narrow cycles
     discarded (``ops/active.COUNTS``), the sort calls (K7, K8) at a
     sub-mesh width and how many of them launched their kernel and, with
     ``count_reads``, ``reads``: the synchronizing calls inside
@@ -353,7 +360,7 @@ def _cycle_watch(count_reads: bool):
     from parmmg_tpu_torch import driver
     from parmmg_tpu_torch.ops import active, kernels
     info = {"stats": [], "blocks": [], "reads": 0, "narrow_sorts": 0,
-            "narrow_sort_launches": 0}
+            "narrow_sort_launches": 0, "narrow_sub": 0}
     widths = set()
     real_adapt, real_auto = driver.adapt_mesh, active.adapt_cycles_auto
     real_sorts = {n: getattr(kernels, n)
@@ -381,6 +388,8 @@ def _cycle_watch(count_reads: bool):
             widths.update((4 * A, 6 * A))
         out = real_auto(mesh, *a, **k)
         info["blocks"].append((A, out[4].tolist()))
+        if A < mesh.capT:
+            info["narrow_sub"] += int(out[4][:, 7].sum())
         return out
 
     def sort_watch(name):
@@ -407,8 +416,10 @@ def _cycle_watch(count_reads: bool):
 
 
 def _print_cycles(tag: str, stem: str, info: dict, device: str = "cuda"):
-    """The narrow-cycle lines of a watched run (:func:`_cycle_watch`); on
-    the card every sort at a sub-mesh width must have launched."""
+    """The narrow-cycle lines of a watched run (:func:`_cycle_watch`).
+    Fails unless a cycle ran narrow where the JAX CLI ran one on the same
+    input, and on the card unless the narrow cycles sorted at their
+    sub-mesh widths and every such sort launched its kernel."""
     import numpy as np
     cycles = sum(st.cycles for st in info["stats"])
     rows = [(A, r) for A, rr in info["blocks"] for r in rr]
@@ -427,10 +438,17 @@ def _print_cycles(tag: str, stem: str, info: dict, device: str = "cuda"):
               f"included) = {info['reads'] / max(cycles, 1):.1f} a cycle")
     print(f"[{tag}] sorts at sub-mesh widths: {info['narrow_sorts']} K7/K8 "
           f"calls, {info['narrow_sort_launches']} launched their kernel")
-    if device == "cuda" and \
-            info["narrow_sorts"] != info["narrow_sort_launches"]:
-        raise RuntimeError(f"[{tag}] a sort at a sub-mesh width did not "
-                           "launch its kernel")
+    if JAX_CLI_NARROW[stem] and not info["narrow"]:
+        raise RuntimeError(f"{stem}: no cycle ran narrow; the JAX CLI ran "
+                           f"{JAX_CLI_NARROW[stem]} narrow on this input")
+    if device == "cuda" and (
+            info["narrow_sorts"] != info["narrow_sort_launches"]
+            or (info["narrow_sub"] and not info["narrow_sorts"])):
+        raise RuntimeError(f"[{tag}] {info['narrow_sub']} narrow cycles "
+                           f"on fewer rows than the mesh made "
+                           f"{info['narrow_sorts']} sorts at a sub-mesh "
+                           f"width, {info['narrow_sort_launches']} of which "
+                           "launched their kernel")
 
 
 def _run_main(workdir: str, stem: str, out: str, device: str = "cuda"):
@@ -567,6 +585,56 @@ def phase_repeat(workdir: str, device: str = "cuda"):
         raise RuntimeError(f"cycle_block=1: {rec1['ntets']} tets, not "
                            f"within {NTETS_BOUND:.0%} of {ref1}, or "
                            f"{len(info['blocks'])} auto blocks")
+
+
+def phase_pairs(workdir: str, npairs: int, device: str = "cuda"):
+    """``npairs`` alternating runs of each cube16 path at cycle_block=1
+    and at the default, blocks of 9 (block 1 first in even pairs, block 9
+    first in odd ones), after one unmeasured run of each; returns per
+    path and block the walls, tets, qmin and qmean, and per path the
+    paired differences (block 9 - block 1) of the walls."""
+    import statistics
+    from parmmg_tpu_torch.ops import adapt
+    default = adapt.default_cycle_block
+    out = {}
+    try:
+        for stem in ("cube16", "cube16ani"):
+            _write_input(workdir, stem)
+            res = {b: {"wall_s": []} for b in (1, 9)}
+            for i in range(npairs + 1):
+                for b in ((1, 9) if i % 2 == 0 else (9, 1)):
+                    adapt.default_cycle_block = lambda _device, b=b: b
+                    _, rec, wall = _run_main(
+                        workdir, stem,
+                        os.path.join(workdir, f"{stem}.pair{b}.mesh"),
+                        device)
+                    if i:           # the first pair warms up
+                        res[b]["wall_s"].append(wall)
+                    res[b].update({k: rec[k] for k in ("ntets", "qmin",
+                                                       "qmean")})
+            d = [w9 - w1 for w1, w9 in zip(res[1]["wall_s"],
+                                           res[9]["wall_s"])]
+            out[stem] = {
+                "block1": res[1], "block9": res[9],
+                "median_s": {b: statistics.median(res[b]["wall_s"])
+                             for b in (1, 9)},
+                "diff_9_minus_1_s": d,
+                "diff_mean_s": statistics.mean(d),
+                "diff_stderr_s": (statistics.stdev(d) / len(d) ** 0.5
+                                  if len(d) > 1 else None),
+                "block9_faster": sum(x < 0 for x in d)}
+            r = out[stem]
+            print(f"[pairs] {stem} {npairs} pairs: block 1 median "
+                  f"{r['median_s'][1]:.3f} s ({res[1]['ntets']} tets, "
+                  f"qmean {res[1]['qmean']:.4f}), block 9 median "
+                  f"{r['median_s'][9]:.3f} s ({res[9]['ntets']} tets, "
+                  f"qmean {res[9]['qmean']:.4f}); block 9 - block 1 "
+                  f"mean {r['diff_mean_s']:+.3f} s, stderr "
+                  f"{r['diff_stderr_s'] or 0:.3f} s, block 9 faster in "
+                  f"{r['block9_faster']} of {len(d)}")
+    finally:
+        adapt.default_cycle_block = default
+    return out
 
 
 def phase_aniso_repeat(workdir: str, device: str = "cuda"):
@@ -1245,7 +1313,7 @@ def phase_kernels(launches, shapes, launches_ani, shapes_ani, workdir: str):
     return rows
 
 
-def main() -> int:
+def main(argv=()) -> int:
     sys.path.insert(0, HERE)
     try:
         import torch
@@ -1262,6 +1330,22 @@ def main() -> int:
         return 2
     workdir = os.path.join(HERE, "build", "smoke")
     os.makedirs(workdir, exist_ok=True)
+    if len(argv) == 2 and argv[0] == "--pairs":
+        try:
+            phase_build()
+            pairs = phase_pairs(workdir, int(argv[1]))
+        except Exception:
+            traceback.print_exc()
+            print("chip_smoke: FAILED", file=sys.stderr)
+            return 1
+        print(json.dumps({"pairs": pairs}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
     try:
         phase_build()
         launches, shapes = phase_path(workdir, "cube16")
@@ -1288,4 +1372,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -43,6 +43,10 @@ NARROW_DIV = 8
 NARROW_MIN = 8192
 # a quarter of A is kept for the rows a narrow cycle allocates
 NARROW_HEADROOM_DIV = 4
+# the waves' budget divisor on a narrow cycle (a full cycle's is 8)
+NARROW_BUDGET_DIV = 2
+# the most morton windows an auto block rotates through
+WINDOW = 24
 
 # narrow attempts discarded since the process started (a discarded
 # attempt's counts row reads like an empty narrow cycle that escalates)
@@ -52,8 +56,8 @@ COUNTS = {"discarded": 0}
 def narrow_rows(capT: int) -> int:
     """Rows of the narrow sub-mesh: capT // 8, at least NARROW_MIN, on the
     1.5x bucket ladder and at most capT."""
-    return bucket(max(NARROW_MIN, capT // NARROW_DIV),
-                  floor=NARROW_MIN, scheme="geo", cap=capT)
+    return bucket(max(NARROW_MIN, capT // NARROW_DIV), floor=NARROW_MIN,
+                  cap=capT)
 
 
 def _any_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -160,16 +164,15 @@ def _row10(counts8, n_act, okflag):
 
 
 def auto_cycle(mesh: Mesh, met, pending, okflag, wave: int, A: int,
-               do_swap: bool, do_smooth: bool, do_insert: bool,
-               hausd, budget_div: int = 8, narrow_budget_div: int = 2,
-               window: int = 0):
+               do_swap: bool, do_smooth: bool, do_insert: bool, hausd):
     """One cycle that picks its own width.
 
     ``pending`` [capP] bool is the worklist and ``okflag`` (0-d bool)
-    whether the previous cycle lets this one run narrow.  With
-    ``window`` > 0 the cycle examines the pending vertices of morton
-    window ``wave % nwin`` only, and its collapses, swaps and smoothing
-    stay in that window; the rest of the worklist is carried.
+    whether the previous cycle lets this one run narrow.  Below A = capT
+    the cycle examines the pending vertices of morton window
+    ``wave % nwin`` only (nwin = min(WINDOW, max(2, 3 capT // A))), and
+    its collapses, swaps and smoothing stay in that window; the rest of
+    the worklist is carried.
 
     Returns (mesh, met, pending_next, ok_next, counts[10]): the cycle's
     8 counts (column 7 is 1 when the narrow branch ran), then the active
@@ -179,8 +182,8 @@ def auto_cycle(mesh: Mesh, met, pending, okflag, wave: int, A: int,
     if A >= capT:
         nwin = 1
     else:
-        nwin = min(window, max(2, (3 * capT) // max(1, A)))
-    if window > 0 and nwin > 1:
+        nwin = min(WINDOW, max(2, (3 * capT) // max(1, A)))
+    if nwin > 1:
         wmask = morton_window_mask(mesh.vert, mesh.vmask, wave, nwin)
         dirty_proc = pending & wmask
     else:
@@ -196,8 +199,8 @@ def auto_cycle(mesh: Mesh, met, pending, okflag, wave: int, A: int,
     if not bool(okflag & fits_rows):            # host read
         mesh2, met2, counts = adapt_cycle_impl(
             mesh, met, wave, do_swap=do_swap, do_smooth=do_smooth,
-            do_insert=do_insert, hausd=hausd, budget_div=budget_div,
-            wwin=wmask, final_rebuild=False)
+            do_insert=do_insert, hausd=hausd, wwin=wmask,
+            final_rebuild=False)
         dn = dirty_from_diff(mesh, mesh2)
         topo = counts[0] + counts[1] + counts[2]
         ok = (counts[4] == 0) & (topo < 512)
@@ -207,7 +210,7 @@ def auto_cycle(mesh: Mesh, met, pending, okflag, wave: int, A: int,
     sub0, back, n_act2, _ovf = extract_active(mesh, active, A)
     sub, met2, counts = adapt_cycle_impl(
         sub0, met, wave, do_swap=do_swap, do_smooth=do_smooth,
-        do_insert=do_insert, hausd=hausd, budget_div=narrow_budget_div,
+        do_insert=do_insert, hausd=hausd, budget_div=NARROW_BUDGET_DIV,
         vact=d2, submesh=True, final_rebuild=False)
     # a live sub row whose target is the capT sentinel: the full mesh's
     # free rows ran out, and writing back would drop a tet
@@ -236,8 +239,7 @@ def auto_cycle(mesh: Mesh, met, pending, okflag, wave: int, A: int,
 def adapt_cycles_auto(mesh: Mesh, met, pending, okflag, wave0: int,
                       swap_flags: tuple, full_flags: tuple | None = None,
                       hausd=None, do_smooth: bool = True,
-                      do_insert: bool = True, budget_div: int = 8,
-                      final_rebuild: bool = True, window: int = 24):
+                      do_insert: bool = True, final_rebuild: bool = True):
     """A fused block of ``len(swap_flags)`` self-width-selecting cycles.
 
     ``pending`` [capP] bool and ``okflag`` are threaded across blocks (a
@@ -256,7 +258,7 @@ def adapt_cycles_auto(mesh: Mesh, met, pending, okflag, wave0: int,
         okc = okflag & (not full_flags[c])
         mesh, met, pending, okflag, counts = auto_cycle(
             mesh, met, pending, okc, wave0 + c, A, dosw, do_smooth,
-            do_insert, hausd, budget_div=budget_div, window=window)
+            do_insert, hausd)
         rows.append(counts)
     if final_rebuild:
         mesh = build_adjacency(mesh)

@@ -58,19 +58,19 @@ def adapt_cycle_impl(mesh: Mesh, met: torch.Tensor, wave: int,
                      do_swap: bool = True, do_smooth: bool = True,
                      do_insert: bool = True, hausd: float | None = None,
                      budget_div: int = 8, wide: bool = False,
-                     et0=None, vact: torch.Tensor | None = None,
+                     vact: torch.Tensor | None = None,
                      submesh: bool = False,
                      wwin: torch.Tensor | None = None,
                      final_rebuild: bool = True):
     """One cycle: split -> collapse -> [swap] -> [smooth] -> [adjacency].
 
-    ``et0``: a caller's edge table of THIS mesh.  ``vact`` [capP] bool:
-    the narrow cycle's active vertices (candidates of every wave need
-    their endpoints active); ``submesh``: ``mesh`` is an active sub-mesh,
-    so no adjacency rebuild tags its cut faces MG_BDY; ``wwin`` [capP]
-    bool: the morton window that limits collapses, swaps and smoothing
-    (``ops/active.py``).  ``final_rebuild=False`` skips the closing
-    ``build_adjacency`` (a fused block rebuilds once at its end).
+    ``vact`` [capP] bool: the narrow cycle's active vertices (candidates
+    of every wave need their endpoints active); ``submesh``: ``mesh`` is
+    an active sub-mesh, so no adjacency rebuild tags its cut faces
+    MG_BDY; ``wwin`` [capP] bool: the morton window that limits
+    collapses, swaps and smoothing (``ops/active.py``).
+    ``final_rebuild=False`` skips the closing ``build_adjacency`` (a
+    fused block rebuilds once at its end).
 
     Returns (mesh, met, counts) with ``counts`` the int32 row
     [nsplit, ncollapse, nswap, nmoved, overflow, live_tets, deferred, 0]
@@ -80,8 +80,7 @@ def adapt_cycle_impl(mesh: Mesh, met: torch.Tensor, wave: int,
     defer = torch.zeros((), dtype=torch.bool, device=dev)
     defer_sw = torch.zeros((), dtype=torch.bool, device=dev)
     if do_insert:
-        if et0 is None:
-            et0 = unique_edges(mesh, shell_slots=0)
+        et0 = unique_edges(mesh, shell_slots=0)
         lens0 = edge_lengths(mesh, et0, met)
         vtan0 = None
         if hausd is not None:

@@ -33,7 +33,7 @@ import numpy as np
 import pytest
 import torch
 
-import parmmg_tpu.ops.analysis  # noqa: F401  (module constants, not in a trace)
+import parmmg_tpu.ops.analysis  # noqa: F401  (module constants, untraced)
 from parmmg_tpu.core import mesh as jmesh
 from parmmg_tpu.ops import active as JV, adapt as JAd, adjacency as JA
 from parmmg_tpu.ops import collapse as JC, edges as JE, smooth as JS
@@ -46,7 +46,8 @@ from parmmg_tpu_torch.ops import collapse as TC, edges as TE
 from parmmg_tpu_torch.ops import smooth as TS, split as TP, swap as TW
 from parmmg_tpu_torch.ops.quality import tet_quality
 from parmmg_tpu_torch.utils.compilecache import bucket
-from parmmg_tpu_torch.utils.fixtures import analytic_iso_metric, cube_mesh
+from parmmg_tpu_torch.utils.fixtures import (analytic_ani_metric,
+                                             analytic_iso_metric, cube_mesh)
 from torch_parity import jax_ledger_listener_compat  # noqa: F401
 
 HAUSD = 0.01
@@ -146,10 +147,8 @@ def test_narrow_rows_and_bucket_exact():
                  3 * 10 ** 6 + 7]:
         assert TV.narrow_rows(capT) == JV.narrow_rows(capT), capT
     for n in [1, 200, 257, 5000, 123457]:
-        for scheme in ("pow2", "geo"):
-            assert bucket(n, 256, scheme) == jbucket(n, 256, scheme)
-            assert bucket(n, 256, scheme, cap=4000) == \
-                jbucket(n, 256, scheme, cap=4000)
+        assert bucket(n, 256) == jbucket(n, 256, "geo")
+        assert bucket(n, 256, cap=4000) == jbucket(n, 256, "geo", cap=4000)
 
 
 def _edit(field, m, k):
@@ -374,11 +373,45 @@ def test_narrow_leaves_untouched_regions_bit_identical():
 
 
 def test_narrow_discard_on_tight_capacity():
+    """cube_mesh(3) at capT 180 (18 free rows) under h = 0.2: a narrow
+    cycle on the ball |x| < 0.45 allocates more rows than the mesh has
+    free, so it is discarded whole: the input mesh, metric and worklist
+    come back unchanged, the counts row is an empty narrow cycle that
+    escalates, and the next cycle runs full width, conforming and
+    volume-preserving."""
+    v, t = cube_mesh(3)
+    m = TN.analyze_mesh(tmesh.make_mesh(v, t, capP=8 * len(v),
+                                        capT=180)).mesh
+    met = torch.full((m.capP,), 0.2)
+    vol0 = _assert_conforming(m)
+    pend = ((m.vert ** 2).sum(dim=1) < 0.45 ** 2) & m.vmask
+    inputs = {f: getattr(m, f).clone() for f in tmesh.MESH_FIELDS}
+    A = TV.narrow_rows(m.capT)
+    c0 = TV.COUNTS["discarded"]
+    m2, met2, pend2, ok2, row = TV.auto_cycle(
+        m, met, pend, True, 0, A, False, True, True, None)
+    assert TV.COUNTS["discarded"] == c0 + 1
+    n_act = int(TV.closure_active(m, pend)[1].sum())
+    assert A - A // TV.NARROW_HEADROOM_DIV >= n_act
+    assert row.tolist() == [0, 0, 0, 0, 0, int(m.tmask.sum()), 1, 1,
+                            n_act, 1]
+    for f, a in inputs.items():
+        assert torch.equal(getattr(m2, f), a), f
+    assert met2 is met and torch.equal(pend2, pend) and not bool(ok2)
+    m3, _, _, _, row3 = TV.auto_cycle(m2, met2, pend2, ok2, 1, A, False,
+                                      True, True, None)
+    assert row3[7] == 0 and row3[0] > 0
+    assert np.isclose(_assert_conforming(m3), vol0, rtol=1e-5)
+
+
+def test_tight_capacity_run_stays_conforming():
+    """Auto blocks at twice the input's capacity stay conforming and
+    volume-preserving."""
     m, met = _setup(3, 2)
     vol0 = _assert_conforming(m)
     m, met, rows = _run_auto(m, met, blocks=4)
     assert np.isclose(_assert_conforming(m), vol0, rtol=1e-5)
-    assert (rows[:, 5] > 0).all()
+    assert (rows[:, 5] > 0).all() and rows[:, 7].sum() > 0
 
 
 def test_default_cycle_block():
@@ -407,10 +440,25 @@ def test_cycle_block_one_is_one_cycle_a_dispatch(monkeypatch):
 # thread-local) while the module's other tests go on.
 
 AUTO_CASES = {"narrow": (True, None), "full": (False, None),
-              "full-windowed": (False, 2)}
-CYCLE_KW = dict(do_swap=True, do_smooth=True, do_insert=True, hausd=HAUSD,
-                window=24)
+              "full-windowed": (False, 2), "narrow-windowed": (True, 2)}
+CYCLE_KW = dict(do_swap=True, do_smooth=True, do_insert=True, hausd=HAUSD)
 FLAGS3 = (False, False, True)
+# the eager JAX runs, one list a background thread: the narrow cycle at
+# A = capT / 2 sorts and scatters at shapes no other run has
+EAGER_PARTS = (("narrow", "block3"), ("full", "full-windowed", "adapt_mesh"),
+               ("narrow-windowed",), ("block3-aniso",))
+
+
+def _ani(state):
+    """The shock tensor metric spacing 0.15 (0.2 + 4 |x - 0.5|) across
+    x = 0.5 and 0.45 along it at the state's live vertices, the identity
+    at its dead rows."""
+    m = state["mesh"]
+    met = np.tile(np.float32([1, 0, 0, 1, 0, 1]), (m.capP, 1))
+    live = m.vmask.numpy()
+    met[live] = analytic_ani_metric(m.vert.numpy()[live], "shock", h=0.15,
+                                    h_tan=0.45)
+    return torch.from_numpy(met)
 
 
 def _cube3(state):
@@ -423,62 +471,69 @@ def _cube3(state):
     return tm, _shock(v, 3, tm.capP)
 
 
-def _eager_jobs(state, part):
-    """The JAX side of the whole-cycle comparisons, in two parts for two
-    threads: the narrow auto_cycle and a block of 3 (0); the full
-    auto_cycles, then adapt_mesh(cycle_block=3, max_cycles=12) on
-    cube_mesh(3) with each auto block's rows (1)."""
+def _eager_jobs(state, names):
+    """The JAX side of the whole-cycle comparisons named: the auto_cycle
+    cases of AUTO_CASES, a block of 3 from an empty worklist ("block3"),
+    and adapt_mesh(cycle_block=3, max_cycles=12) on cube_mesh(3) with
+    each auto block's rows ("adapt_mesh")."""
     m, met, pending = state["mesh"], state["met"], state["pending"]
     jm, jmet = _to_jax(m), jnp.asarray(met.numpy())
     jpend = jnp.asarray(pending.numpy())
     A = TV.narrow_rows(m.capT)
-    cases = [c for c in AUTO_CASES if (c == "narrow") == (part == 0)]
     with jax.disable_jit():
-        for name in cases:
-            ok, div = AUTO_CASES[name]
-            yield name, JV.auto_cycle(
-                jm, jmet, jpend, jnp.asarray(ok), jnp.asarray(5, jnp.int32),
-                A // (div or 1), **CYCLE_KW)
-        if part == 0:
-            yield "block3", JV.adapt_cycles_auto_impl(
-                jm, jmet, jnp.zeros(m.capP, bool), jnp.asarray(False),
-                jnp.asarray(6, jnp.int32), swap_flags=FLAGS3, hausd=HAUSD)
-            return
-        tm3, met3 = _cube3(state)
-        rows = []
-        auto = JV.adapt_cycles_auto
+        for name in names:
+            if name in AUTO_CASES:
+                ok, div = AUTO_CASES[name]
+                yield name, JV.auto_cycle(
+                    jm, jmet, jpend, jnp.asarray(ok),
+                    jnp.asarray(5, jnp.int32), A // (div or 1),
+                    window=TV.WINDOW, **CYCLE_KW)
+            elif name.startswith("block3"):
+                aniso = name.endswith("aniso")
+                yield name, JV.adapt_cycles_auto_impl(
+                    jm, jnp.asarray(_ani(state).numpy()) if aniso else jmet,
+                    jnp.zeros(m.capP, bool), jnp.asarray(False),
+                    jnp.asarray(6, jnp.int32), swap_flags=FLAGS3,
+                    hausd=None if aniso else HAUSD)
+            else:
+                yield name, _eager_adapt_mesh(state)
 
-        def rec(*a, **k):
-            out = auto(*a, **k)
-            rows.append(np.asarray(out[4]).tolist())
-            return out
-        JV.adapt_cycles_auto = rec
-        try:
-            out = JAd.adapt_mesh(_to_jax(tm3), jnp.asarray(met3.numpy()),
-                                 max_cycles=12, cycle_block=3)
-        finally:
-            JV.adapt_cycles_auto = auto
-        yield "adapt_mesh", out + (rows,)
+
+def _eager_adapt_mesh(state):
+    tm3, met3 = _cube3(state)
+    rows = []
+    auto = JV.adapt_cycles_auto
+
+    def rec(*a, **k):
+        out = auto(*a, **k)
+        rows.append(np.asarray(out[4]).tolist())
+        return out
+    JV.adapt_cycles_auto = rec
+    try:
+        out = JAd.adapt_mesh(_to_jax(tm3), jnp.asarray(met3.numpy()),
+                             max_cycles=12, cycle_block=3)
+    finally:
+        JV.adapt_cycles_auto = auto
+    return out + (rows,)
 
 
 @contextlib.contextmanager
 def _eager_thread(state):
     """Futures of :func:`_eager_jobs`' results by name (call one to wait
-    for it), filled by two background threads (XLA compiles outside the
-    GIL)."""
-    futs = {n: Future() for n in list(AUTO_CASES) + ["block3",
-                                                      "adapt_mesh"]}
+    for it), filled by one background thread for each of EAGER_PARTS
+    (XLA compiles outside the GIL)."""
+    futs = {n: Future() for part in EAGER_PARTS for n in part}
 
-    def run(part):
+    def run(names):
         try:
-            for name, out in _eager_jobs(state, part):
+            for name, out in _eager_jobs(state, names):
                 futs[name].set_result(out)
         except BaseException as e:           # noqa: BLE001 (passed on)
             for f in futs.values():
                 if not f.done():
                     f.set_exception(e)
     threads = [threading.Thread(target=run, args=(p,), daemon=True)
-               for p in (0, 1)]
+               for p in EAGER_PARTS]
     for th in threads:
         th.start()
     yield {n: f.result for n, f in futs.items()}
@@ -506,8 +561,9 @@ def _check_cycle(jout, tout, m, inputs):
 @pytest.mark.parametrize("case", list(AUTO_CASES))
 def test_auto_cycle_exact(state, eager, case):
     """One narrow cycle (okflag True) and one full cycle (okflag False)
-    from the same worklist, at A = capT (one window); and the full cycle
-    at A = capT/2, where six morton windows rotate and limit the waves."""
+    from the same worklist, at A = capT (one window); and both again at
+    A = capT/2, where six morton windows rotate and limit the waves: the
+    narrow cycle then runs on a sub-mesh of half the mesh's rows."""
     m, met, pending = state["mesh"], state["met"], state["pending"]
     okflag, div = AUTO_CASES[case]
     A = TV.narrow_rows(m.capT) // (div or 1)
@@ -524,19 +580,35 @@ def test_auto_cycle_exact(state, eager, case):
         assert not torch.equal(tout[2], pending)
 
 
-def test_block_of_three_rows_exact(state, eager):
+@pytest.mark.parametrize("metric", ["iso", "aniso"])
+def test_block_of_three_rows_exact(state, eager, metric):
     """A block of 3 through adapt_cycles_auto from an empty worklist: the
-    per-cycle counts rows and the final state equal eager JAX's."""
-    m, met = state["mesh"], state["met"]
+    per-cycle counts rows and the final state equal eager JAX's, under
+    the iso shock map and under the tensor metric :func:`_ani`."""
+    m = state["mesh"]
+    aniso = metric == "aniso"
+    met = _ani(state) if aniso else state["met"]
     tout = TV.adapt_cycles_auto(m, met, torch.zeros(m.capP,
                                                     dtype=torch.bool),
-                                False, 6, swap_flags=FLAGS3, hausd=HAUSD)
-    jout = eager["block3"]()
+                                False, 6, swap_flags=FLAGS3,
+                                hausd=None if aniso else HAUSD)
+    jout = eager["block3-aniso" if aniso else "block3"]()
     rows = tout[4].tolist()
     assert rows == np.asarray(jout[4]).tolist()
     assert [r[7] for r in rows] == [0, 1, 0]      # full, narrow, refresh
-    _assert_mesh(jout[0], tout[0])
     assert _eq(tout[2], jout[2]) and bool(tout[3]) == bool(jout[3])
+    if not aniso:
+        _assert_mesh(jout[0], tout[0])
+        return
+    # tensor metric: the smooth's pow / sqrt round in the last ulp apart
+    # from XLA's and move a few vertices to other points (ROADMAP queue C)
+    got = tmesh.mesh_to_numpy(tout[0])
+    for f in jmesh.MESH_FIELDS:
+        if f != "vert":
+            assert np.array_equal(got[f], np.asarray(getattr(jout[0], f))), f
+    jv = np.asarray(jout[0].vert)
+    off = ~np.isclose(got["vert"], jv, rtol=1e-5, atol=1e-6).all(axis=1)
+    assert off.sum() <= 4 and np.abs(got["vert"] - jv).max() < 1e-2
 
 
 @pytest.fixture(scope="module")
