@@ -79,7 +79,25 @@ Phases (any failure exits non-zero without the final result line):
              points that took the surface walk, and the wall times of the
              volume walk, the exhaustive search and the surface location,
              each run again alone, and the narrow-cycle lines of phase 2.
-6. kernels - each kernel against its plain PyTorch version on the card, on
+6. grouped - the CLI with the reference CI's standard flags, ``-mesh-size
+             16384 -niter 2``, on cube_mesh(32) (35,937 points, 196,608
+             tets: 12 groups a pass) under the cube16 iso shock map, all
+             else default (blocks of 9 cycles, 8 groups a dispatch):
+             ``parallel/groups.py``'s split / frozen-seam remesh / seam
+             displacement loop.  Launch counts zeroed just before and read
+             just after: K1 and K3-K8 must have launched, K2 must not.
+             Checked: a conforming output with qmin > 0, its tet count
+             within 2% of the JAX CLI's at PARMMG_CYCLE_BLOCK=9 (229,193),
+             12 groups in both passes.  Two more runs must write the same
+             bytes: one at chunk 0 (every group in one dispatch) and one
+             with the incremental topology engine's band merges on, which
+             must merge at least one band with every K5, K7 and K8 call of
+             ``ops/topo_incr`` launching its kernel.  Prints the groups a
+             pass, cycles and group-cycles, the active groups a block,
+             dispatches (and saved), masked slots, the pipeline's segment
+             seconds, host reads a group-cycle, the band merges, their
+             widths and the kernels' shapes there, and each run's wall.
+7. kernels - each kernel against its plain PyTorch version on the card, on
              the output mesh of its path (the capacities that path
              reached; K2 and K6's tensor mode on the aniso output and its
              metric), with its tolerance; median CUDA-event times of the
@@ -90,8 +108,11 @@ Phases (any failure exits non-zero without the final result line):
              / 67 TFLOP/s float32).  K8 runs on the sorted edge keys and
              face keys and, in its gathered mode, on the unsorted keys with
              K7's permutation, beside the unfused pair it replaced (the
-             gather, then sorted-mode K8) as its yardstick.
-7. stress  - K5, K7 and K8 against their plain versions, exactly, each case
+             gather, then sorted-mode K8) as its yardstick.  K5 also on
+             the [grouped] run's first band merge (the survivor flags of
+             a group's edge sort) and K7 on its first edge band (keys and
+             slots, 2 words).
+8. stress  - K5, K7 and K8 against their plain versions, exactly, each case
              5 times (look-back order changes from run to run): sizes 1,
              tile - 1, tile, tile + 1 and 2**24 + 3 (the look-back crosses
              thousands of tiles); K5 on small values and on values near
@@ -101,15 +122,17 @@ Phases (any failure exits non-zero without the final result line):
              nbits (8, 16, 32); K8 in both modes on 1-3 words with
              tombstones, aligned and viewed at a 1-element offset.  A
              failure here is a look-back, stability or tail bug of the
-             kernel, not a mesh bug.
-8. profile - the cube16 paths once more under torch.profiler.
+             kernel, not a mesh bug.  Also K5 and K7 at every (rows,
+             words) the [grouped] run's band merges gave them.
+9. profile - the cube16 paths once more under torch.profiler.
 
-Phase 5 also prints the CUDA launches per K5, K6, K7 and K8 call (the
+Phase 7 also prints the CUDA launches per K5, K6, K7 and K8 call (the
 profiler's kernel count over 20 calls / 20) and fails unless K5, K6 and K8
 (both modes) are one launch a call and K7 1 + npass.
 
-The last two lines are one JSON object with the kernel table and one JSON
-object ``{"ok": true, "device": {...}}``.
+The last two lines are one JSON object with the kernel table (each row's
+launches on the main path, and on the field and grouped paths) and one
+JSON object ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -128,9 +151,11 @@ F32_OPS_PER_S = 67e12               # H100 SXM float32 outside tensor cores
 # the JAX CLI's tet count on each path's input in its accelerator
 # configuration (blocks of 9 auto cycles), and how far the port's may lie
 # from it: tools/jax_cli_reference.py 16 [--aniso | --sphere] --block 9
-# (on the CPU); and the cycles of those runs that ran narrow, of 50
+# and, for [grouped], 32 --metric-n 16 --mesh-size 16384 --niter 2
+# --block 9 (on the CPU); and the cycles of those runs that ran narrow, of
+# 50
 JAX_CLI_NTETS = {"cube16": 139206, "cube16ani": 327908,
-                 "sphere16": 131901}
+                 "sphere16": 131901, "cube32": 229193}
 JAX_CLI_NARROW = {"cube16": 27, "cube16ani": 10, "sphere16": 27}
 # the same at one cycle a dispatch (--block 1, the JAX package's default
 # off the TPU)
@@ -149,6 +174,7 @@ PATH_KERNELS = {
                   "tet_quality", "merge_prefix", "radix_sort",
                   "segment_flags"}, "edge_lengths_ani"),
 }
+PATH_KERNELS["cube32"] = PATH_KERNELS["cube16"]
 
 
 def _card_line() -> str:
@@ -237,9 +263,10 @@ def phase_build():
     print(_card_line())
 
 
-def _write_input(workdir: str, stem: str, n: int = 16):
-    """cube_mesh(n) and its metric: iso shock for "cube16", tensor shock
-    for "cube16ani"."""
+def _write_input(workdir: str, stem: str, n: int = 16,
+                 metric_n: int | None = None):
+    """cube_mesh(n) and its metric: iso shock for "cube16" (h = 1.5 /
+    metric_n, metric_n defaulting to n), tensor shock for "cube16ani"."""
     import numpy as np
     from parmmg_tpu_torch.io.medit import (MeditMesh, SOL_SCALAR, SOL_TENSOR,
                                            write_mesh, write_sol)
@@ -255,7 +282,7 @@ def _write_input(workdir: str, stem: str, n: int = 16):
         met = analytic_ani_metric(vert, "shock", h=1.5 / (3 * n), h_tan=0.1)
         types = [SOL_TENSOR]
     else:
-        met = analytic_iso_metric(vert, "shock", h=1.5 / n)
+        met = analytic_iso_metric(vert, "shock", h=1.5 / (metric_n or n))
         types = [SOL_SCALAR]
     write_sol(os.path.join(workdir, f"{stem}.sol"), met, types)
 
@@ -451,10 +478,11 @@ def _print_cycles(tag: str, stem: str, info: dict, device: str = "cuda"):
                            "launched their kernel")
 
 
-def _run_main(workdir: str, stem: str, out: str, device: str = "cuda"):
-    """The CLI remesh of ``stem``'s input once, written to ``out``, launch
-    counts zeroed just before and read just after.  Returns (launches,
-    the -bench-json record, wall seconds)."""
+def _run_main(workdir: str, stem: str, out: str, device: str = "cuda",
+              flags=("-niter", "1")):
+    """The CLI remesh of ``stem``'s input once, written to ``out``, with
+    ``flags``, launch counts zeroed just before and read just after.
+    Returns (launches, the -bench-json record, wall seconds)."""
     import torch
     from parmmg_tpu_torch import cli
     from parmmg_tpu_torch.ops import kernels
@@ -466,8 +494,8 @@ def _run_main(workdir: str, stem: str, out: str, device: str = "cuda"):
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["-in", os.path.join(workdir, f"{stem}.mesh"), "-sol",
                        os.path.join(workdir, f"{stem}.sol"), "-out", out,
-                       "-niter", "1", "-v", "1", "-bench-json",
-                       "-device", device])
+                       *flags, "-v", "1", "-bench-json", "-device",
+                       device])
     sync()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
@@ -815,9 +843,212 @@ def phase_field(workdir: str, device: str = "cuda"):
     return launches
 
 
-def phase_stress(repeats: int = 5):
+# the [grouped] input: cube_mesh(32) under the cube16 iso shock map, the
+# reference CI's standard flags, and the JAX CLI's group counts on it
+GROUPED_FLAGS = ("-mesh-size", "16384", "-niter", "2")
+JAX_CLI_GROUPS = [12, 12]
+
+
+class _KernelTap:
+    """Stands in for ``ops/topo_incr``'s ``kernels`` module: every call of
+    the sort engine's wrappers made from the incremental topology engine
+    is counted, with the launches it made and the (rows, words) it was
+    given."""
+
+    def __init__(self, real):
+        self._real = real
+        self.calls, self.launched, self.shapes = {}, {}, {}
+
+    def __getattr__(self, name):
+        fn = getattr(self._real, name)
+        if name not in ("merge_prefix", "radix_sort", "segment_flags"):
+            return fn
+        import torch
+
+        def call(words, *a, **k):
+            before = self._real.LAUNCHES[name]
+            out = fn(words, *a, **k)
+            self.calls[name] = self.calls.get(name, 0) + 1
+            self.launched[name] = (self.launched.get(name, 0)
+                                   + self._real.LAUNCHES[name] - before)
+            ws = (words,) if torch.is_tensor(words) else tuple(words)
+            self.shapes.setdefault(name, set()).add((ws[0].shape[0],
+                                                     len(ws)))
+            return out
+        return call
+
+
+def _run_grouped(workdir: str, out: str, device: str, pass_kw=None,
+                 count_reads: bool = False):
+    """The [grouped] CLI remesh once, written to ``out``, with ``pass_kw``
+    given to every grouped pass; returns (launches, record, wall, info):
+    ``info`` holds the run's AdaptStats, the group-cycles it ran (calls of
+    ``adapt_cycle_impl`` on an active slot) and, with ``count_reads``, the
+    synchronizing calls inside ``grouped_adapt`` (PyTorch's sync debug
+    mode, split and merge included)."""
+    import warnings
+    import torch
+    from parmmg_tpu_torch.ops import adapt
+    from parmmg_tpu_torch.parallel import groups
+    real_ga, real_cycle = groups.grouped_adapt, adapt.adapt_cycle_impl
+    info = {"stats": None, "reads": 0, "group_cycles": 0, "ga_wall": 0.0}
+
+    def cycle(*a, **k):
+        if k.get("active", True):
+            info["group_cycles"] += 1
+        return real_cycle(*a, **k)
+
+    def ga(*a, **k):
+        k.update(pass_kw or {})
+        info["stats"] = k.get("stats")
+        t0 = time.perf_counter()
+        try:
+            if not count_reads:
+                return real_ga(*a, **k)
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return real_ga(*a, **k)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                    info["reads"] += sum("synchroniz" in str(w.message)
+                                         for w in seen)
+        finally:
+            info["ga_wall"] += time.perf_counter() - t0
+    groups.grouped_adapt, adapt.adapt_cycle_impl = ga, cycle
+    try:
+        launches, rec, wall = _run_main(workdir, "cube32", out, device,
+                                        flags=GROUPED_FLAGS)
+    finally:
+        groups.grouped_adapt, adapt.adapt_cycle_impl = real_ga, real_cycle
+    return launches, rec, wall, info
+
+
+def phase_grouped(workdir: str, device: str = "cuda"):
+    """The [grouped] path: the port's CLI with ``-mesh-size 16384 -niter 2``
+    on cube_mesh(32) (35,937 points, 196,608 tets: 12 groups) under the
+    cube16 iso shock map, everything else at its default (blocks of 9,
+    chunks of 8 groups).  Checked: K1 and K3-K8 launched and K2 not, a
+    conforming output with qmin > 0, the tet count within 2% of the JAX
+    CLI's, 12 groups in each pass; then the same bytes from a run at chunk
+    0 (every group in one dispatch, the state on the card) and from a run
+    with the incremental topology engine's band merges on, which must
+    merge at least one band with every K5 / K7 / K8 call of
+    ``ops/topo_incr`` launching its kernel.  Returns (launches, the band
+    merges' K5 and K7 inputs, the (kernel, rows, words) shapes of the
+    engine's calls)."""
+    import torch
+    from parmmg_tpu_torch.ops import topo_incr
+    stem = "cube32"
+    _write_input(workdir, stem, n=32, metric_n=16)
+    out = os.path.join(workdir, f"{stem}.o.mesh")
+    launches, rec, wall, info = _run_grouped(workdir, out, device,
+                                             count_reads=device == "cuda")
+    st = info["stats"]
+    se = st.sched_extra
+    mesh, _, _ = _read_output(out, device)
+    bad, qmin, qmean = _check_conforming(stem, mesh)
+    print(f"[grouped] {stem} {' '.join(GROUPED_FLAGS)}: ntets "
+          f"{rec['ntets']} qmin {rec['qmin']:.6f} qmean {rec['qmean']:.6f} "
+          f"splits {rec['nsplit']} collapses {rec['ncollapse']} swaps "
+          f"{rec['nswap']} wall {wall:.3f} s (grouped_adapt "
+          f"{info['ga_wall']:.3f} s)")
+    print(f"[grouped] re-read output: {int(mesh.tmask.sum())} tets, "
+          f"adjacency {bad}, qmin {qmin:.6f} qmean {qmean:.6f}")
+    print(f"[grouped] groups per pass {se['groups_per_pass']}, cycles "
+          f"{st.cycles}, group-cycles run {info['group_cycles']}, active "
+          f"groups per block {se['active_groups_per_block']}")
+    print(f"[grouped] dispatches {st.group_dispatches} (saved "
+          f"{st.group_dispatches_saved}), group blocks skipped "
+          f"{st.groups_skipped}, masked slots {se['cond_skipped_rows']}, "
+          f"chunk recommendation {se['chunk_recommendation']}")
+    print("[grouped] pipeline seconds " + ", ".join(
+        f"{k[4:-2]} {se[k]:.3f}" for k in ("grp_upload_s", "grp_compute_s",
+                                           "grp_download_s",
+                                           "grp_writeback_s") if k in se))
+    if info["reads"]:
+        print(f"[grouped] host reads {info['reads']} in grouped_adapt = "
+              f"{info['reads'] / max(info['group_cycles'], 1):.1f} a "
+              "group-cycle")
+    print(f"[grouped] launches {launches}")
+    must, must_not = PATH_KERNELS[stem]
+    missing = sorted(k for k in must if launches[k] == 0)
+    if device == "cuda" and (missing or launches[must_not]):
+        raise RuntimeError(f"{stem}: kernels never launched {missing}, "
+                           f"{must_not} launched {launches[must_not]} "
+                           f"times ({launches})")
+    ref = JAX_CLI_NTETS[stem]
+    if abs(rec["ntets"] - ref) > NTETS_BOUND * ref:
+        raise RuntimeError(f"{rec['ntets']} tets: not within "
+                           f"{NTETS_BOUND:.0%} of the JAX CLI's {ref} on "
+                           "this input")
+    if se["groups_per_pass"] != JAX_CLI_GROUPS:
+        raise RuntimeError(f"groups per pass {se['groups_per_pass']}, the "
+                           f"JAX CLI's {JAX_CLI_GROUPS}")
+
+    # chunk 0: every group in one dispatch, the pass state on the card
+    out0 = os.path.join(workdir, f"{stem}.c0.mesh")
+    _, rec0, wall0, info0 = _run_grouped(workdir, out0, device,
+                                         pass_kw={"chunk": 0})
+    for ext in (".mesh", ".sol"):
+        _same_bytes(out[:-5] + ext, out0[:-5] + ext)
+    print(f"[grouped] chunk 0: {rec0['ntets']} tets, dispatches "
+          f"{info0['stats'].group_dispatches}, masked slots "
+          f"{info0['stats'].sched_extra['cond_skipped_rows']}, wall "
+          f"{wall0:.3f} s, byte-identical .mesh and .sol")
+
+    # the incremental topology engine's band merges on
+    tap = _KernelTap(topo_incr.kernels)
+    samples = {}
+    real_prefix, real_order = topo_incr._prefix_i32, topo_incr.band_order
+
+    def prefix(x):
+        samples.setdefault("merge_prefix", x.to(torch.int32).clone())
+        return real_prefix(x)
+
+    def order(bkeys, bslot):
+        if len(bkeys) == 1:
+            samples.setdefault("radix_sort", (bkeys[0].clone(),
+                                              bslot.clone()))
+        return real_order(bkeys, bslot)
+    topo_incr.reset_counts()
+    topo_incr.kernels = tap
+    topo_incr._prefix_i32, topo_incr.band_order = prefix, order
+    outi = os.path.join(workdir, f"{stem}.incr.mesh")
+    try:
+        _, reci, walli, infoi = _run_grouped(workdir, outi, device,
+                                             pass_kw={"incr": True})
+    finally:
+        topo_incr.kernels = tap._real
+        topo_incr._prefix_i32, topo_incr.band_order = real_prefix, \
+            real_order
+    for ext in (".mesh", ".sol"):
+        _same_bytes(out[:-5] + ext, outi[:-5] + ext)
+    cnt = dict(topo_incr.COUNTS)
+    widths = sorted(topo_incr.BAND_WIDTHS)
+    shapes = {k: sorted(v) for k, v in tap.shapes.items()}
+    print(f"[grouped] incr on: {reci['ntets']} tets, wall {walli:.3f} s, "
+          f"byte-identical .mesh and .sol; band merges edge "
+          f"{cnt['edge_merges']} face {cnt['face_merges']}, reuses "
+          f"{cnt['reuses']}, full sorts {cnt['full']}, overflows "
+          f"{cnt['overflow']}; band widths (tets) {widths}")
+    print(f"[grouped] incr on: topo_incr's kernel calls {tap.calls}, "
+          f"launched {tap.launched}; (rows, words) {shapes}")
+    if not cnt["edge_merges"] + cnt["face_merges"]:
+        raise RuntimeError("[grouped] incr on: no band was merged")
+    if device == "cuda" and (tap.calls != tap.launched or not all(
+            tap.calls.get(k) for k in ("merge_prefix", "radix_sort"))):
+        raise RuntimeError(f"[grouped] topo_incr's calls {tap.calls} did "
+                           f"not all launch their kernel {tap.launched}")
+    return launches, samples, shapes
+
+
+def phase_stress(repeats: int = 5, band_shapes=None):
     """K5, K7 and K8 exactly against their plain versions at the edges of
-    their tiles and at 2**24 + 3 rows, each case ``repeats`` times."""
+    their tiles and at 2**24 + 3 rows, each case ``repeats`` times; and K5
+    and K7 at the shapes the [grouped] run's band merges gave them
+    (``band_shapes``: kernel -> [(rows, words)])."""
     import torch
     from parmmg_tpu_torch.core.constants import INT32_MAX
     from parmmg_tpu_torch.ops import kernels as K
@@ -903,6 +1134,25 @@ def phase_stress(repeats: int = 5):
                 same(f"segment_flags gathered n={n} {nw} words {view}",
                      gathered, torch.cat([ref[1].int(), *ref[0]]))
                 ncase += 2
+    # K5 and K7 at the band merges' shapes: survivor flags and insertion
+    # histograms [6 capT] / [4 capT], band keys with their slot word
+    # [6 B] / [4 B] (non-negative, tombstones INT32_MAX), 32 bits a word
+    for name, n, nw in sorted((k, n, nw) for k, v in (band_shapes or {})
+                              .items() for n, nw in v):
+        if name == "merge_prefix":
+            for label, x in (("0/1 flags", ints(0, 2, n)),
+                             ("small values", ints(-9, 100, n))):
+                x = x.to(torch.int32)
+                same(f"merge_prefix n={n} {label} (band merge)",
+                     lambda: K.merge_prefix(x), K.merge_prefix_plain(x))
+                ncase += 1
+        elif name == "radix_sort":
+            words = tuple(torch.where(ints(0, 10, n) < 2, INT32_MAX,
+                                      ints(0, 2 ** 31 - 1, n))
+                          .to(torch.int32) for _ in range(nw))
+            same(f"radix_sort n={n} {nw} words (band keys)",
+                 lambda: K.radix_sort(words), K.radix_sort_plain(words))
+            ncase += 1
     # both kernels on two streams at once, two calls each: every stream
     # has its own tile counters, epochs and status words
     x = ints(-9, 100, big).to(torch.int32)
@@ -967,7 +1217,8 @@ def phase_profile(workdir: str, stem: str):
             f"{e.key[:60]} {dev(e) / 1e3:.3f} ms x{e.count}" for e in lib))
 
 
-def phase_kernels(launches, shapes, launches_ani, shapes_ani, workdir: str):
+def phase_kernels(launches, shapes, launches_ani, shapes_ani, workdir: str,
+                  band_samples=None):
     import torch
     from parmmg_tpu_torch.core.constants import INT32_MAX
     from parmmg_tpu_torch.core.mesh import tet_edge_vertices
@@ -1171,6 +1422,30 @@ def phase_kernels(launches, shapes, launches_ani, shapes_ani, workdir: str):
                shape=f" [face keys {n4}, nbits (16, 32), {npass_f} passes]")
     launches_per_call(face, 1 + npass_f, "radix_sort face keys")
     rows[-1]["face_keys"] = sub(face)
+    # K7 on the [grouped] run's first edge band: the band's packed keys
+    # and its slot word, 2 words of 32 bits (8 passes), as the band merge
+    # sorts them.  Library: torch.sort of the pair packed into one int64
+    # (both words non-negative), which gives the same permutation
+    if band_samples and "radix_sort" in band_samples:
+        bw = tuple(w.contiguous() for w in band_samples["radix_sort"])
+        nb = bw[0].shape[0]
+        npass_b = K._radix_passes((32, 32))
+        border = K.radix_sort(bw)
+        err = check("radix_sort band", [border], [K.radix_sort_plain(bw)],
+                    0, 0, exact=True)
+        bpacked = (bw[0].long() << 32) | bw[1].long()
+        if not torch.equal(torch.sort(bpacked, stable=True).indices.int(),
+                           border):
+            raise RuntimeError("torch.sort of the packed band keys gives "
+                               "another permutation than K7")
+        band = row("radix_sort", "radix_sort.cu", 434, err,
+                   _time_ms(lambda: K.radix_sort(bw)),
+                   _time_ms(lambda: K.radix_sort_plain(bw)), 12 * nb, 0,
+                   lambda: K.radix_sort(bw), "radix_",
+                   library=lambda: torch.sort(bpacked, stable=True),
+                   shape=f" [band keys + slots {nb}, {npass_b} passes]")
+        launches_per_call(band, 1 + npass_b, "radix_sort band keys")
+        rows[-1]["band_keys"] = sub(band)
 
     # K5 prefix sum: the flags of fixed_order_sum's groups at its most
     # common shape (tet corners -> vertices, [4*capT]: the main path's one
@@ -1207,6 +1482,21 @@ def phase_kernels(launches, shapes, launches_ani, shapes_ani, workdir: str):
             rows.append(r)
         else:
             rows[-1]["histogram" if x is hist else "flags_6capT"] = sub(r)
+    # K5 on the [grouped] run's first band merge: the survivor flags of the
+    # retained edge sort [6 capT of a group]
+    if band_samples and "merge_prefix" in band_samples:
+        x = band_samples["merge_prefix"].contiguous()
+        nx = x.shape[0]
+        e = check("merge_prefix", [K.merge_prefix(x)],
+                  [K.merge_prefix_plain(x)], 0, 0, exact=True)
+        r = row("merge_prefix", "merge_prefix.cu", 358, e,
+                _time_ms(lambda: K.merge_prefix(x)),
+                _time_ms(lambda: K.merge_prefix_plain(x)), 8 * nx, nx,
+                lambda: K.merge_prefix(x), "prefix_",
+                library=lambda: torch.cumsum(x, 0, dtype=torch.int32),
+                shape=f" [band merge survivor flags {nx}]")
+        launches_per_call(r, 1, f"merge_prefix [band merge {nx}]")
+        rows[-1]["band_merge_flags"] = sub(r)
 
     # K8 segment flags (no single library call): sorted mode over the
     # sorted edge keys [6*capT] and face keys (f0, fw) [4*capT]; gathered
@@ -1353,9 +1643,10 @@ def main(argv=()) -> int:
         launches_ani, shapes_ani = phase_path(workdir, "cube16ani")
         phase_aniso_repeat(workdir)
         launches_field = phase_field(workdir)
+        launches_grouped, band_samples, band_shapes = phase_grouped(workdir)
         rows = phase_kernels(launches, shapes, launches_ani, shapes_ani,
-                             workdir)
-        phase_stress()
+                             workdir, band_samples)
+        phase_stress(band_shapes=band_shapes)
         phase_profile(workdir, "cube16")
         phase_profile(workdir, "cube16ani")
     except Exception:
@@ -1364,6 +1655,7 @@ def main(argv=()) -> int:
         return 1
     for r in rows:
         r["field_launches"] = int(launches_field[r["name"]])
+        r["grouped_launches"] = int(launches_grouped[r["name"]])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

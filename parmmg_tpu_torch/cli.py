@@ -13,8 +13,11 @@ per vertex; the output ``.sol`` has the input's kind.  ``-field`` names a
 ``.sol`` file of solution fields, P1-interpolated onto the new mesh.  The
 output is ``.mesh``/``.meshb``, ``.vtu`` or ``.pvtu``; with
 ``-distributed-output`` it is written as the distributed file
-``name.0.mesh``.  Every flag of the JAX package's CLI is accepted; only
-``-ndev > 1`` is not yet ported and exits with an error saying so.
+``name.0.mesh``.  ``-mesh-size N`` below the tet count remeshes in
+groups of about N tets (``parallel/groups.py``) over ``-niter`` passes,
+displacing the group seams by ``-nlayers`` layers between passes.  Every
+flag of the JAX package's CLI is accepted; ``-ndev > 1`` and ``-resume``
+of a grouped run are not yet ported and exit with an error saying so.
 """
 from __future__ import annotations
 
@@ -91,7 +94,8 @@ def build_parser() -> argparse.ArgumentParser:
     a("-distributed-output", dest="dist_out", action="store_true",
       help="write the output as the distributed file name.0.mesh")
     a("-resume", action="store_true",
-      help="resume a grouped run (grouped runs are not yet ported)")
+      help="resume a grouped run from its pass checkpoints (not yet "
+           "ported: a grouped run given -resume exits with an error)")
     a("-val", action="store_true", help="print default values and exit")
     a("-bench-json", dest="bench_json", action="store_true",
       help="print one JSON line with timing/quality stats")

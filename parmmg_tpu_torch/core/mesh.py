@@ -218,3 +218,57 @@ def with_capacity(mesh: Mesh, capP: int, capT: int) -> Mesh:
         ftag=grow(mesh.ftag, capT), fref=grow(mesh.fref, capT),
         etag=grow(mesh.etag, capT),
         npoin=mesh.npoin, nelem=mesh.nelem)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshStack:
+    """Meshes of one capacity stacked on a leading group axis: the fields
+    of :class:`Mesh`, each with a leading [G] dimension (``npoin`` and
+    ``nelem`` are [G]).  The stacked layout of the JAX package's grouped
+    paths (a ``Mesh`` pytree with a leading axis), as its own type so that
+    no code reads a :class:`Mesh` capacity off the group axis.  The
+    tensors may lie on the card or, between a chunked pipeline's
+    dispatches, on the host."""
+    vert: torch.Tensor   # [G, capP, 3] float32
+    vref: torch.Tensor   # [G, capP] int32
+    vtag: torch.Tensor   # [G, capP] int32
+    vmask: torch.Tensor  # [G, capP] bool
+    tet: torch.Tensor    # [G, capT, 4] int32
+    tref: torch.Tensor   # [G, capT] int32
+    tmask: torch.Tensor  # [G, capT] bool
+    adja: torch.Tensor   # [G, capT, 4] int32
+    ftag: torch.Tensor   # [G, capT, 4] int32
+    fref: torch.Tensor   # [G, capT, 4] int32
+    etag: torch.Tensor   # [G, capT, 6] int32
+    npoin: torch.Tensor  # [G] int32
+    nelem: torch.Tensor  # [G] int32
+
+    @property
+    def ngroups(self) -> int:
+        return self.vert.shape[0]
+
+    @property
+    def capP(self) -> int:
+        return self.vert.shape[1]
+
+    @property
+    def capT(self) -> int:
+        return self.tet.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.vert.device
+
+    def slot(self, g: int) -> Mesh:
+        """Group ``g`` as a :class:`Mesh` of views into the stack."""
+        return Mesh(**{f: getattr(self, f)[g] for f in MESH_FIELDS})
+
+    def map(self, fn) -> "MeshStack":
+        """A stack of ``fn(field)`` for every field tensor."""
+        return MeshStack(**{f: fn(getattr(self, f)) for f in MESH_FIELDS})
+
+    @staticmethod
+    def stack(meshes) -> "MeshStack":
+        """Stack meshes of one capacity along a new group axis."""
+        return MeshStack(**{f: torch.stack([getattr(m, f) for m in meshes])
+                            for f in MESH_FIELDS})

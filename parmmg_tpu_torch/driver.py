@@ -1,9 +1,13 @@
-"""The adaptation loop driver (port of ``driver.py``): the single-device,
-whole-mesh path.  Metric synthesis, a background copy of the mesh when the
-run carries user fields, ``niter`` calls of the adaptation operator, then
-the run tail (sequential repair, FEM conformity, P1 interpolation of the
-user fields from the background, quality report).  Multi-device runs and
-grouped ``-mesh-size`` runs are not yet ported and raise."""
+"""The adaptation loop driver (port of ``driver.py``): the single-device
+paths.  Metric synthesis, a background copy of the mesh when the run
+carries user fields, then either ``niter`` calls of the whole-mesh
+adaptation operator or, when ``-mesh-size`` splits the mesh into two
+groups or more, the grouped outer loop (``parallel/groups.grouped_adapt``:
+group split, frozen-seam remesh, seam displacement, ``niter`` passes) and
+a polish of the merged mesh; then the run tail (sequential repair, FEM
+conformity, P1 interpolation of the user fields from the background,
+quality report).  Multi-device runs, and ``-resume`` of a grouped run
+(pass checkpoints), are not yet ported and raise."""
 from __future__ import annotations
 
 import time
@@ -101,13 +105,15 @@ def _check_slice(pm) -> None:
     if info.n_devices > 1:
         raise NotYetPorted("multi-device runs (-ndev > 1) are not yet "
                            "ported to parmmg_tpu_torch")
+
+
+def _group_target(info, ne0: int):
+    """The group target size when ``-mesh-size`` splits a mesh of ``ne0``
+    tets into two groups or more, else None."""
     from .api.params import resolve_target_mesh_size
-    ne0 = int(pm.ne_)
+    from .parallel.groups import how_many_groups
     target = resolve_target_mesh_size(info, ne0, 1)
-    if target > 0 and min((ne0 + target - 1) // target,
-                          C.REMESHER_NGRPS_MAX) >= 2:
-        raise NotYetPorted("grouped runs (-mesh-size below the mesh size) "
-                           "are not yet ported to parmmg_tpu_torch")
+    return target if how_many_groups(ne0, target) >= 2 else None
 
 
 def parmmg_run(pm) -> tuple:
@@ -144,6 +150,13 @@ def parmmg_run(pm) -> tuple:
             hausd = min(hausd, _hd)
     if not info.angle_detection:
         hausd = None
+    target = _group_target(info, int(mesh.tmask.sum()))
+    if target is not None:
+        mesh, met = _grouped_run(mesh, met, target, stats, info, hausd)
+        _log(C.PMMG_VERB_STEPS,
+             f"  -- adaptation {time.perf_counter() - t0:.3f} s",
+             info.imprim)
+        return _finish_run(pm, mesh, met, stats, info, bg_mesh, bg_fields)
     for _ in range(max(1, info.niter)):
         backup = (replace(mesh), met.clone())
         try:
@@ -160,6 +173,49 @@ def parmmg_run(pm) -> tuple:
     _log(C.PMMG_VERB_STEPS,
          f"  -- adaptation {time.perf_counter() - t0:.3f} s", info.imprim)
     return _finish_run(pm, mesh, met, stats, info, bg_mesh, bg_fields)
+
+
+def _grouped_run(mesh, met, target: int, stats, info, hausd):
+    """The grouped branch: ``grouped_adapt`` (``-niter`` passes,
+    ``-nlayers`` displacement layers), the conforming input restored with
+    status LOWFAILURE when a group's capacity or the card's memory runs
+    out, else 8 waves of ``sliver_polish`` on the merged mesh (group seams
+    breed slivers).  The chunk pipeline's segment seconds are printed at
+    verbosity ``PMMG_VERB_STEPS``.  Returns (mesh, met)."""
+    from .ops.adapt import sliver_polish
+    from .parallel.groups import grouped_adapt
+    from .utils.timers import Timers
+    if info.resume:
+        raise NotYetPorted("-resume (grouped pass checkpoints) is not yet "
+                           "ported to parmmg_tpu_torch")
+    backup = (replace(mesh), met.clone())
+    tim = Timers()
+    try:
+        mesh, met = grouped_adapt(
+            mesh, met, target, niter=max(1, info.niter),
+            verbose=3 if info.imprim >= C.PMMG_VERB_ITWAVES else 0,
+            stats=stats, noinsert=info.noinsert, noswap=info.noswap,
+            nomove=info.nomove, hausd=hausd, ifc_layers=info.ifc_layers,
+            timers=tim)
+    except (MemoryError, torch.cuda.OutOfMemoryError):
+        stats.status = C.PMMG_LOWFAILURE
+        return backup
+    if tim.acc:
+        _log(C.PMMG_VERB_STEPS, tim.report(), info.imprim)
+    if info.noinsert and info.noswap and info.nomove:
+        return mesh, met
+    for w in range(8):
+        mesh, counts = sliver_polish(
+            mesh, met, 1000 + w, do_collapse=not info.noinsert,
+            do_swap=not info.noswap, do_smooth=not info.nomove,
+            hausd=hausd)
+        nc, nw, nm, _ = counts.tolist()
+        stats.ncollapse += nc
+        stats.nswap += nw
+        stats.nmoved += nm
+        if nc == 0 and nw == 0:
+            break
+    return mesh, met
 
 
 def _finish_run(pm, mesh, met, stats, info, bg_mesh, bg_fields):

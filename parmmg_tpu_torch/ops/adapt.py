@@ -12,12 +12,14 @@ on the card so is its dispatch: ``adapt_mesh`` runs blocks of
 cycles on an [A]-row sub-mesh of the active tets, and collapses, swaps
 and smoothing limited to a rotating morton window).  On the CPU it runs
 one full-width cycle per dispatch, as the JAX package does off the TPU.
-The collapse donor band is on; the incremental topology and the
-smoothing cadence are not ported.
+The collapse donor band is on.  The grouped path
+(``parallel/groups.py``) runs ``adapt_cycle_impl`` per group slot with
+the quiet mask (``active``), the smoothing cadence (``smooth_idle``) and
+the incremental topology engine (``topo`` / ``incr``, ``ops/topo_incr``).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -42,6 +44,14 @@ class AdaptStats:
     cycles: int = 0
     regrows: int = 0
     status: int = 0
+    # quiet-group scheduler instrumentation of the grouped path
+    # (parallel/sched.py): group-block dispatches run / saved, group
+    # blocks skipped, and the extra dict (active groups per block,
+    # pipeline segment seconds, dirty-band occupancy per cycle)
+    group_dispatches: int = 0
+    group_dispatches_saved: int = 0
+    groups_skipped: int = 0
+    sched_extra: dict = field(default_factory=dict)
 
     def __iadd__(self, other):
         self.nsplit += other.nsplit
@@ -51,6 +61,14 @@ class AdaptStats:
         self.cycles += other.cycles
         self.regrows += other.regrows
         self.status = max(self.status, other.status)
+        self.group_dispatches += other.group_dispatches
+        self.group_dispatches_saved += other.group_dispatches_saved
+        self.groups_skipped += other.groups_skipped
+        for k, v in other.sched_extra.items():
+            if isinstance(v, list):
+                self.sched_extra.setdefault(k, []).extend(v)
+            else:
+                self.sched_extra[k] = self.sched_extra.get(k, 0.0) + v
         return self
 
 
@@ -61,7 +79,10 @@ def adapt_cycle_impl(mesh: Mesh, met: torch.Tensor, wave: int,
                      vact: torch.Tensor | None = None,
                      submesh: bool = False,
                      wwin: torch.Tensor | None = None,
-                     final_rebuild: bool = True):
+                     final_rebuild: bool = True, prescreen: bool = True,
+                     active: bool | None = None,
+                     smooth_idle: bool | None = None, topo=None,
+                     incr: bool = False):
     """One cycle: split -> collapse -> [swap] -> [smooth] -> [adjacency].
 
     ``vact`` [capP] bool: the narrow cycle's active vertices (candidates
@@ -70,30 +91,66 @@ def adapt_cycle_impl(mesh: Mesh, met: torch.Tensor, wave: int,
     MG_BDY; ``wwin`` [capP] bool: the morton window that limits
     collapses, swaps and smoothing (``ops/active.py``).
     ``final_rebuild=False`` skips the closing ``build_adjacency`` (a
-    fused block rebuilds once at its end).
+    fused block rebuilds once at its end).  ``prescreen=False`` (or
+    ``wide``) turns off the split's approximate nomination prescreen.
+
+    The grouped path's hooks (``parallel/groups.py``), host branches
+    here where the JAX package has ``lax.cond``s:
+
+    - ``active`` False: the quiet mask of the group slot is off — the
+      cycle returns its input unchanged with a counts row of zeros but
+      [5] (live tets) and, with ``topo``, [8] (the dirty tets pending);
+    - ``smooth_idle`` True: the previous cycle was a full no-op (zero
+      topology ops and zero moves); the smoothing wave is skipped when
+      this cycle's split + collapse + swap is 0 too (one host read of
+      that sum), as an exact identity (the JAX package's smoothing
+      cadence).  Full-width cycles only (no ``vact`` / ``wwin``);
+    - ``topo`` (``ops/topo_incr.TopoState``): the edge table and the
+      closing adjacency come from ``incr_unique_edges`` /
+      ``incr_build_adjacency`` (band-merged when ``incr``, else the full
+      sorts: the same bits), ``mark_dirty`` follows every wave, the
+      counts row gains [8] = the dirty tets at the cycle's start, and
+      the return is (mesh, met, counts, topo).
 
     Returns (mesh, met, counts) with ``counts`` the int32 row
     [nsplit, ncollapse, nswap, nmoved, overflow, live_tets, deferred, 0]
     (deferred: bit 0 insertion waves, bit 1 swap waves)."""
     dev = mesh.device
     zero = torch.zeros((), dtype=torch.int32, device=dev)
+    if topo is not None:
+        from .topo_incr import (incr_build_adjacency, incr_unique_edges,
+                                mark_dirty)
+    if active is not None and not active:
+        row = [zero] * 5 + [mesh.tmask.sum(dtype=torch.int32)] + [zero] * 2
+        if topo is None:
+            return mesh, met, torch.stack(row)
+        return mesh, met, torch.stack(
+            row + [topo.edirty.sum(dtype=torch.int32)]), topo
+    nd0 = None if topo is None else topo.edirty.sum(dtype=torch.int32)
     defer = torch.zeros((), dtype=torch.bool, device=dev)
     defer_sw = torch.zeros((), dtype=torch.bool, device=dev)
     if do_insert:
-        et0 = unique_edges(mesh, shell_slots=0)
+        if topo is not None:
+            et0, topo = incr_unique_edges(mesh, topo, incr, shell_slots=0)
+        else:
+            et0 = unique_edges(mesh, shell_slots=0)
         lens0 = edge_lengths(mesh, et0, met)
         vtan0 = None
         if hausd is not None:
             vtan0 = ridge_vertex_tangents(mesh, et=et0)
         res = split_wave(mesh, met, hausd=hausd, budget_div=budget_div,
                          et=et0, lens=lens0, vtan=vtan0,
-                         prescreen=not wide, vact=vact)
+                         prescreen=prescreen and not wide, vact=vact)
+        if topo is not None:
+            topo = mark_dirty(topo, mesh.tet, mesh.tmask, res.mesh)
         mesh, met = res.mesh, res.met
         nsplit, overflow = res.nsplit, res.overflow
         defer = defer | res.deferred
         col = collapse_wave(mesh, met, hausd=hausd, budget_div=budget_div,
                             et=et0, lens=lens0, stale_tets=res.modified,
                             vtan=vtan0, vact=vact, wwin=wwin)
+        if topo is not None:
+            topo = mark_dirty(topo, mesh.tet, mesh.tmask, col.mesh)
         defer = defer | col.deferred
         mesh = boundary_edge_tags(col.mesh) if bool(col.surface_changed) \
             else col.mesh
@@ -106,25 +163,40 @@ def adapt_cycle_impl(mesh: Mesh, met: torch.Tensor, wave: int,
     if do_swap:
         sew = swap_edges_wave(mesh, met, hausd=hausd, budget_div=budget_div,
                               vact=vact, wwin=wwin)
+        if topo is not None:
+            topo = mark_dirty(topo, mesh.tet, mesh.tmask, sew.mesh)
         s23 = swap23_wave(sew.mesh, met, budget_div=budget_div, wwin=wwin,
                           facesort=True, set_bdy_tags=not submesh)
+        if topo is not None:
+            topo = mark_dirty(topo, sew.mesh.tet, sew.mesh.tmask, s23.mesh)
         mesh = s23.mesh
         nswap = sew.nswap + s23.nswap
         defer_sw = defer_sw | sew.deferred | s23.deferred
 
     nmoved = zero
     if do_smooth:
-        sm = smooth_wave(mesh, met, wave=wave,
-                         vact=vact if vact is not None else wwin)
-        mesh = sm.mesh
-        nmoved = sm.nmoved
+        sv = vact if vact is not None else wwin
+        skip = False
+        if smooth_idle and sv is None:
+            skip = int(nsplit + ncol + nswap) == 0
+        if not skip:
+            sm = smooth_wave(mesh, met, wave=wave, vact=sv)
+            mesh = sm.mesh
+            nmoved = sm.nmoved
 
     if final_rebuild:
-        mesh = build_adjacency(mesh, set_bdy_tags=not submesh)
+        if topo is not None:
+            mesh, topo = incr_build_adjacency(mesh, topo, incr,
+                                              set_bdy_tags=not submesh)
+        else:
+            mesh = build_adjacency(mesh, set_bdy_tags=not submesh)
     row = [nsplit, ncol, nswap, nmoved, overflow.to(torch.int32),
            mesh.tmask.sum(dtype=torch.int32),
            defer.to(torch.int32) + 2 * defer_sw.to(torch.int32), zero]
-    return mesh, met, torch.stack([r.to(torch.int32) for r in row])
+    counts = torch.stack([r.to(torch.int32) for r in row])
+    if topo is None:
+        return mesh, met, counts
+    return mesh, met, torch.cat([counts, nd0.reshape(1)]), topo
 
 
 def fem_pass(mesh: Mesh, met: torch.Tensor):
@@ -139,11 +211,17 @@ def fem_pass(mesh: Mesh, met: torch.Tensor):
 def sliver_polish(mesh: Mesh, met: torch.Tensor, wave: int,
                   sliver_q: float = 0.2, do_collapse: bool = True,
                   do_swap: bool = True, do_smooth: bool = True,
-                  hausd: float | None = None):
+                  hausd: float | None = None, active: bool | None = None):
     """Bad-element pass: quality-targeted collapses, edge / generalized /
-    face swaps and an optimal-position smoothing wave.  Returns (mesh,
-    counts[4] = [ncollapse, nswap, nmoved, live_tets])."""
+    face swaps and an optimal-position smoothing wave.  ``active`` False
+    (a retired group slot of the grouped polish, or a padded tail row)
+    returns the input with zero counts but the live tets.  Returns
+    (mesh, counts[4] = [ncollapse, nswap, nmoved, live_tets])."""
     dev = mesh.device
+    if active is not None and not active:
+        z = torch.zeros((), dtype=torch.int32, device=dev)
+        return mesh, torch.stack([z, z, z,
+                                  mesh.tmask.sum(dtype=torch.int32)])
     ncol = nswap = nmoved = torch.zeros((), dtype=torch.int32, device=dev)
     if do_collapse:
         col = collapse_wave(mesh, met, sliver_q=sliver_q, hausd=hausd,

@@ -91,14 +91,16 @@ def unique_edges(mesh: Mesh, shell_slots: int = 3) -> EdgeTable:
     return _edges_epilogue(mesh, order, ka, kb, first, shell_slots)
 
 
-def unique_edges_from_sorted(mesh: Mesh, order, ks,
-                             shell_slots: int = 0) -> EdgeTable:
+def unique_edges_from_sorted(mesh: Mesh, order, ks, shell_slots: int = 0,
+                             first=None) -> EdgeTable:
     """EdgeTable from a precomputed packed edge sort: ``order`` the
     stable permutation of the 6*capT slot keys, ``ks`` the ascending
     packed keys (a*capP+b, INT32_MAX on invalid slots), as
-    ``sort_pairs``' packed branch gives them.  Needs capP <= PACK_LIMIT."""
+    ``sort_pairs``' packed branch gives them, and ``first`` their
+    segment flags (computed when not given).  Needs capP <= PACK_LIMIT."""
     ks = ks.to(torch.int32).contiguous()
-    first = kernels.segment_flags((ks,))
+    if first is None:
+        first = kernels.segment_flags((ks,))
     inv = ks == INT32_MAX
     big = torch.full_like(ks, INT32_MAX)
     ka = torch.where(inv, big, torch.div(ks, mesh.capP, rounding_mode="floor"))

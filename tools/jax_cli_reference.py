@@ -3,11 +3,13 @@
 with the port, and print its one-line JSON report.
 
     JAX_PLATFORMS=cpu python tools/jax_cli_reference.py [n] [workdir] \
-        [--aniso | --sphere] [--block N]
+        [--aniso | --sphere] [--block N] [--metric-n M] \
+        [--mesh-size N] [--niter N]
 
 The input is cube_mesh(n) (default 16), written as Medit ``.mesh``/``.sol``;
 the run is ``-niter 1``.  The metric is the planar "shock" iso metric
-h = 1.5/n, or with ``--aniso`` the planar "shock" tensor metric
+h = 1.5/M (M = ``--metric-n``, default n), or with ``--aniso`` the planar
+"shock" tensor metric
 ``analytic_ani_metric(vert, "shock", h=1.5/(3n), h_tan=0.1)`` (spacing
 0.2-2.2 h across the plane x = 0.5, 0.1 along it).
 
@@ -19,6 +21,15 @@ unit ball, ``(3/16) (0.2 + 2 |x|)``; ``temp`` and ``vel``, a scalar and a
 from the file, carries the other two fields through the remesh by P1
 interpolation, and writes ``sphere<n>.jax.vtu``; all other flags keep
 their defaults (hausd bound, ridge detection, curved-boundary moves).
+
+``--mesh-size N`` and ``--niter N`` pass the CLI flags of the same names:
+with N below the tet count the run takes the grouped path
+(``parallel/groups.py``), and the tool prints the group count of each
+outer pass on its second JSON line (``groups``), its ``cycles`` counting
+the grouped passes' cycles.  The reference CI's
+standard matrix is ``--mesh-size 16384 --niter 2``; on cube_mesh(32) with
+``--metric-n 16`` that is 12 groups, the input of ``chip_smoke.py``'s
+``[grouped]`` phase.
 
 ``--block N`` sets ``PARMMG_CYCLE_BLOCK=N`` for the run, the JAX package's
 own knob for the cycles per dispatch: 9 is its accelerator configuration
@@ -65,9 +76,20 @@ def _count_cycles(tally: dict) -> None:
     its blocks and the narrow cycles into ``tally``."""
     from parmmg_tpu import driver
     from parmmg_tpu.ops import active
-    tally.update(cycles=0, narrow=0, blocks=0)
+    from parmmg_tpu.parallel import groups
+    tally.update(cycles=0, narrow=0, blocks=0, groups=[])
     cap = {}
     adapt_mesh, auto = driver.adapt_mesh, active.adapt_cycles_auto
+    grouped_pass = groups.grouped_adapt_pass
+
+    def counted_pass(mesh, met, ngroups, *a, **kw):
+        tally["groups"].append(int(ngroups))
+        st = kw.get("stats")
+        c0 = st.cycles if st is not None else 0
+        out = grouped_pass(mesh, met, ngroups, *a, **kw)
+        if st is not None:
+            tally["cycles"] += st.cycles - c0
+        return out
 
     def counted_adapt_mesh(*a, **kw):
         out = adapt_mesh(*a, **kw)
@@ -90,6 +112,7 @@ def _count_cycles(tally: dict) -> None:
         return out
     driver.adapt_mesh = counted_adapt_mesh
     active.adapt_cycles_auto = counted_auto
+    groups.grouped_adapt_pass = counted_pass
 
 
 def write_sphere_input(workdir: str, n: int) -> str:
@@ -116,7 +139,13 @@ def main(argv) -> int:
         i = argv.index("--block")
         os.environ["PARMMG_CYCLE_BLOCK"] = str(int(argv[i + 1]))
         del argv[i:i + 2]
-    rc = _run(argv, aniso, sphere)
+    opts = {}
+    for flag in ("--metric-n", "--mesh-size", "--niter"):
+        if flag in argv:
+            i = argv.index(flag)
+            opts[flag] = int(argv[i + 1])
+            del argv[i:i + 2]
+    rc = _run(argv, aniso, sphere, opts)
     print(json.dumps(dict(TALLY, block=int(
         os.environ.get("PARMMG_CYCLE_BLOCK", "0") or 0))))
     return rc
@@ -125,17 +154,22 @@ def main(argv) -> int:
 TALLY: dict = {}
 
 
-def _run(argv, aniso: bool, sphere: bool) -> int:
+def _run(argv, aniso: bool, sphere: bool, opts: dict) -> int:
     n = int(argv[0]) if argv else 16
     workdir = argv[1] if len(argv) > 1 else tempfile.mkdtemp()
+    hn = opts.get("--metric-n", n)
+    flags = ["-niter", str(opts.get("--niter", 1)), "-v", "1",
+             "-bench-json"]
+    if "--mesh-size" in opts:
+        flags += ["-mesh-size", str(opts["--mesh-size"])]
     from parmmg_tpu import cli
     _count_cycles(TALLY)
     if sphere:
         _tolerant_ledger_listener()
         src = write_sphere_input(workdir, n)
         return cli.main(["-in", src, "-out",
-                         os.path.join(workdir, f"sphere{n}.jax.vtu"),
-                         "-niter", "1", "-v", "1", "-bench-json"])
+                         os.path.join(workdir, f"sphere{n}.jax.vtu")]
+                        + flags)
     from parmmg_tpu.io.medit import MeditMesh, write_mesh, write_sol
     from parmmg_tpu.utils.fixtures import (analytic_ani_metric,
                                            analytic_iso_metric, cube_mesh)
@@ -149,13 +183,12 @@ def _run(argv, aniso: bool, sphere: bool) -> int:
     sol = os.path.join(workdir, f"{stem}.sol")
     write_mesh(src, m)
     if aniso:
-        write_sol(sol, analytic_ani_metric(vert, "shock", h=1.5 / (3 * n),
+        write_sol(sol, analytic_ani_metric(vert, "shock", h=1.5 / (3 * hn),
                                            h_tan=0.1), [3])
     else:
-        write_sol(sol, analytic_iso_metric(vert, "shock", h=1.5 / n), [1])
+        write_sol(sol, analytic_iso_metric(vert, "shock", h=1.5 / hn), [1])
     return cli.main(["-in", src, "-sol", sol, "-out",
-                     os.path.join(workdir, f"{stem}.jax.mesh"),
-                     "-niter", "1", "-v", "1", "-bench-json"])
+                     os.path.join(workdir, f"{stem}.jax.mesh")] + flags)
 
 
 if __name__ == "__main__":
