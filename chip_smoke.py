@@ -82,21 +82,25 @@ Phases (any failure exits non-zero without the final result line):
 6. grouped - the CLI with the reference CI's standard flags, ``-mesh-size
              16384 -niter 2``, on cube_mesh(32) (35,937 points, 196,608
              tets: 12 groups a pass) under the cube16 iso shock map, all
-             else default (blocks of 9 cycles, 8 groups a dispatch):
-             ``parallel/groups.py``'s split / frozen-seam remesh / seam
-             displacement loop.  Launch counts zeroed just before and read
-             just after: K1 and K3-K8 must have launched, K2 must not.
-             Checked: a conforming output with qmin > 0, its tet count
-             within 2% of the JAX CLI's at PARMMG_CYCLE_BLOCK=9 (229,193),
-             12 groups in both passes.  Two more runs must write the same
-             bytes: one at chunk 0 (every group in one dispatch) and one
-             with the incremental topology engine's band merges on, which
-             must merge at least one band with every K5, K7 and K8 call of
-             ``ops/topo_incr`` launching its kernel.  Prints the groups a
-             pass, cycles and group-cycles, the active groups a block,
-             dispatches (and saved), masked slots, the pipeline's segment
-             seconds, host reads a group-cycle, the band merges, their
-             widths and the kernels' shapes there, and each run's wall.
+             else default (blocks of 9 cycles; unchunked, the stacked
+             state fitting the card): ``parallel/groups.py``'s split /
+             frozen-seam remesh / seam displacement loop.  Launch counts
+             zeroed just before and read just after: K1 and K3-K8 must
+             have launched, K2 must not.  Checked: a conforming output
+             with qmin > 0, its tet count within 2% of the JAX CLI's at
+             PARMMG_CYCLE_BLOCK=9 (229,193), 12 groups in both passes.
+             Three more runs must write the same bytes: one before it
+             under PyTorch's sync debug mode (it counts the host reads;
+             its wall is not compared), one at chunk 8 (the state on the
+             host, 8 groups a dispatch) and one with the incremental
+             topology engine's band merges on, which must merge at least
+             one band with every K5, K7 and K8 call of ``ops/topo_incr``
+             launching its kernel.  Prints the groups a pass, the chunk,
+             cycles and group-cycles, the active groups a block,
+             dispatches (and saved), masked slots, the chunked run's
+             pipeline segment seconds, host reads a group-cycle, the band
+             merges, their widths and the kernels' shapes there, and each
+             run's wall.
 7. kernels - each kernel against its plain PyTorch version on the card, on
              the output mesh of its path (the capacities that path
              reached; K2 and K6's tensor mode on the aniso output and its
@@ -929,22 +933,32 @@ def phase_grouped(workdir: str, device: str = "cuda"):
     """The [grouped] path: the port's CLI with ``-mesh-size 16384 -niter 2``
     on cube_mesh(32) (35,937 points, 196,608 tets: 12 groups) under the
     cube16 iso shock map, everything else at its default (blocks of 9,
-    chunks of 8 groups).  Checked: K1 and K3-K8 launched and K2 not, a
-    conforming output with qmin > 0, the tet count within 2% of the JAX
-    CLI's, 12 groups in each pass; then the same bytes from a run at chunk
-    0 (every group in one dispatch, the state on the card) and from a run
-    with the incremental topology engine's band merges on, which must
-    merge at least one band with every K5 / K7 / K8 call of
-    ``ops/topo_incr`` launching its kernel.  Returns (launches, the band
-    merges' K5 and K7 inputs, the (kernel, rows, words) shapes of the
+    the chunk of ``groups.group_chunk``'s memory rule: unchunked on the
+    card).  Checked: K1 and K3-K8 launched and K2 not, a conforming output
+    with qmin > 0, the tet count within 2% of the JAX CLI's, 12 groups in
+    each pass; then the same bytes from a run before it that counts the
+    host reads under PyTorch's sync debug mode, from a run at the other
+    chunking (8 groups a dispatch with the state on the host, or every
+    group in one) and from a run with the incremental topology engine's
+    band merges on, which must merge at least one band with every K5 / K7
+    / K8 call of ``ops/topo_incr`` launching its kernel.  Only the walls of
+    the runs without the debug mode are compared.  Returns (launches, the
+    band merges' K5 and K7 inputs, the (kernel, rows, words) shapes of the
     engine's calls)."""
     import torch
     from parmmg_tpu_torch.ops import topo_incr
     stem = "cube32"
     _write_input(workdir, stem, n=32, metric_n=16)
+    # the host reads: the defaults under the sync debug mode, which slows
+    # the host, so this run's wall stands apart from the others
+    outr = os.path.join(workdir, f"{stem}.reads.mesh")
+    reads = None
+    if device == "cuda":
+        _, _, wallr, infor = _run_grouped(workdir, outr, device,
+                                          count_reads=True)
+        reads = (infor["reads"], infor["group_cycles"], wallr)
     out = os.path.join(workdir, f"{stem}.o.mesh")
-    launches, rec, wall, info = _run_grouped(workdir, out, device,
-                                             count_reads=device == "cuda")
+    launches, rec, wall, info = _run_grouped(workdir, out, device)
     st = info["stats"]
     se = st.sched_extra
     mesh, _, _ = _read_output(out, device)
@@ -956,21 +970,20 @@ def phase_grouped(workdir: str, device: str = "cuda"):
           f"{info['ga_wall']:.3f} s)")
     print(f"[grouped] re-read output: {int(mesh.tmask.sum())} tets, "
           f"adjacency {bad}, qmin {qmin:.6f} qmean {qmean:.6f}")
-    print(f"[grouped] groups per pass {se['groups_per_pass']}, cycles "
-          f"{st.cycles}, group-cycles run {info['group_cycles']}, active "
-          f"groups per block {se['active_groups_per_block']}")
+    print(f"[grouped] groups per pass {se['groups_per_pass']}, chunk "
+          f"{se['group_chunk']}, cycles {st.cycles}, group-cycles run "
+          f"{info['group_cycles']}, active groups per block "
+          f"{se['active_groups_per_block']}")
     print(f"[grouped] dispatches {st.group_dispatches} (saved "
           f"{st.group_dispatches_saved}), group blocks skipped "
-          f"{st.groups_skipped}, masked slots {se['cond_skipped_rows']}, "
-          f"chunk recommendation {se['chunk_recommendation']}")
-    print("[grouped] pipeline seconds " + ", ".join(
-        f"{k[4:-2]} {se[k]:.3f}" for k in ("grp_upload_s", "grp_compute_s",
-                                           "grp_download_s",
-                                           "grp_writeback_s") if k in se))
-    if info["reads"]:
-        print(f"[grouped] host reads {info['reads']} in grouped_adapt = "
-              f"{info['reads'] / max(info['group_cycles'], 1):.1f} a "
-              "group-cycle")
+          f"{st.groups_skipped}, masked slots {se['cond_skipped_rows']}")
+    if reads:
+        for ext in (".mesh", ".sol"):
+            _same_bytes(out[:-5] + ext, outr[:-5] + ext)
+        print(f"[grouped] host reads {reads[0]} in grouped_adapt = "
+              f"{reads[0] / max(reads[1], 1):.1f} a group-cycle (a run "
+              f"before, under the sync debug mode: wall {reads[2]:.3f} s, "
+              "byte-identical .mesh and .sol)")
     print(f"[grouped] launches {launches}")
     must, must_not = PATH_KERNELS[stem]
     missing = sorted(k for k in must if launches[k] == 0)
@@ -987,16 +1000,27 @@ def phase_grouped(workdir: str, device: str = "cuda"):
         raise RuntimeError(f"groups per pass {se['groups_per_pass']}, the "
                            f"JAX CLI's {JAX_CLI_GROUPS}")
 
-    # chunk 0: every group in one dispatch, the pass state on the card
-    out0 = os.path.join(workdir, f"{stem}.c0.mesh")
-    _, rec0, wall0, info0 = _run_grouped(workdir, out0, device,
-                                         pass_kw={"chunk": 0})
+    # the other chunking: 8 groups a dispatch with the pass state on the
+    # host (the JAX package's rule on its accelerator), or all in one
+    alt = 0 if any(se["group_chunk"]) else 8
+    outc = os.path.join(workdir, f"{stem}.c{alt}.mesh")
+    _, recc, wallc, infoc = _run_grouped(workdir, outc, device,
+                                         pass_kw={"chunk": alt})
     for ext in (".mesh", ".sol"):
-        _same_bytes(out[:-5] + ext, out0[:-5] + ext)
-    print(f"[grouped] chunk 0: {rec0['ntets']} tets, dispatches "
-          f"{info0['stats'].group_dispatches}, masked slots "
-          f"{info0['stats'].sched_extra['cond_skipped_rows']}, wall "
-          f"{wall0:.3f} s, byte-identical .mesh and .sol")
+        _same_bytes(out[:-5] + ext, outc[:-5] + ext)
+    sec = infoc["stats"].sched_extra
+    print(f"[grouped] chunk {alt}: {recc['ntets']} tets, dispatches "
+          f"{infoc['stats'].group_dispatches}, masked slots "
+          f"{sec['cond_skipped_rows']}, wall {wallc:.3f} s against "
+          f"{wall:.3f} s at chunk {se['group_chunk']} (grouped_adapt "
+          f"{infoc['ga_wall']:.3f} s against {info['ga_wall']:.3f} s), "
+          "byte-identical .mesh and .sol")
+    for tag, x in ((f"chunk {alt}", sec), ("default", se)):
+        if "grp_compute_s" in x:
+            print(f"[grouped] {tag}: pipeline seconds " + ", ".join(
+                f"{k[4:-2]} {x[k]:.3f}" for k in (
+                    "grp_upload_s", "grp_compute_s", "grp_download_s",
+                    "grp_writeback_s")))
 
     # the incremental topology engine's band merges on
     tap = _KernelTap(topo_incr.kernels)

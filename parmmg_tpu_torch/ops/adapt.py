@@ -211,17 +211,11 @@ def fem_pass(mesh: Mesh, met: torch.Tensor):
 def sliver_polish(mesh: Mesh, met: torch.Tensor, wave: int,
                   sliver_q: float = 0.2, do_collapse: bool = True,
                   do_swap: bool = True, do_smooth: bool = True,
-                  hausd: float | None = None, active: bool | None = None):
+                  hausd: float | None = None):
     """Bad-element pass: quality-targeted collapses, edge / generalized /
-    face swaps and an optimal-position smoothing wave.  ``active`` False
-    (a retired group slot of the grouped polish, or a padded tail row)
-    returns the input with zero counts but the live tets.  Returns
+    face swaps and an optimal-position smoothing wave.  Returns
     (mesh, counts[4] = [ncollapse, nswap, nmoved, live_tets])."""
     dev = mesh.device
-    if active is not None and not active:
-        z = torch.zeros((), dtype=torch.int32, device=dev)
-        return mesh, torch.stack([z, z, z,
-                                  mesh.tmask.sum(dtype=torch.int32)])
     ncol = nswap = nmoved = torch.zeros((), dtype=torch.int32, device=dev)
     if do_collapse:
         col = collapse_wave(mesh, met, sliver_q=sliver_q, hausd=hausd,

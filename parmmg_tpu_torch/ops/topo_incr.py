@@ -38,8 +38,8 @@ dirty tet at all) with ``lax.cond``; the port reads the dirty count and
 the state's flag on the host, once per derivation, and only when the
 incremental path is on (``incr``): off, the full sort runs with no read.
 ``PARMMG_INCR_TOPO`` is the ``incr`` argument of the grouped drivers
-(default off, as in the JAX package), ``PARMMG_INCR_BAND`` the ``band``
-argument of :func:`incr_band_width`.
+(default off, as in the JAX package); the band width is always the
+ladder rung of :func:`incr_band_width`.
 """
 from __future__ import annotations
 
@@ -66,13 +66,9 @@ def reset_counts() -> None:
     BAND_WIDTHS.clear()
 
 
-def incr_band_width(capT: int, band: int | None = None) -> int:
+def incr_band_width(capT: int) -> int:
     """Dirty-band width in TETS for a capacity: one rung of the geometric
-    bucket ladder at capT//16 (floor 1024, capped at capT).  ``band``
-    overrides it (clamped into [1, capT]; the JAX package's
-    PARMMG_INCR_BAND)."""
-    if band:
-        return max(1, min(int(band), capT))
+    bucket ladder at capT//16 (floor 1024, capped at capT)."""
     return bucket(max(1, capT // 16), floor=1024, cap=capT)
 
 
@@ -101,7 +97,8 @@ def topo_init(capT: int, stack: int | None = None,
     """All-zeros state (ok=False: the first derivation is a full
     rebuild).  ``stack`` prepends a group axis.  ``topo_init(capT, G)``
     on the CPU is the host-resident stacked state of the chunked grouped
-    pipeline (the JAX package's ``topo_init_np``)."""
+    pipeline (the JAX package's ``topo_init_np``), written in place by
+    its writebacks."""
     def z(shape, dt):
         s = shape if stack is None else (stack,) + shape
         return torch.zeros(s, dtype=dt, device=device)
@@ -111,12 +108,6 @@ def topo_init(capT: int, stack: int | None = None,
         eok=z((), b), edirty=z((capT,), b),
         fk0=z((4 * capT,), i32), fkw=z((4 * capT,), i32),
         fslot=z((4 * capT,), i32), fok=z((), b), fdirty=z((capT,), b))
-
-
-def topo_init_np(nslots: int, capT: int) -> TopoState:
-    """Host-resident stacked state [nslots, ...] (CPU tensors), mutated
-    in place by the chunked pipeline's writebacks."""
-    return topo_init(capT, stack=nslots, device="cpu")
 
 
 def mark_dirty(topo: TopoState, tet0: torch.Tensor, tmask0: torch.Tensor,
@@ -296,7 +287,7 @@ def _band_route(ok, dirty, incr: bool, B: int) -> str:
 
 
 def incr_unique_edges(mesh: Mesh, topo: TopoState, incr: bool,
-                      shell_slots: int = 0, band: int | None = None):
+                      shell_slots: int = 0):
     """EdgeTable via the retained sort: band-merge when ``incr``, the
     state is valid and the dirty set fits the band; otherwise the full
     packed sort (the same bits as ``ops/edges.unique_edges`` either way:
@@ -313,7 +304,7 @@ def incr_unique_edges(mesh: Mesh, topo: TopoState, incr: bool,
         et = unique_edges(mesh, shell_slots=shell_slots)
         return et, topo._replace(
             eok=torch.zeros((), dtype=torch.bool, device=dev), edirty=clean)
-    B = incr_band_width(capT, band)
+    B = incr_band_width(capT)
     route = _band_route(topo.eok, topo.edirty, incr, B)
     first = None
     if route == "full":
@@ -349,7 +340,7 @@ def incr_unique_edges(mesh: Mesh, topo: TopoState, incr: bool,
 
 
 def incr_build_adjacency(mesh: Mesh, topo: TopoState, incr: bool,
-                         set_bdy_tags: bool = True, band: int | None = None):
+                         set_bdy_tags: bool = True):
     """Adjacency (and boundary tags) via the retained face sort — the
     incremental form of ``ops/adjacency.build_adjacency`` (merged face
     records feed the SAME pairing epilogue).  Consumes ``fdirty``.
@@ -364,7 +355,7 @@ def incr_build_adjacency(mesh: Mesh, topo: TopoState, incr: bool,
         return (build_adjacency(mesh, set_bdy_tags=set_bdy_tags),
                 topo._replace(fok=torch.zeros((), dtype=torch.bool,
                                               device=dev), fdirty=clean))
-    B = incr_band_width(capT, band)
+    B = incr_band_width(capT)
     route = _band_route(topo.fok, topo.fdirty, incr, B)
     if route == "full":
         COUNTS["full"] += 1

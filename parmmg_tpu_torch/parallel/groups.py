@@ -19,11 +19,13 @@ loop; nothing is batched across groups, so the device holds one group's
 working set at a time, as under ``lax.map``.  The quiet mask and the
 smoothing cadence, ``lax.cond``s there, are host branches here.
 
-Chunked dispatch (``group_chunk``: 8 groups a dispatch on the card, all
-in one on the CPU, as the JAX package has 8 on its accelerator and 0
-elsewhere) keeps the pass state on the host between dispatches and
-uploads the active groups of each chunk plan (``parallel/sched.py``);
-chunked and unchunked runs write the same bytes.
+Chunked dispatch (``group_chunk``) keeps the pass state on the host
+between dispatches and uploads the active groups of each chunk plan
+(``parallel/sched.py``).  The port chunks only when the stacked state
+would not fit the card beside a group's working set; chunked and
+unchunked runs write the same bytes.  The smoothing cadence and the
+quiet-group scheduler with its per-slot mask are always on (the JAX
+package's defaults).
 
 Left for later (the JAX package's resilience layer): the subprocess
 polish worker, dispatch retries and deadlines, pass checkpoints and
@@ -51,24 +53,32 @@ def how_many_groups(ne: int, target: int) -> int:
     return max(1, min((ne + target - 1) // target, C.REMESHER_NGRPS_MAX))
 
 
-def group_chunk(ngroups: int, device, chunk=None) -> int:
-    """Groups per dispatch (0 = all groups in one dispatch).
+# the stacked state may take this share of the card's memory before the
+# pass chunks it: the rest holds one group's cycle working set (sorts and
+# candidate tables several times a group's state) and the allocator's cache
+STACK_SHARE = 0.25
 
-    8 on a CUDA device and 0 on the CPU: the JAX package's rule (8 on
-    the TPU, 0 elsewhere) with the card in the TPU's place.  ``chunk``
-    overrides it (the JAX package's PARMMG_GROUP_CHUNK): an int, or
-    "auto" for the newest trajectory-derived recommendation
-    (``sched.recommend_group_chunk``, recorded at the end of every
-    grouped pass), falling back to the device default before the first
-    pass has produced one.  Returns 0 when the chunk would cover every
-    group anyway."""
-    default = 8 if torch.device(device).type == "cuda" else 0
-    if chunk == "auto":
-        from .sched import auto_chunk_recommendation
-        rec = auto_chunk_recommendation()
-        c = rec if rec is not None else default
+
+def group_chunk(ngroups: int, group_bytes: int, device_bytes: int | None,
+                chunk: int | None = None) -> int:
+    """Groups per dispatch (0 = all groups in one dispatch, the state
+    resident on the device).
+
+    ``device_bytes`` is the device's memory (None on the CPU, which never
+    chunks).  The pass chunks only when ``ngroups`` slots of
+    ``group_bytes`` take more than ``STACK_SHARE`` of it, and then takes
+    as many groups a dispatch as fit in that share (at least one).  The
+    JAX package's fixed 8 on its accelerator is a rule of the TPU's HBM;
+    on the card a grouped run at the reference CI's sizes is a few hundred
+    MB.  ``chunk`` overrides the rule.  Returns 0 when the chunk would
+    cover every group anyway."""
+    if chunk is not None:
+        c = max(0, int(chunk))
+    elif device_bytes is None or ngroups * group_bytes <= \
+            STACK_SHARE * device_bytes:
+        c = 0
     else:
-        c = default if chunk is None else max(0, int(chunk))
+        c = max(1, int(STACK_SHARE * device_bytes) // max(1, group_bytes))
     return 0 if c >= ngroups else c
 
 
@@ -99,15 +109,15 @@ def _topo_map(fn, topo: TopoState) -> TopoState:
 def _group_block(flags: tuple, pres: tuple, nomove: bool, noinsert: bool,
                  hausd):
     """The fused cycle block over the group axis: ``run(stacked, met_s,
-    wave, active, cadence, incr, topo)`` runs ``len(flags)`` cycles of
+    wave, active, incr, topo)`` runs ``len(flags)`` cycles of
     ``adapt_cycle_impl`` on each slot of the MeshStack, one slot after
     another, and returns (stacked, met_s, counts [n, nblk, 9], topo).
 
     ``active`` [n] bool host mask (``parallel/sched.py``): a masked slot
     (quiet group of an unchunked dispatch, repeat-padded tail row of a
     chunk plan) returns its state unchanged with zero counts.
-    ``cadence``: the smoothing cadence — a cycle following a full no-op
-    cycle of its slot skips smoothing when its own topology counts are
+    The smoothing cadence: a cycle following a full no-op cycle of its
+    slot skips smoothing when its own topology counts are
     zero (``adapt_cycle_impl(smooth_idle=)``); the idle carry is read
     from each cycle's counts (one host read a cycle but the block's
     last).  ``incr`` / ``topo``: the incremental topology engine's
@@ -116,8 +126,8 @@ def _group_block(flags: tuple, pres: tuple, nomove: bool, noinsert: bool,
     from ..ops.adapt import adapt_cycle_impl
     nblk = len(flags)
 
-    def run(stacked: MeshStack, met_s, wave: int, active, cadence: bool,
-            incr: bool, topo: TopoState):
+    def run(stacked: MeshStack, met_s, wave: int, active, incr: bool,
+            topo: TopoState):
         meshes, mets, tps, counts = [], [], [], []
         for g in range(stacked.ngroups):
             m, k = stacked.slot(g), met_s[g]
@@ -130,10 +140,10 @@ def _group_block(flags: tuple, pres: tuple, nomove: bool, noinsert: bool,
                     m, k, wave + cc, do_swap=dosw, do_smooth=not nomove,
                     do_insert=not noinsert, hausd=hausd,
                     final_rebuild=(cc == nblk - 1), prescreen=pres[cc],
-                    active=act, smooth_idle=cadence and idle, topo=tp,
+                    active=act, smooth_idle=idle, topo=tp,
                     incr=incr)
                 rows.append(cnt)
-                if cadence and act and cc + 1 < nblk:
+                if act and cc + 1 < nblk:
                     s, c, w, mv = cnt[:4].tolist()
                     idle = s + c + w == 0 and mv == 0
             meshes.append(m)
@@ -143,26 +153,6 @@ def _group_block(flags: tuple, pres: tuple, nomove: bool, noinsert: bool,
         out_topo = TopoState(*[torch.stack(xs) for xs in zip(*tps)])
         return (MeshStack.stack(meshes), torch.stack(mets),
                 torch.stack(counts), out_topo)
-
-    return run
-
-
-def _group_polish_block(noinsert: bool, noswap: bool, nomove: bool, hausd):
-    """The grouped sliver polish: ``run(stacked, met_s, wave, active)``
-    runs ``sliver_polish`` on each slot (a masked slot returns its state
-    with zero counts) and returns (stacked, met_s, counts [n, 4])."""
-    from ..ops.adapt import sliver_polish
-
-    def run(stacked: MeshStack, met_s, wave: int, active):
-        meshes, counts = [], []
-        for g in range(stacked.ngroups):
-            m, cnt = sliver_polish(
-                stacked.slot(g), met_s[g], wave, do_collapse=not noinsert,
-                do_swap=not noswap, do_smooth=not nomove, hausd=hausd,
-                active=bool(active[g]))
-            meshes.append(m)
-            counts.append(cnt)
-        return MeshStack.stack(meshes), met_s, torch.stack(counts)
 
     return run
 
@@ -185,72 +175,44 @@ def _pad_groups(x, g_new: int):
 
 
 def _pipeline_chunks(fn, stacked: MeshStack, met_s, wave: int, plans, tim,
-                     device, extra=(), topo=None, mask_on: bool = True):
+                     device, incr: bool, topo: TopoState):
     """Chunked dispatch over gathered group-index slices of the
     host-resident state.
 
     ``plans``: [(idx_exec [chunk], nreal)] from the quiet-group scheduler
-    (``parallel/sched.py``).  Each plan's rows are gathered on the host
-    and uploaded to ``device`` (``upload``), run through ``fn`` there
-    (``compute``: the call, then a wait for the card), downloaded
-    (``download``) and written back to the host state (``writeback``):
-    only the first ``nreal`` rows, the repeat-padded tail rows being
-    masked off by ``pad_mask`` and never written.  ``extra``: further
-    arguments of ``fn`` after the mask (the adapt block's cadence and
-    incremental-topology switches; none for the polish block).
-    ``topo``: the host TopoState [g_exec, ...], which rides the same
-    gather / upload / writeback path as the mesh state.
-
-    Chunk k + 1 is gathered, uploaded and run before chunk k is
-    downloaded and written back, as the JAX package's double-buffered
-    pipeline orders them; the host state only changes in a writeback, so
-    a chunk's inputs are never touched by its own run.  ``tim``
+    (``parallel/sched.py``).  Each plan's rows of the mesh, metric and
+    topology state are gathered on the host and uploaded to ``device``
+    (``upload``), run through ``fn`` there (``compute``: the call, then a
+    wait for the card), downloaded (``download``) and written back to the
+    host state (``writeback``): only the first ``nreal`` rows, the
+    repeat-padded tail rows being masked off by ``pad_mask`` and never
+    written.  Each chunk is written back before the next one is gathered,
+    so the device holds one chunk at a time.  ``tim``
     (``utils.timers.Timers``) records the four segments.  Returns the
     per-plan host count arrays (trimmed to nreal), in plan order."""
     from .sched import pad_mask
-    out = [None] * len(plans)
-
-    def dispatch(pi, idx, nreal):
+    out = []
+    for idx, nreal in plans:
         ix = torch.from_numpy(np.asarray(idx, np.int64))
         with tim("upload", sync=device):
             sl = stacked.map(lambda a: a[ix].to(device))
             kl = met_s[ix].to(device)
-            act = pad_mask(len(idx), nreal, mask_on)
-            tl = None if topo is None else \
-                _topo_map(lambda a: a[ix].to(device), topo)
+            tl = _topo_map(lambda a: a[ix].to(device), topo)
         with tim("compute", sync=device):
-            if topo is None:
-                m, k, cnt = fn(sl, kl, wave, act, *extra)
-                tp = None
-            else:
-                m, k, cnt, tp = fn(sl, kl, wave, act, *extra, tl)
-        return pi, idx, nreal, m, k, cnt, tp
-
-    def drain(p):
-        pi, idx, nreal, m, k, cnt, tp = p
+            m, k, cnt, tp = fn(sl, kl, wave, pad_mask(len(idx), nreal),
+                               incr, tl)
         with tim("download"):
             mh = m.map(lambda s: s[:nreal].cpu())
             kh = k[:nreal].cpu()
-            th = None if tp is None else _topo_map(lambda s: s[:nreal].cpu(),
-                                                   tp)
-            out[pi] = cnt[:nreal].cpu().numpy()
+            th = _topo_map(lambda s: s[:nreal].cpu(), tp)
+            out.append(cnt[:nreal].cpu().numpy())
         with tim("writeback"):
-            rows = torch.from_numpy(np.asarray(idx[:nreal], np.int64))
+            rows = ix[:nreal]
             for f in MESH_FIELDS:
                 getattr(stacked, f)[rows] = getattr(mh, f)
             met_s[rows] = kh
-            if th is not None:
-                for d, s in zip(topo, th):
-                    d[rows] = s
-
-    pending = None
-    for pi, (idx, nreal) in enumerate(plans):
-        cur = dispatch(pi, idx, nreal)
-        if pending is not None:
-            drain(pending)
-        pending = cur
-    if pending is not None:
-        drain(pending)
+            for d, s in zip(topo, th):
+                d[rows] = s
     return out
 
 
@@ -259,10 +221,8 @@ def grouped_adapt_pass(mesh, met, ngroups: int, cycles: int = 12,
                        verbose: int = 0, stats=None,
                        noinsert: bool = False, noswap: bool = False,
                        nomove: bool = False, hausd: float | None = None,
-                       polish: bool = False, cap_mult: float = 3.0,
-                       timers=None, chunk=None, sched_on: bool = True,
-                       device_mask: bool = True, cadence: bool = True,
-                       incr: bool = False):
+                       cap_mult: float = 3.0, timers=None,
+                       chunk: int | None = None, incr: bool = False):
     """One outer pass: split into groups, run adapt cycle blocks over the
     group axis, merge.  Returns (mesh, met, part_of_merged).
 
@@ -274,22 +234,15 @@ def grouped_adapt_pass(mesh, met, ngroups: int, cycles: int = 12,
     topology state and reruns; a swap-inclusive cycle with zero
     split+collapse+swap over all groups ends the loop.
 
-    Quiet-group scheduler (``parallel/sched.py``; ``sched_on=False``
-    always dispatches): per-group counts mark groups quiet once a
-    swap-inclusive block is a no-op for them; chunked dispatches then
-    gather only the active groups, and the per-slot mask
-    (``device_mask``) skips quiet slots of an unchunked dispatch and the
-    padded tail rows of chunk plans.  Skipping is exact (sched module
-    docstring).  ``chunk`` (default ``group_chunk``'s device rule) sets
-    the groups a dispatch; ``cadence`` the smoothing cadence; ``incr``
-    (default off, as in the JAX package) the band merges of the
-    incremental topology engine.  These are the JAX package's
-    PARMMG_GROUP_CHUNK, PARMMG_GROUP_SCHED, PARMMG_DEVICE_MASK,
-    PARMMG_SMOOTH_CADENCE and PARMMG_INCR_TOPO.
-
-    ``polish``: a grouped sliver polish after the cycles (wave-major over
-    compacted active chunks when chunked with the scheduler on, per chunk
-    when chunked without it, all groups at once otherwise).
+    Quiet-group scheduler (``parallel/sched.py``): per-group counts mark
+    groups quiet once a swap-inclusive block is a no-op for them; chunked
+    dispatches then gather only the active groups, and the per-slot mask
+    skips quiet slots of an unchunked dispatch and the padded tail rows
+    of chunk plans.  Skipping is exact (sched module docstring).
+    ``chunk`` overrides :func:`group_chunk`'s memory rule (the JAX
+    package's PARMMG_GROUP_CHUNK); ``incr`` (default off, as in the JAX
+    package's PARMMG_INCR_TOPO) turns on the band merges of the
+    incremental topology engine.
 
     The pipeline's segment seconds land in ``timers`` as "grp <segment>"
     and, with the scheduler's counters and trajectories, in
@@ -299,9 +252,7 @@ def grouped_adapt_pass(mesh, met, ngroups: int, cycles: int = 12,
     from ..utils.timers import Timers
     from .distribute import grow_shards, merge_shards, split_to_shards
     from .partition import fix_contiguity, morton_partition
-    from .sched import (QuietGroupScheduler, calibrate_dispatch_overhead,
-                        chunk_plans, note_chunk_recommendation,
-                        recommend_group_chunk)
+    from .sched import QuietGroupScheduler
 
     dev = mesh.device
     vert_h, tet_h, _, _, _ = mesh_to_host(mesh)
@@ -309,12 +260,16 @@ def grouped_adapt_pass(mesh, met, ngroups: int, cycles: int = 12,
         cent = vert_h[tet_h].mean(axis=1)
         part = fix_contiguity(tet_h, morton_partition(cent, ngroups))
 
-    # chunked dispatch: pad the group axis to whole chunks, and keep the
-    # stacked state on the host between dispatches (only the chunks in
-    # flight occupy the device)
-    chunk = group_chunk(ngroups, dev, chunk)
     stacked, met_s = split_to_shards(mesh, met, part, ngroups,
                                      cap_mult=cap_mult)
+    group_bytes = (met_s[0].nbytes + sum(getattr(stacked, f)[0].nbytes
+                                         for f in MESH_FIELDS))
+    dev_bytes = torch.cuda.get_device_properties(dev).total_memory \
+        if dev.type == "cuda" else None
+    chunk = group_chunk(ngroups, group_bytes, dev_bytes, chunk)
+    # chunked dispatch: pad the group axis to whole chunks, and keep the
+    # stacked state on the host between dispatches (only the chunk in
+    # flight occupies the device)
     if chunk:
         g_exec = -(-ngroups // chunk) * chunk
         stacked = _pad_groups(stacked, g_exec).map(lambda a: a.cpu())
@@ -323,8 +278,7 @@ def grouped_adapt_pass(mesh, met, ngroups: int, cycles: int = 12,
         g_exec = ngroups
     state_dev = torch.device("cpu") if chunk else dev
 
-    sched = QuietGroupScheduler(ngroups, g_exec, chunk, enabled=sched_on,
-                                device_mask=device_mask)
+    sched = QuietGroupScheduler(ngroups, g_exec, chunk)
     topo_s = topo_init(stacked.capT, stack=g_exec, device=state_dev)
     # pipeline segment timers on a LOCAL registry: folded into
     # stats.sched_extra and (prefixed) into the caller's Timers at the end
@@ -342,21 +296,19 @@ def grouped_adapt_pass(mesh, met, ngroups: int, cycles: int = 12,
         act, plans = sched.plan_block(pres_all_on)
         if chunk:
             parts = _pipeline_chunks(step, stacked, met_s, c, plans, ltim,
-                                     dev, extra=(cadence, incr),
-                                     topo=topo_s, mask_on=sched.mask_on)
+                                     dev, incr, topo_s)
             sched.note_plan_pads(plans)
             counts_act = np.concatenate(parts) if parts else \
                 np.zeros((0, nblk, 9), np.int32)
-            if sched.enabled:
-                _log(2, f"  grp block {c}..{c + nblk - 1}: active "
-                        f"{len(act)}/{g_exec} groups, {len(plans)} "
-                        "dispatches", verbose)
+            _log(2, f"  grp block {c}..{c + nblk - 1}: active "
+                    f"{len(act)}/{g_exec} groups, {len(plans)} "
+                    "dispatches", verbose)
         else:
             # unchunked: compaction cannot change the dispatch, so the
             # quiet mask is what skips converged groups
             stacked, met_s, counts, topo_s = step(
-                stacked, met_s, c, sched.block_mask(pres_all_on), cadence,
-                incr, topo_s)
+                stacked, met_s, c, sched.block_mask(pres_all_on), incr,
+                topo_s)
             counts_act = counts.cpu().numpy()           # [g_exec, nblk, 9]
         sched.record_block(act, counts_act, swap_inc, pres_all_on)
         # quiet groups contribute exact zeros (that is what marked them)
@@ -392,70 +344,6 @@ def grouped_adapt_pass(mesh, met, ngroups: int, cycles: int = 12,
         c += nblk
         if block_converged(cs, flags, noswap):
             break
-    pol_traj: list[int] = []
-    if polish and not (noinsert and noswap and nomove):
-        polish_block = _group_polish_block(noinsert, noswap, nomove, hausd)
-        if chunk and sched.enabled:
-            # quiet-group polish: wave-major over compacted active chunks,
-            # retiring each group at its own collapse+swap == 0 point
-            pol_act = np.arange(ngroups)
-            for w in range(4):
-                if not len(pol_act):
-                    break
-                plans = chunk_plans(pol_act, chunk)
-                sched.dispatches += len(plans)
-                parts = _pipeline_chunks(polish_block, stacked, met_s,
-                                         2000 + w, plans, ltim, dev,
-                                         mask_on=sched.mask_on)
-                sched.note_plan_pads(plans)
-                cnts = np.concatenate(parts)            # [n_act, 4]
-                pol_traj.append(len(pol_act))
-                tot = cnts.sum(axis=0, dtype=np.int64).tolist()
-                _log(2, f"  grp polish w{w}: collapse {tot[0]} swap "
-                        f"{tot[1]} move {tot[2]} over {len(pol_act)} active "
-                        "groups", verbose)
-                pol_act = pol_act[(cnts[:, 0] + cnts[:, 1]) > 0]
-        elif chunk:
-            # per-chunk wave loop (scheduler off): each chunk polishes to
-            # its quiet point while on the device
-            for g0 in range(0, g_exec, chunk):
-                sl = stacked.map(lambda a: a[g0:g0 + chunk].to(dev))
-                kl = met_s[g0:g0 + chunk].to(dev)
-                for w in range(4):
-                    sl, kl, cnt = polish_block(sl, kl, 2000 + w,
-                                               np.ones(chunk, bool))
-                    tot = cnt.sum(dim=0).tolist()
-                    _log(2, f"  grp polish chunk {g0 // chunk} w{w}: "
-                            f"collapse {tot[0]} swap {tot[1]} move "
-                            f"{tot[2]}", verbose)
-                    if tot[0] == 0 and tot[1] == 0:
-                        break
-                for f in MESH_FIELDS:
-                    getattr(stacked, f)[g0:g0 + chunk] = \
-                        getattr(sl, f).cpu()
-                met_s[g0:g0 + chunk] = kl.cpu()
-        else:
-            for w in range(4):
-                stacked, met_s, cnt = polish_block(
-                    stacked, met_s, 2000 + w, np.ones(g_exec, bool))
-                tot = cnt.sum(dim=0).tolist()
-                _log(2, f"  grp polish {w}: collapse {tot[0]} swap "
-                        f"{tot[1]} move {tot[2]}", verbose)
-                if tot[0] == 0 and tot[1] == 0:
-                    break
-    # chunk auto-tune: fold this pass's active-group trajectory into a
-    # recommendation for the next pass (adopted only by chunk="auto"),
-    # its overhead calibrated from the measured pipeline segments
-    overhead = calibrate_dispatch_overhead(ltim.acc, ltim.count, chunk) \
-        if chunk else None
-    chunk_rec = recommend_group_chunk(
-        sched.active_per_block, g_exec if chunk else ngroups,
-        dispatch_overhead=(1.0 if overhead is None else overhead))
-    note_chunk_recommendation(chunk_rec)
-    _log(2, f"  grp chunk auto-tune: recommend chunk "
-            f"{chunk_rec or 'unchunked'} (current {chunk or 'unchunked'}, "
-            f"overhead {'default' if overhead is None else round(overhead, 3)}"
-            " group-units)", verbose)
     if stats is not None:
         stats.group_dispatches += sched.dispatches
         stats.group_dispatches_saved += sched.saved_dispatches
@@ -463,17 +351,12 @@ def grouped_adapt_pass(mesh, met, ngroups: int, cycles: int = 12,
         se = stats.sched_extra
         se["cond_skipped_rows"] = se.get("cond_skipped_rows", 0) + \
             sched.cond_skipped
-        se.setdefault("chunk_recommendation", []).append(chunk_rec)
-        if overhead is not None:
-            se.setdefault("chunk_overhead_units", []).append(
-                round(overhead, 4))
+        se.setdefault("group_chunk", []).append(chunk)
         se.setdefault("active_groups_per_block", []).extend(
             sched.active_per_block)
         se.setdefault("groups_per_pass", []).append(ngroups)
         if dirty_traj:
             se.setdefault("incr_dirty_per_cycle", []).extend(dirty_traj)
-        if pol_traj:
-            se.setdefault("polish_active_per_wave", []).extend(pol_traj)
         for k, v in ltim.acc.items():
             se[f"grp_{k}_s"] = se.get(f"grp_{k}_s", 0.0) + v
     if timers is not None:
@@ -492,8 +375,7 @@ def grouped_adapt(mesh, met, target_size: int, niter: int = 3,
     libparmmg1.c:636-948 collapsed onto one device, groups as the only
     level).  Engaged by the driver when ``-mesh-size`` yields >= 2
     groups.  ``pass_kw`` goes to every :func:`grouped_adapt_pass`
-    (``chunk``, ``sched_on``, ``device_mask``, ``cadence``, ``incr``,
-    ``cap_mult``)."""
+    (``chunk``, ``incr``, ``cap_mult``)."""
     from ..core.mesh import mesh_to_host
     from .partition import move_interfaces
 

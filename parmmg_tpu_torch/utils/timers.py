@@ -4,9 +4,7 @@ The reference tracks per-phase times in ``PMMG_ctim[TIMEMAX]`` slots with
 verbosity-gated prints (parmmg.c:35,91; libparmmg1.c:636-948).  Here a
 small nestable timer registry with the same reporting role: the grouped
 pipeline (``parallel/groups._pipeline_chunks``) times its upload /
-compute / download / writeback segments on one, and
-``parallel/sched.calibrate_dispatch_overhead`` reads its ``acc`` /
-``count``.
+compute / download / writeback segments on one.
 
 The JAX package also emits a trace span per scope and re-exports its
 compile ledger here; the port has neither (``obs/`` is not ported).  In

@@ -234,21 +234,18 @@ def _sched_trace(mod, *a, **k):
     return out
 
 
-@pytest.mark.parametrize("chunk,enabled,mask", [
-    (2, True, True), (2, False, True), (2, True, False), (0, True, True),
-    (1, True, True)])
-def test_scheduler_exact(monkeypatch, chunk, enabled, mask):
-    """The port's scheduler (knobs as arguments) walks the same history as
-    the JAX package's (knobs from the environment)."""
-    monkeypatch.setenv("PARMMG_GROUP_SCHED", "1" if enabled else "0")
-    monkeypatch.setenv("PARMMG_DEVICE_MASK", "1" if mask else "0")
+@pytest.mark.parametrize("chunk", [2, 0, 1])
+def test_scheduler_exact(monkeypatch, chunk):
+    """The port's scheduler (always on, its mask too) walks the same
+    history as the JAX package's at its defaults."""
+    monkeypatch.setenv("PARMMG_GROUP_SCHED", "1")
+    monkeypatch.setenv("PARMMG_DEVICE_MASK", "1")
     g_exec = 6 if chunk == 2 else 4
     j = _sched_trace(JS, 4, g_exec, chunk)
-    t = _sched_trace(TS, 4, g_exec, chunk, enabled=enabled,
-                     device_mask=mask)
+    t = _sched_trace(TS, 4, g_exec, chunk)
     assert t == j
     for nreal in (1, 2, 4):
-        assert TS.pad_mask(4, nreal, enabled and mask).tolist() == \
+        assert TS.pad_mask(4, nreal).tolist() == \
             JS.pad_mask(4, nreal).tolist()
 
 
@@ -276,26 +273,8 @@ def test_scheduler_contracts():
     p = TS.chunk_plans(np.array([1, 4, 6]), 2)
     assert [(list(i), n) for i, n in p] == [([1, 4], 2), ([6, 6], 1)]
     assert TS.pad_mask(4, 2).tolist() == [True, True, False, False]
-    assert TS.pad_mask(4, 1, mask_on=False).tolist() == [True] * 4
     assert TS.quiet_rows(_counts(3, 2, {(1, 1, 3): 2})).tolist() == \
         [True, False, True]
-
-
-def test_chunk_auto_tune_exact():
-    acc = {"upload": 2.0, "download": 1.0, "writeback": 1.0,
-           "compute": 8.0}
-    cnt = {"upload": 4, "compute": 4, "download": 4, "writeback": 4}
-    for chunk in (0, 2, 4):
-        assert TS.calibrate_dispatch_overhead(acc, cnt, chunk) == \
-            JS.calibrate_dispatch_overhead(acc, cnt, chunk)
-    assert TS.calibrate_dispatch_overhead({}, {}, 2) is None
-    for traj, g, over in (([8, 8], 8, 2.0), ([12, 7, 3, 1], 16, 1.0),
-                          ([], 4, 1.0), ([5, 5, 5], 6, 0.25)):
-        assert TS.recommend_group_chunk(traj, g, over) == \
-            JS.recommend_group_chunk(traj, g, over)
-    TS.note_chunk_recommendation(4)
-    assert TS.auto_chunk_recommendation() == 4
-    assert TG.group_chunk(12, "cpu", "auto") == 4
 
 
 def test_timers_match_the_jax_package():
@@ -328,16 +307,12 @@ def test_group_rules_exact(monkeypatch):
             JG.how_many_groups(ne, target)
     assert TG.how_many_groups(196608, 16384) == 12
     assert C.REMESHER_NGRPS_MAX == JC.REMESHER_NGRPS_MAX
-    # 8 on the card, 0 on the CPU (the JAX package: 8 on the TPU, 0
-    # elsewhere); an override; 0 when the chunk covers every group
-    assert TG.group_chunk(12, torch.device("cuda")) == 8
-    assert TG.group_chunk(12, "cpu") == 0
-    assert TG.group_chunk(12, "cpu", 3) == 3
-    assert TG.group_chunk(8, "cuda:0") == 0
+    # off the accelerator both packages put every group in one dispatch;
+    # the port's override is the JAX package's PARMMG_GROUP_CHUNK
     monkeypatch.delenv("PARMMG_GROUP_CHUNK", raising=False)
-    assert TG.group_chunk(12, "cpu") == JG.group_chunk(12)
+    assert TG.group_chunk(12, 1 << 20, None) == JG.group_chunk(12) == 0
     monkeypatch.setenv("PARMMG_GROUP_CHUNK", "3")
-    assert TG.group_chunk(12, "cpu", 3) == JG.group_chunk(12)
+    assert TG.group_chunk(12, 1 << 20, None, 3) == JG.group_chunk(12) == 3
     for c0, nblk, cycles, noswap in ((0, 9, 12, False), (9, 3, 12, False),
                                      (0, 1, 2, True), (3, 9, 50, False)):
         assert TG.block_schedule(c0, nblk, cycles, noswap) == \
@@ -348,6 +323,25 @@ def test_group_rules_exact(monkeypatch):
         for noswap in (False, True):
             assert TG.block_converged(cs, flags, noswap) == \
                 JG.block_converged(cs, flags, noswap)
+
+
+GB = 10 ** 9
+
+
+@pytest.mark.parametrize("ngroups,group_bytes,device_bytes,chunk,want", [
+    (12, 30 * 10 ** 6, 80 * GB, None, 0),    # cube32 at the CI's flags
+    (12, GB, 16 * GB, None, 4),              # 4 groups fill the share
+    (12, 10 * GB, 16 * GB, None, 1),         # one group beyond the share
+    (12, 1, None, None, 0),                  # the CPU never chunks
+    (12, 1, None, 3, 3),                     # the override
+    (8, 10 * GB, 16 * GB, 8, 0),             # a chunk of every group
+], ids=["fits", "share", "one-at-a-time", "cpu", "override", "covers"])
+def test_group_chunk_fits_the_device(ngroups, group_bytes, device_bytes,
+                                     chunk, want):
+    """Groups a dispatch from the stacked state's bytes against the
+    device's memory: unchunked while the stack takes at most
+    ``STACK_SHARE`` of it, else as many groups as fit in that share."""
+    assert TG.group_chunk(ngroups, group_bytes, device_bytes, chunk) == want
 
 
 # ---- split / grow / merge / weld ---------------------------------------------------
@@ -448,6 +442,8 @@ def test_chunked_pass_writes_the_same_bytes(port_pass):
     assert rows3[1][1:, :, [0, 1, 2, 3, 4]].sum() == 0    # masked pads
     assert st3.sched_extra["cond_skipped_rows"] >= 2
     assert st0.group_dispatches == 2 and st3.group_dispatches >= 3
+    assert st0.sched_extra["group_chunk"] == [0]
+    assert st3.sched_extra["group_chunk"] == [3]
     # the pipeline's four segments, one count a dispatch, absorbed into the
     # caller's timers and folded into the stats
     for seg in ("upload", "compute", "download", "writeback"):
@@ -499,48 +495,6 @@ def test_regrow_writes_the_same_bytes(monkeypatch):
             assert torch.equal(getattr(mesh, f), getattr(outs[0][0], f)), f
         assert torch.equal(met, outs[0][1])
         assert np.array_equal(part, outs[0][2])
-
-
-@pytest.mark.parametrize("kw", [dict(chunk=0), dict(chunk=3),
-                                dict(chunk=3, sched_on=False)],
-                         ids=["unchunked", "wave-major", "per-chunk"])
-def test_grouped_polish_branches(kw):
-    """``polish=True`` in each of its in-process branches (all groups at
-    once; wave-major over compacted chunks, each group retired at its own
-    collapse + swap == 0; chunk by chunk with the scheduler off): the
-    merged mesh is conforming and volume-preserving, and the polish swapped
-    and moved."""
-    m, met = _shock_state()
-    st = TAd.AdaptStats()
-    rows = []
-    orig = TG._group_polish_block
-
-    def polish_block(*a):
-        run = orig(*a)
-
-        def recorded(*args):
-            out = run(*args)
-            rows.append(out[2].tolist())
-            return out
-        return recorded
-    TG._group_polish_block = polish_block
-    try:
-        out, _, _ = TG.grouped_adapt_pass(m, met, NGROUPS, cycles=2,
-                                          stats=st, polish=True, **kw)
-    finally:
-        TG._group_polish_block = orig
-    out = build_adjacency(out)
-    assert check_adjacency(out) == {"asymmetric": 0, "face_mismatch": 0}
-    vols = tmesh.tet_volumes(out)[out.tmask]
-    assert bool((vols > 0).all())
-    assert np.isclose(float(vols.double().sum()), 1.0, rtol=1e-4)
-    tot = np.array([r for block in rows for r in block]).sum(axis=0)
-    assert tot[1] > 0 and tot[2] > 0
-    traj = st.sched_extra.get("polish_active_per_wave")
-    if kw.get("sched_on", True) and kw["chunk"]:
-        assert traj[0] == NGROUPS and traj == sorted(traj, reverse=True)
-    else:
-        assert traj is None
 
 
 def test_grouped_adapt_conforming():

@@ -84,9 +84,14 @@ def test_incr_band_width_ladder_and_override(monkeypatch):
     assert TT.incr_band_width(1 << 20) < 1 << 20
     widths = [TT.incr_band_width(c) for c in range(64, 40000, 64)]
     assert all(a <= b for a, b in zip(widths, widths[1:]))
+    # the port reads no environment variable: the JAX package's
+    # PARMMG_INCR_BAND override leaves the port on its ladder
     for band, capT in ((7, 9216), (999999, 64), (2, 192)):
+        monkeypatch.delenv("PARMMG_INCR_BAND", raising=False)
+        ladder = JT.incr_band_width(capT)
         monkeypatch.setenv("PARMMG_INCR_BAND", str(band))
-        assert TT.incr_band_width(capT, band) == JT.incr_band_width(capT)
+        assert JT.incr_band_width(capT) == max(1, min(band, capT))
+        assert TT.incr_band_width(capT) == ladder
 
 
 def test_topo_init_layout():
@@ -97,8 +102,9 @@ def test_topo_init_layout():
             assert _eq(a, b) and a.dtype == (
                 torch.bool if np.asarray(b).dtype == bool
                 else torch.int32), name
+    # the chunked pipeline's host-resident stack (JAX: topo_init_np)
     jn = JT.topo_init_np(4, 48)
-    tn = TT.topo_init_np(4, 48)
+    tn = TT.topo_init(48, stack=4, device="cpu")
     assert all(_eq(a, b) and a.device.type == "cpu" for a, b in zip(tn, jn))
 
 
@@ -275,14 +281,15 @@ def test_incr_overflow_falls_back_exact(wave_state, monkeypatch):
     (the same bits as JAX's fallback and as the legacy derivations), and
     the state is refreshed: dirty cleared, ok set."""
     monkeypatch.setenv("PARMMG_INCR_BAND", "2")
+    monkeypatch.setattr(TT, "incr_band_width", lambda capT: 2)
     m0, m1, tp = wave_state
     tp = TT.mark_dirty(tp, m0.tet, m0.tmask, m1)
     TT.reset_counts()
-    et, tp_e = TT.incr_unique_edges(m1, tp, True, band=2)
+    et, tp_e = TT.incr_unique_edges(m1, tp, True)
     jet, jtp_e = _jit_edges(True)(_jmesh(m1), _jtopo(tp))
     _assert_et(et, jet)
     _assert_topo(tp_e, jtp_e)
-    m2, tp_f = TT.incr_build_adjacency(m1, tp_e, True, band=2)
+    m2, tp_f = TT.incr_build_adjacency(m1, tp_e, True)
     jm2, jtp_f = _jit_adj(True)(_jmesh(m1), jtp_e)
     _assert_mesh(m2, jm2)
     _assert_topo(tp_f, jtp_f)
@@ -362,5 +369,3 @@ def test_inactive_cycle_returns_its_input(with_topo):
     assert out[2].tolist() == row and out[2].dtype == torch.int32
     live = TAd.adapt_cycle_impl(m, met, 3, active=True, **kw)
     assert live[2][0] > 0 and live[0] is not m
-    pm, pc = TAd.sliver_polish(m, met, 1000, active=False)
-    assert pm is m and pc.tolist() == [0, 0, 0, int(m.tmask.sum())]
