@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --pairs N
+    python3 chip_smoke.py --serve
 
 With ``--pairs N`` it builds the kernels and runs only N alternating
 pairs of each cube16 path (phases 2 and 4) at ``cycle_block=1`` and at
 the default, blocks of 9, after one unmeasured pair, and prints the walls,
 the output sizes and qualities and the paired wall differences as one
-JSON line before the last.  Without arguments:
+JSON line before the last.  With ``--serve`` it runs phases 1 and 7
+alone.  Without arguments:
 
 Phases (any failure exits non-zero without the final result line):
 
@@ -101,7 +103,34 @@ Phases (any failure exits non-zero without the final result line):
              pipeline segment seconds, host reads a group-cycle, the band
              merges, their widths and the kernels' shapes there, and each
              run's wall.
-7. kernels - each kernel against its plain PyTorch version on the card, on
+7. serve   - remeshing as a service: a ``PoolDaemon`` in this process
+             (``parmmg_tpu_torch/serve/``; two slots a bucket, 6 cycles a
+             tenant, one tenant a dispatch, streaming admission and
+             autoscale on) is sent eight tenants over localhost HTTP by
+             the port's ``ServeClient``, open loop at two a second (429s
+             retried and counted): four classes of two, cube_mesh(12)
+             under the iso shock map h = 1.5/12, cube_mesh(16) and
+             cube_mesh(24) under the cube16 map, cube_mesh(12) under the
+             [aniso] tensor map, the second tenant of a class with sizes
+             x 1.1 (``serve_tenants``).  Launch counts zeroed before the
+             first submit and read after the last fetch: all eight
+             kernels, K2 and K6's tensor mode included.  Checked: every
+             tenant done and its fetched mesh conforming with qmin > 0;
+             the first tenant of each class byte-equal (every field and
+             the metric) to its standalone ``grouped_adapt_pass(ngroups=
+             1, cycles=6)`` on the card, staged by the same
+             ``stage_arrays``, with a tet count within 2% of the JAX
+             pool's (JAX_POOL_NTETS, ``tools/jax_serve_reference.py``);
+             then the two iso12 tenants again, packed in one dispatch,
+             with ``serve.slot_step`` armed on the second: it ends
+             quarantined, the first writes the first run's bytes, and
+             its distributed output (written at retirement) read back
+             holds its live tets.  Prints meshes a second, latency p50 /
+             p90 / p99, each tenant's result, queue depth and bucket
+             occupancy over time, stream admissions, deferred submits,
+             autoscale decisions, steps, dispatches, promotions, the
+             pipeline's segment seconds and each standalone run's wall.
+8. kernels - each kernel against its plain PyTorch version on the card, on
              the output mesh of its path (the capacities that path
              reached; K2 and K6's tensor mode on the aniso output and its
              metric), with its tolerance; median CUDA-event times of the
@@ -116,7 +145,7 @@ Phases (any failure exits non-zero without the final result line):
              the [grouped] run's first band merge (the survivor flags of
              a group's edge sort) and K7 on its first edge band (keys and
              slots, 2 words).
-8. stress  - K5, K7 and K8 against their plain versions, exactly, each case
+9. stress  - K5, K7 and K8 against their plain versions, exactly, each case
              5 times (look-back order changes from run to run): sizes 1,
              tile - 1, tile, tile + 1 and 2**24 + 3 (the look-back crosses
              thousands of tiles); K5 on small values and on values near
@@ -128,15 +157,15 @@ Phases (any failure exits non-zero without the final result line):
              failure here is a look-back, stability or tail bug of the
              kernel, not a mesh bug.  Also K5 and K7 at every (rows,
              words) the [grouped] run's band merges gave them.
-9. profile - the cube16 paths once more under torch.profiler.
+10. profile - the cube16 paths once more under torch.profiler.
 
-Phase 7 also prints the CUDA launches per K5, K6, K7 and K8 call (the
+Phase 8 also prints the CUDA launches per K5, K6, K7 and K8 call (the
 profiler's kernel count over 20 calls / 20) and fails unless K5, K6 and K8
 (both modes) are one launch a call and K7 1 + npass.
 
 The last two lines are one JSON object with the kernel table (each row's
-launches on the main path, and on the field and grouped paths) and one
-JSON object ``{"ok": true, "device": {...}}``.
+launches on the main path, and on the field, grouped and serve paths) and
+one JSON object ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -179,6 +208,36 @@ PATH_KERNELS = {
                   "segment_flags"}, "edge_lengths_ani"),
 }
 PATH_KERNELS["cube32"] = PATH_KERNELS["cube16"]
+# the [serve] tenants: four classes of two, (class, cube_mesh(n), size
+# map, h); the second tenant of a class has the first's sizes x 1.1
+SERVE_CLASSES = (("iso12", 12, "iso", 1.5 / 12),
+                 ("cube16", 16, "iso", 1.5 / 16),
+                 ("cube24", 24, "iso", 1.5 / 16),
+                 ("ani12", 12, "ani", 1.5 / 48))
+SERVE_SCALE = 1.1
+
+
+def serve_tenants():
+    """[(tenant id, class, vert, tet, met)] of the [serve] phase, the first
+    tenant of every class before the second ones: cube_mesh(n) under the
+    planar shock size map h (0.2 + 4 |x - 0.5|) ("iso"), or under the
+    shock tensor metric with that spacing across the plane x = 0.5 and
+    0.1 along it ("ani", ``analytic_ani_metric``); numpy arrays, also read
+    by ``tools/jax_serve_reference.py``."""
+    from parmmg_tpu_torch.utils.fixtures import (analytic_ani_metric,
+                                                 analytic_iso_metric,
+                                                 cube_mesh)
+    out = []
+    for k, s in enumerate((1.0, SERVE_SCALE)):
+        for cls, n, kind, h in SERVE_CLASSES:
+            vert, tet = cube_mesh(n)
+            if kind == "ani":
+                met = analytic_ani_metric(vert, "shock", h=s * h,
+                                          h_tan=s * 0.1)
+            else:
+                met = analytic_iso_metric(vert, "shock", h=s * h)
+            out.append((f"{cls}-{k}", cls, vert, tet, met))
+    return out
 
 
 def _card_line() -> str:
@@ -1068,6 +1127,339 @@ def phase_grouped(workdir: str, device: str = "cuda"):
     return launches, samples, shapes
 
 
+# the JAX pool's tet count on the first tenant of each [serve] class, as
+# its accelerator runs it (PARMMG_CYCLE_BLOCK=9, one slot, jitted; on the
+# CPU, jax 0.9.0): JAX_PLATFORMS=cpu python tools/jax_serve_reference.py
+JAX_POOL_NTETS = {"iso12": 28545, "cube16": 68085, "cube24": 162429,
+                  "ani12": 190957}
+SERVE_RATE = 2.0            # arrivals a second, open loop
+SERVE_CYCLES = 6
+ALL_KERNELS = ("edge_lengths_iso", "edge_lengths_ani", "score_count",
+               "score3_count", "merge_prefix", "tet_quality", "radix_sort",
+               "segment_flags")
+
+
+def _serve_run(tenants, device: str, arm: str | None = None,
+               together: bool = False, **kw):
+    """Start a ``PoolDaemon(port=0)`` in this process, submit ``tenants``
+    over localhost HTTP through the port's client, open loop at
+    SERVE_RATE arrivals a second (a 429 is counted and retried 0.1 s
+    later), wait for every request and fetch the done ones.  ``arm``: a
+    fault spec armed for the run.  ``together``: start the daemon paused,
+    submit every tenant at once, then resume it, so that the first step
+    admits them all.  Returns a dict: the fetched arrays, the final polls,
+    the daemon's report, the deferred submits, (seconds, queue depth,
+    active tenants) sampled from /healthz every 0.25 s, the wall from the
+    first submit to the last fetch, the daemon's /metrics series before
+    the first submit and after the last fetch, its /trace summary, and
+    the trace id of the pool's pipeline timers."""
+    import threading
+    from parmmg_tpu_torch.obs.metrics import parse_prometheus
+    from parmmg_tpu_torch.resilience.faults import FAULTS
+    from parmmg_tpu_torch.serve.client import (BackpressureDeferred,
+                                               ServeClient)
+    from parmmg_tpu_torch.serve.daemon import PoolDaemon
+    d = PoolDaemon(port=0, device=device, cycles=SERVE_CYCLES,
+                   start_paused=together, **kw).start()
+    info = {"deferred": 0, "samples": [], "arrays": {}, "polls": {}}
+    stop = threading.Event()
+    try:
+        cl = ServeClient(port=d.port, timeout_s=900)
+        info["metrics0"] = parse_prometheus(cl.metrics_text())
+        if arm:
+            FAULTS.arm(arm)
+        t0 = time.perf_counter()
+
+        def sample():
+            probe = ServeClient(port=d.port, timeout_s=60)
+            while not stop.is_set():
+                h = probe.health()
+                info["samples"].append(
+                    (round(time.perf_counter() - t0, 2), h["queue"],
+                     h["active"]))
+                stop.wait(0.25)
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
+        for k, (tid, _cls, vert, tet, met) in enumerate(tenants):
+            pause = t0 + k / SERVE_RATE - time.perf_counter()
+            if pause > 0 and not together:
+                time.sleep(pause)
+            while True:
+                try:
+                    cl.submit(vert=vert, tet=tet, met=met, tenant=tid)
+                    break
+                except BackpressureDeferred:
+                    info["deferred"] += 1
+                    time.sleep(0.1)
+        if together:
+            cl.resume()
+        for tid, *_ in tenants:
+            got = cl.wait(tid, timeout_s=900, interval_s=0.02)
+            info["polls"][tid] = got
+            if got["state"] == "done":
+                info["arrays"][tid] = cl.fetch(tid)
+        info["wall"] = time.perf_counter() - t0
+        stop.set()
+        sampler.join(timeout=10)
+        info["report"] = cl.report()
+        info["metrics1"] = parse_prometheus(cl.metrics_text())
+        info["trace"] = cl.trace(last=0)["summary"]
+        info["timers_id"] = d.driver.pool.timers.trace_id
+    finally:
+        stop.set()
+        FAULTS.reset()
+        d.shutdown()
+    return info
+
+
+@contextlib.contextmanager
+def _host_spans(device: str):
+    """Wall seconds and calls of the serving path's host stages while the
+    block is active: npz decode and encode (the RPC edge), staging, the
+    split at load, the merge and quality at retirement, and the pool's
+    steps (which include the mid-step retirements).  Each wrapped call
+    ends with a device synchronise, so a stage is charged its device
+    work.  Yields {stage: [seconds, calls]}."""
+    import threading
+    import torch
+    from parmmg_tpu_torch.serve import daemon, driver, pool
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    acc: dict = {}
+    lock = threading.Lock()
+    targets = [(daemon, "decode_npz", "npz decode"),
+               (daemon, "encode_npz", "npz encode"),
+               (driver.ServeDriver, "stage_payload", "stage"),
+               (pool.SlotPool, "load", "load (split)"),
+               (pool.SlotPool, "merge", "merge"),
+               (driver.ServeDriver, "_quality", "quality"),
+               (pool.SlotPool, "step", "pool steps")]
+    saved = [(o, a, getattr(o, a)) for o, a, _ in targets]
+
+    def wrap(fn, name):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                sync()
+                with lock:
+                    x = acc.setdefault(name, [0.0, 0])
+                    x[0] += time.perf_counter() - t0
+                    x[1] += 1
+        return timed
+    for (o, a, name), (_, _, fn) in zip(targets, saved):
+        setattr(o, a, wrap(fn, name))
+    try:
+        yield acc
+    finally:
+        for o, a, fn in saved:
+            setattr(o, a, fn)
+
+
+def _fetched_mesh(arrays, device: str):
+    import torch
+    from parmmg_tpu_torch.core.mesh import mesh_from_numpy
+    return (mesh_from_numpy(arrays, device),
+            torch.from_numpy(arrays["met"]).to(device))
+
+
+def phase_serve(workdir: str, device: str = "cuda"):
+    """The [serve] path: remeshing as a service.  A ``PoolDaemon`` on the
+    card (two slots a bucket, 6 cycles a tenant, one tenant a dispatch,
+    streaming admission and autoscale on) serves ``serve_tenants()``'s
+    eight tenants, submitted over localhost HTTP by the port's client at
+    two a second.  Launch counts zeroed before the first submit and read
+    after the last fetch: all eight kernels must have launched, K2 and
+    K6's tensor mode (from the tensor class) included.  Checked: every
+    tenant DONE, each fetched mesh conforming with qmin > 0, the first
+    tenant of each class byte-equal (every field and the metric) to its
+    standalone ``grouped_adapt_pass(ngroups=1, cycles=6)`` on the card,
+    staged by the same ``stage_arrays``, with a tet count within 2% of
+    the JAX pool's (JAX_POOL_NTETS).  Then a short second run of the two
+    iso12 tenants, submitted to a paused daemon so that one step packs
+    both in a chunk=2 dispatch, with ``serve.slot_step`` armed on the
+    second: that packed dispatch must fault (a two-slot step, and
+    ``resilience.serve_cohort_faults`` moves), the second tenant must end
+    quarantined, the first must write the first run's bytes, and its
+    distributed output (``write_distributed`` at retirement) read back
+    must hold its live tets.  Returns the launch counts of the first
+    run."""
+    import numpy as np
+    import torch
+    from parmmg_tpu_torch.core.mesh import MESH_FIELDS, mesh_to_numpy
+    from parmmg_tpu_torch.io.distributed import load_distributed_mesh
+    from parmmg_tpu_torch.obs.trace import TRACER, replay_totals
+    from parmmg_tpu_torch.ops import kernels as K
+    from parmmg_tpu_torch.parallel.groups import grouped_adapt_pass
+    from parmmg_tpu_torch.serve.admission import stage_arrays
+    tenants = serve_tenants()
+    # K6's tensor mode: the launches of calls given a tensor metric
+    real_k6, k6_tensor = K.tet_quality, [0]
+
+    def k6(vert, tet, tmask, met6=None):
+        before = K.LAUNCHES["tet_quality"]
+        out = real_k6(vert, tet, tmask, met6)
+        if met6 is not None:
+            k6_tensor[0] += K.LAUNCHES["tet_quality"] - before
+        return out
+    # every trace record of the run goes to a JSONL file, as the daemon
+    # front end's --trace writes it
+    trace_path = os.path.join(workdir, "serve_trace.jsonl")
+    if os.path.exists(trace_path):
+        os.remove(trace_path)
+    K.reset_launches()
+    K.tet_quality = k6
+    TRACER.configure(trace_path)
+    try:
+        with _host_spans(device) as spans:
+            run = _serve_run(tenants, device, slots_per_bucket=2)
+    finally:
+        TRACER.configure(None)
+        K.tet_quality = real_k6
+    launches = dict(K.LAUNCHES)
+    rep = run["report"]
+    pool = rep["pool"]
+    served = len(run["arrays"])
+    print(f"[serve] {len(tenants)} tenants submitted over HTTP at "
+          f"{SERVE_RATE:g} a second: {served} done, {rep['failed']} failed, "
+          f"quarantined {pool['quarantined']}; wall {run['wall']:.3f} s "
+          f"from the first submit to the last fetch = "
+          f"{served / run['wall']:.3f} meshes/s; latency (submit to "
+          f"retirement) p50 {rep['latency_p50_s']:.3f} p90 "
+          f"{rep['latency_p90_s']:.3f} p99 {rep['latency_p99_s']:.3f} max "
+          f"{rep['latency_max_s']:.3f} s")
+    for tid, cls, vert, tet, met in tenants:
+        t = rep["tenants"][tid]
+        q = t["quality"] or {}
+        print(f"[serve] {tid}: {len(tet)} tets in -> {q.get('ntets')} out, "
+              f"qmin {q.get('qmin')} qmean {q.get('qmean')}, latency "
+              f"{t['latency_s']:.3f} s, cycles {t['cycles']}, ops s/c/w/m "
+              f"{t['ops']}, state {t['state']}")
+    changes = [x for i, x in enumerate(run["samples"])
+               if i == 0 or x[1:] != run["samples"][i - 1][1:]]
+    print(f"[serve] (seconds, queue depth, active tenants) from /healthz, "
+          f"where they changed (sampled every 0.25 s): {changes}")
+    occ = {}
+    for i, step in enumerate(rep["occupancy_traj"]):
+        for label, (used, n) in step.items():
+            occ.setdefault(label, []).append(f"{i}:{used}/{n}")
+    print(f"[serve] bucket occupancy (step:rented/slots) over "
+          f"{len(rep['occupancy_traj'])} steps: "
+          + "; ".join(f"{k} {' '.join(v)}" for k, v in occ.items()))
+    print(f"[serve] stream admissions {rep['admission']['stream_admissions']}"
+          f", deferred submits {run['deferred']} (429s retried; admission "
+          f"counted {rep['admission']['deferred']}), autoscale "
+          f"{rep['autoscale']}")
+    print(f"[serve] pool: steps {pool['steps']}, dispatches "
+          f"{pool['dispatches']}, promotions (regrows) {pool['regrows']}, "
+          f"active slots per step {pool['active_per_step']}, chunk "
+          f"recommendation {pool['chunk_recommendation']}; buckets at the "
+          f"end {pool['buckets']}")
+    # the pipeline seconds again, replayed from the trace file: the
+    # pool's Timers emit one span a segment
+    replayed, _ = replay_totals(trace_path, tim=run["timers_id"])
+    replayed = {k: round(v, 3) for k, v in replayed.items()}
+    print(f"[serve] pipeline seconds {pool['pipeline_s']}; replayed from "
+          f"the trace file {replayed}; /trace summary {run['trace']}")
+    if set(replayed) != set(pool["pipeline_s"]) or any(
+            abs(replayed[k] - v) > 2e-3 for k, v in pool["pipeline_s"].items()):
+        raise RuntimeError("[serve] the trace file's pipeline spans do not "
+                           "add up to the pool's timers")
+    print("[serve] host stages (wall s, calls; pool steps include the "
+          "mid-step retirements' merge and quality): " + ", ".join(
+              f"{k} {v[0]:.3f} x{v[1]}" for k, v in spans.items()))
+    print(f"[serve] launches {launches}; K6 tensor-mode launches "
+          f"{k6_tensor[0]}")
+    if served != len(tenants) or rep["failed"] or pool["quarantined"]:
+        raise RuntimeError(f"[serve] not every tenant was served: "
+                           f"{run['polls']}")
+    missing = [k for k in ALL_KERNELS if not launches[k]]
+    if device == "cuda" and (missing or not k6_tensor[0]):
+        raise RuntimeError(f"[serve] kernels never launched {missing} "
+                           f"(K6 tensor mode {k6_tensor[0]})")
+    for tid, arrays in run["arrays"].items():
+        mesh, met = _fetched_mesh(arrays, device)
+        _check_conforming(f"[serve] {tid}", mesh, met)
+    # the first tenant of each class against its standalone pass
+    for tid, cls, vert, tet, met in tenants:
+        if not tid.endswith("-0"):
+            continue
+        m, k = stage_arrays(vert, tet, met=met, device=device)
+        sync = torch.cuda.synchronize if device == "cuda" else \
+            (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        out, kout, _ = grouped_adapt_pass(m, k, 1, cycles=SERVE_CYCLES)
+        sync()
+        wall = time.perf_counter() - t0
+        want = mesh_to_numpy(out)
+        got = run["arrays"][tid]
+        diff = [f for f in MESH_FIELDS if not np.array_equal(got[f],
+                                                             want[f])]
+        if diff or not np.array_equal(got["met"], kout.cpu().numpy()):
+            raise RuntimeError(f"[serve] {tid} differs from its standalone "
+                               f"grouped_adapt_pass in {diff or ['met']}")
+        nt = int(got["tmask"].sum())
+        ref = JAX_POOL_NTETS[cls]
+        print(f"[serve] {tid}: byte-equal to the standalone "
+              f"grouped_adapt_pass(ngroups=1) (every field and the metric; "
+              f"its wall {wall:.3f} s); {nt} tets, the JAX pool's {ref} "
+              f"({(nt - ref) / ref:+.2%})")
+        if abs(nt - ref) > NTETS_BOUND * ref:
+            raise RuntimeError(f"[serve] {tid}: {nt} tets not within "
+                               f"{NTETS_BOUND:.0%} of the JAX pool's {ref}")
+    # the fault drill: the iso12 pair submitted to a paused daemon, so the
+    # first step packs both in one chunk=2 dispatch, the second armed; the
+    # packed dispatch faults, the cohort falls back to a slot a dispatch,
+    # and the first keeps its bytes and writes its distributed output
+    pair = [t for t in tenants if t[1] == "iso12"]
+    bad = pair[1][0]
+    out_dir = os.path.join(workdir, "serve_out")
+    os.makedirs(out_dir, exist_ok=True)
+    drill = _serve_run(pair, device, arm=f"serve.slot_step:key={bad}",
+                       together=True, slots_per_bucket=2, chunk=2,
+                       out_dir=out_dir)
+    drep = drill["report"]
+    good = pair[0][0]
+    state = drep["tenants"][bad]["state"]
+    series = ("parmmg_resilience_serve_cohort_faults_total", frozenset())
+    cohort_faults = drill["metrics1"].get(series, 0) \
+        - drill["metrics0"].get(series, 0)
+    per_step = drep["pool"]["active_per_step"]
+    print(f"[serve] fault drill (serve.slot_step armed on {bad}, submitted "
+          f"with {good} to a paused daemon, chunk 2): active slots per step "
+          f"{per_step}, dispatches {drep['pool']['dispatches']}, cohort "
+          f"faults {cohort_faults:g}; {bad} {state} "
+          f"({drep['tenants'][bad]['reason']}), quarantined "
+          f"{drep['pool']['quarantined']}; {good} "
+          f"{drep['tenants'][good]['state']}, wall {drill['wall']:.3f} s")
+    if 2 not in per_step or cohort_faults < 1:
+        raise RuntimeError(f"[serve] the fault drill never faulted a "
+                           f"two-slot dispatch: active slots per step "
+                           f"{per_step}, cohort faults {cohort_faults}")
+    if state != "failed" or drep["pool"]["quarantined"] != [bad] or \
+            good not in drill["arrays"]:
+        raise RuntimeError(f"[serve] the fault drill did not quarantine "
+                           f"exactly {bad}: {drill['polls']}")
+    a, b = drill["arrays"][good], run["arrays"][good]
+    diff = [f for f in list(MESH_FIELDS) + ["met"]
+            if not np.array_equal(a[f], b[f])]
+    if diff:
+        raise RuntimeError(f"[serve] fault drill: {good} differs from the "
+                           f"first run in {diff}")
+    files = drep["tenants"][good]["out_files"]
+    back, _, _ = load_distributed_mesh(os.path.join(out_dir, f"{good}.mesh"),
+                                       0)
+    nt = int(a["tmask"].sum())
+    print(f"[serve] fault drill: {good} byte-equal to the first run; its "
+          f"write_distributed output {files} read back: {len(back.tetra)} "
+          f"tets, {len(back.vert)} points (fetched: {nt} live tets)")
+    if len(back.tetra) != nt or len(files) != 1:
+        raise RuntimeError(f"[serve] write_distributed wrote "
+                           f"{len(back.tetra)} tets, not {nt}")
+    return launches
+
+
 def phase_stress(repeats: int = 5, band_shapes=None):
     """K5, K7 and K8 exactly against their plain versions at the edges of
     their tiles and at 2**24 + 3 rows, each case ``repeats`` times; and K5
@@ -1644,6 +2036,19 @@ def main(argv=()) -> int:
         return 2
     workdir = os.path.join(HERE, "build", "smoke")
     os.makedirs(workdir, exist_ok=True)
+    if list(argv) == ["--serve"]:
+        try:
+            phase_build()
+            launches = phase_serve(workdir)
+        except Exception:
+            traceback.print_exc()
+            print("chip_smoke: FAILED", file=sys.stderr)
+            return 1
+        print(json.dumps({"serve_launches": launches}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if len(argv) == 2 and argv[0] == "--pairs":
         try:
             phase_build()
@@ -1668,6 +2073,7 @@ def main(argv=()) -> int:
         phase_aniso_repeat(workdir)
         launches_field = phase_field(workdir)
         launches_grouped, band_samples, band_shapes = phase_grouped(workdir)
+        launches_serve = phase_serve(workdir)
         rows = phase_kernels(launches, shapes, launches_ani, shapes_ani,
                              workdir, band_samples)
         phase_stress(band_shapes=band_shapes)
@@ -1680,6 +2086,7 @@ def main(argv=()) -> int:
     for r in rows:
         r["field_launches"] = int(launches_field[r["name"]])
         r["grouped_launches"] = int(launches_grouped[r["name"]])
+        r["serve_launches"] = int(launches_serve[r["name"]])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,8 +16,11 @@ describing the parallel interfaces:
 (The reference stores (local, global, icomm) triples after per-comm
 color/size headers, inout_pmmg.c:74-186; grouping the triples per comm is
 the same information.)  This doubles as the framework's checkpoint/resume
-format, like the reference's ``-distributed-output`` round trip.  The
-writers of stacked device shards wait for the port's multi-device path.
+format, like the reference's ``-distributed-output`` round trip.
+:func:`stacked_to_distributed_files` writes slots of a stacked state
+straight to rank files, without a merge (the serve pool's tenant output);
+its communicator sections, and ``shards_to_distributed_files``, come with
+the multi-device path.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import dataclasses
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from .medit import MeditMesh, read_mesh, write_mesh
 
@@ -119,3 +123,55 @@ def probe_distributed(path: str | Path, rank: int = 0) -> bool:
     """Centralized-vs-distributed input probe (parmmg.c:161-188 flavor):
     True if the rank-decorated file exists."""
     return insert_rank_index(path, rank).exists()
+
+
+# ---------------------------------------------------------------------------
+# stacked state -> rank files, no merge
+# ---------------------------------------------------------------------------
+def writer_tables(vmask: torch.Tensor, tmask: torch.Tensor,
+                  tet: torch.Tensor):
+    """Per slot of a stacked state: the dense-to-compact vertex
+    renumbering, the renumbered connectivity and the live counts (the JAX
+    package's jitted ``writer_tables`` program, as plain torch).
+
+    ``vmask`` [S, capP], ``tmask`` [S, capT], ``tet`` [S, capT, 4] ->
+    (new_id [S, capP] (-1 dead), tet_l [S, capT, 4] (-1 dead rows),
+    nvert [S], ntet [S]), int32."""
+    capP = vmask.shape[1]
+    new_id = torch.where(vmask, torch.cumsum(vmask, dim=1,
+                                             dtype=torch.int32) - 1, -1)
+    ix = tet.clamp(0, capP - 1).reshape(tet.shape[0], -1).long()
+    tet_l = torch.where(tmask[..., None],
+                        torch.gather(new_id, 1, ix).reshape(tet.shape), -1)
+    return (new_id, tet_l, vmask.sum(dim=1, dtype=torch.int32),
+            tmask.sum(dim=1, dtype=torch.int32))
+
+
+def stacked_to_distributed_files(path, stacked, n_shards: int,
+                                 shards=None) -> list[Path]:
+    """Write ``name.<rank>.mesh`` files directly from a stacked state
+    (``core.mesh.MeshStack``), with no ``merge_shards`` (the reference's
+    ``-distributed-output`` never centralizes either, inout_pmmg.c:387).
+
+    ``shards`` selects a subset of slots, re-ranked densely (slot
+    ``shards[i]`` -> ``name.<i>.mesh``): the serve pool writes one
+    tenant's slot this way.  No communicator sections are written; the
+    JAX package's ``comms`` / ``glo`` arguments (the multi-device shards'
+    vertex communicators) wait for the port's distributed path."""
+    _, tet_l, _, _ = writer_tables(stacked.vmask, stacked.tmask,
+                                   stacked.tet)
+    tet_l = tet_l.cpu().numpy()
+    vert, vref, tref, vmask, tmask = (
+        getattr(stacked, f).cpu().numpy()
+        for f in ("vert", "vref", "tref", "vmask", "tmask"))
+    ranks = list(range(n_shards)) if shards is None \
+        else [int(s) for s in shards]
+    outs = []
+    for i, r in enumerate(ranks):
+        m = MeditMesh()
+        m.vert = vert[r][vmask[r]].astype(np.float64)
+        m.vref = vref[r][vmask[r]]
+        m.tetra = tet_l[r][tmask[r]].astype(np.int32)
+        m.tref = tref[r][tmask[r]]
+        outs.append(save_distributed_mesh(path, i, m, None, []))
+    return outs

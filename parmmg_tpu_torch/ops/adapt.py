@@ -52,8 +52,18 @@ class AdaptStats:
     group_dispatches_saved: int = 0
     groups_skipped: int = 0
     sched_extra: dict = field(default_factory=dict)
+    # serving-mode tenant isolation (serve/): stats of different tenants
+    # refuse to merge, and merging a tenant's stats into an untagged
+    # aggregate namespaces its sched_extra keys under "tenant:<id>/"
+    tenant: str | None = None
 
     def __iadd__(self, other):
+        if (self.tenant is not None and other.tenant is not None
+                and self.tenant != other.tenant):
+            raise ValueError(
+                f"refusing to merge AdaptStats across tenants "
+                f"({self.tenant!r} += {other.tenant!r}); aggregate into "
+                "an untagged AdaptStats instead")
         self.nsplit += other.nsplit
         self.ncollapse += other.ncollapse
         self.nswap += other.nswap
@@ -64,12 +74,22 @@ class AdaptStats:
         self.group_dispatches += other.group_dispatches
         self.group_dispatches_saved += other.group_dispatches_saved
         self.groups_skipped += other.groups_skipped
+        pre = f"tenant:{other.tenant}/" \
+            if self.tenant is None and other.tenant is not None else ""
         for k, v in other.sched_extra.items():
+            kk = k if k.startswith("tenant:") else pre + k
             if isinstance(v, list):
-                self.sched_extra.setdefault(k, []).extend(v)
+                self.sched_extra.setdefault(kk, []).extend(v)
             else:
-                self.sched_extra[k] = self.sched_extra.get(k, 0.0) + v
+                self.sched_extra[kk] = self.sched_extra.get(kk, 0.0) + v
         return self
+
+    def publish(self, registry=None) -> None:
+        """Publish the counters into the metrics registry
+        (``obs/metrics.py``): a tenant's stats land as tenant-namespaced
+        series."""
+        from ..obs.metrics import publish_stats
+        publish_stats(self, registry)
 
 
 def adapt_cycle_impl(mesh: Mesh, met: torch.Tensor, wave: int,

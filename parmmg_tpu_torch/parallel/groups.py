@@ -29,7 +29,8 @@ package's defaults).
 
 Left for later (the JAX package's resilience layer): the subprocess
 polish worker, dispatch retries and deadlines, pass checkpoints and
-``resume``, and the metrics registry; a failing chunk raises.
+``resume``, and the pass's metrics; a failing chunk raises (the serve pool
+isolates such a failure to its tenant, ``_pipeline_chunks(done=)``).
 """
 from __future__ import annotations
 
@@ -175,7 +176,8 @@ def _pad_groups(x, g_new: int):
 
 
 def _pipeline_chunks(fn, stacked: MeshStack, met_s, wave: int, plans, tim,
-                     device, incr: bool, topo: TopoState):
+                     device, incr: bool, topo: TopoState,
+                     done: dict | None = None):
     """Chunked dispatch over gathered group-index slices of the
     host-resident state.
 
@@ -189,10 +191,17 @@ def _pipeline_chunks(fn, stacked: MeshStack, met_s, wave: int, plans, tim,
     written.  Each chunk is written back before the next one is gathered,
     so the device holds one chunk at a time.  ``tim``
     (``utils.timers.Timers``) records the four segments.  Returns the
-    per-plan host count arrays (trimmed to nreal), in plan order."""
+    per-plan host count arrays (trimmed to nreal), in plan order.
+
+    The host state changes only in a plan's writeback, its last step, so
+    a plan that raises leaves its rows as they were.  ``done`` (a dict)
+    records each plan's counts under its index once its writeback ran:
+    a caller catching a failure can tell which plans already advanced
+    their rows and which never did (the serve pool's fault isolation
+    retries only the latter)."""
     from .sched import pad_mask
     out = []
-    for idx, nreal in plans:
+    for pi, (idx, nreal) in enumerate(plans):
         ix = torch.from_numpy(np.asarray(idx, np.int64))
         with tim("upload", sync=device):
             sl = stacked.map(lambda a: a[ix].to(device))
@@ -213,6 +222,8 @@ def _pipeline_chunks(fn, stacked: MeshStack, met_s, wave: int, plans, tim,
             met_s[rows] = kh
             for d, s in zip(topo, th):
                 d[rows] = s
+        if done is not None:
+            done[pi] = out[-1]
     return out
 
 

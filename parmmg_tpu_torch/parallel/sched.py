@@ -228,3 +228,35 @@ class QuietGroupScheduler:
         scale with capT — budget-truncated winners must rerun).  Pad
         groups stay quiet (dead at any capacity)."""
         self.level[:self.ngroups] = LEVEL_ACTIVE
+
+
+def recommend_group_chunk(traj, g_exec: int,
+                          dispatch_overhead: float = 1.0) -> int:
+    """Recommend a chunk (groups a dispatch) from an active-group
+    trajectory (``active_groups_per_block``, or the serve pool's active
+    slots a step).
+
+    Cost model per block with ``a`` active groups at chunk ``c``:
+    ``ceil(a/c) * (c + dispatch_overhead)`` in group-compute units — every
+    dispatch ships a full [c, ...] slice (short tails are padded by
+    repeating rows), plus a per-dispatch overhead in units of one
+    group-block of work.  Candidates are the powers of two up to
+    ``g_exec``, then ``g_exec``; ties prefer the larger chunk.  Returns 0
+    (unchunked) for an empty trajectory or when the winner covers every
+    group anyway."""
+    a = [int(v) for v in (traj or []) if int(v) > 0]
+    if not a or g_exec <= 1:
+        return 0
+    cands = []
+    c = 1
+    while c < g_exec:
+        cands.append(c)
+        c *= 2
+    cands.append(g_exec)
+
+    def cost(c: int) -> float:
+        return sum(-(-ab // c) * (c + dispatch_overhead) for ab in a)
+
+    best = max((c for c in cands
+                if cost(c) == min(cost(x) for x in cands)))
+    return 0 if best >= g_exec else best

@@ -6,19 +6,24 @@ small nestable timer registry with the same reporting role: the grouped
 pipeline (``parallel/groups._pipeline_chunks``) times its upload /
 compute / download / writeback segments on one.
 
-The JAX package also emits a trace span per scope and re-exports its
-compile ledger here; the port has neither (``obs/`` is not ported).  In
-their place a scope can synchronise the card before it stops the clock:
-``tim(name, sync=device)`` with a CUDA device waits for the work queued
-inside the scope, so a segment that ends in device work counts that work
-and not only its launches.
+Every completed scope also emits a trace span (``obs/trace.py``)
+carrying the instance's ``trace_id``, so ``obs.trace.replay_totals(records,
+tim=timers.trace_id)`` reconstructs exactly this registry's totals, as in
+the JAX package.  (Its compile ledger, which the JAX module re-exports
+here, is not ported.)  A scope can also synchronise the card before it
+stops the clock: ``tim(name, sync=device)`` with a CUDA device waits for
+the work queued inside the scope, so a segment that ends in device work
+counts that work and not only its launches.
 """
 from __future__ import annotations
 
+import itertools
 import time
 from contextlib import contextmanager
 
 import torch
+
+from ..obs.trace import emit_span
 
 
 def _sync(device) -> None:
@@ -27,6 +32,8 @@ def _sync(device) -> None:
 
 
 class Timers:
+    _IDS = itertools.count(1)
+
     def __init__(self):
         self.acc: dict[str, float] = {}
         self.count: dict[str, int] = {}
@@ -34,6 +41,8 @@ class Timers:
         # paths absorbed via add() OUTSIDE any active scope: externally
         # measured segments, rendered distinctly by report()
         self.external: set[str] = set()
+        # stable id stamped on every emitted span (the replay filter)
+        self.trace_id: int = next(Timers._IDS)
 
     @contextmanager
     def __call__(self, name: str, sync=None):
@@ -53,6 +62,7 @@ class Timers:
                 dt = round(time.perf_counter() - t0, 9)
                 self.acc[path] = self.acc.get(path, 0.0) + dt
                 self.count[path] = self.count.get(path, 0) + 1
+                emit_span(path, dt, tim=self.trace_id)
 
     def add(self, name: str, seconds: float, count: int = 1) -> None:
         """Fold an externally measured duration into the registry at the
@@ -67,6 +77,8 @@ class Timers:
         seconds = round(float(seconds), 9)
         self.acc[path] = self.acc.get(path, 0.0) + seconds
         self.count[path] = self.count.get(path, 0) + int(count)
+        emit_span(path, seconds, count=int(count), tim=self.trace_id,
+                  ext=ext)
 
     def report(self, min_s: float = 0.0) -> str:
         lines = []
