@@ -4,13 +4,15 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --pairs N
     python3 chip_smoke.py --serve
+    python3 chip_smoke.py --chaos
 
 With ``--pairs N`` it builds the kernels and runs only N alternating
 pairs of each cube16 path (phases 2 and 4) at ``cycle_block=1`` and at
 the default, blocks of 9, after one unmeasured pair, and prints the walls,
 the output sizes and qualities and the paired wall differences as one
 JSON line before the last.  With ``--serve`` it runs phases 1 and 7
-alone.  Without arguments:
+alone, with ``--chaos`` phases 1 and 6b (making the [grouped] output it
+compares with).  Without arguments:
 
 Phases (any failure exits non-zero without the final result line):
 
@@ -103,6 +105,33 @@ Phases (any failure exits non-zero without the final result line):
              pipeline segment seconds, host reads a group-cycle, the band
              merges, their widths and the kernels' shapes there, and each
              run's wall.
+6b. chaos  - the resilience layer (``resilience/``, ``parallel/groups.py``,
+             ``_polish_worker.py``), each drill held to the fault-free
+             bytes.  The [grouped] input and flags at chunk 8: (1)
+             PMTORCH_CKPT_DIR armed: [grouped]'s bytes, 2 pass checkpoints,
+             12 shard files a pass, no new shape in the ledger; (2) an nth-1
+             ``dispatch.chunk`` fault: the bytes, the retry rung; (3)
+             ``dispatch.chunk:hang=3;nth-1`` under a 0.5 s dispatch
+             deadline, grace 0: the bytes, a watchdog expiry; (4) a CLI
+             subprocess SIGKILLed once ``grouped.pass0.npz`` appears, then
+             ``-resume``: the bytes, one resume.  cube_mesh(16) under the
+             shock map h = 1.5/8 at ``-mesh-size 4096 -niter 2`` (6
+             groups), chunk 4: (5) ``io.checkpoint`` armed: its unarmed
+             bytes, no ``.npz`` or ``.tmp``; (6) every dispatch failing, 1
+             retry: PMMG_LOWFAILURE, a conforming output; (7) a
+             ``grouped_adapt_pass(polish=True)`` with the subprocess worker
+             (PMTORCH_POLISH_SUBPROC) equals the in-process polish, the
+             worker's launches on the card; (8) a dead worker and a hung
+             one (PMTORCH_POLISH_TIMEOUT_S 5) each equal the polish-less
+             pass, no staging left.  (9) PMTORCH_PROFILE_DIR over pass 1 of
+             cube_mesh(4) at ``-mesh-size 192`` (2 groups), a CLI
+             subprocess: one Chrome trace with CUDA kernel events, the
+             unprofiled run's bytes.  Launch counts summed over the phase's
+             runs in this process: K1 and K3-K8, not K2.  Prints each run's
+             wall, the checkpoint seconds and bytes a pass (npz and shard
+             snapshot) beside the pass's wall, the resumed run's wall, the
+             retry's cost, the worker's cold start and polish seconds and
+             the trace's size.
 7. serve   - remeshing as a service: a ``PoolDaemon`` in this process
              (``parmmg_tpu_torch/serve/``; two slots a bucket, 6 cycles a
              tenant, one tenant a dispatch, streaming admission and
@@ -164,7 +193,8 @@ profiler's kernel count over 20 calls / 20) and fails unless K5, K6 and K8
 (both modes) are one launch a call and K7 1 + npass.
 
 The last two lines are one JSON object with the kernel table (each row's
-launches on the main path, and on the field, grouped and serve paths) and
+launches on the main path, and on the field, grouped, serve and chaos
+paths) and
 one JSON object ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -175,6 +205,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -942,7 +973,8 @@ class _KernelTap:
 
 
 def _run_grouped(workdir: str, out: str, device: str, pass_kw=None,
-                 count_reads: bool = False):
+                 count_reads: bool = False, stem: str = "cube32",
+                 flags=None):
     """The [grouped] CLI remesh once, written to ``out``, with ``pass_kw``
     given to every grouped pass; returns (launches, record, wall, info):
     ``info`` holds the run's AdaptStats, the group-cycles it ran (calls of
@@ -981,8 +1013,8 @@ def _run_grouped(workdir: str, out: str, device: str, pass_kw=None,
             info["ga_wall"] += time.perf_counter() - t0
     groups.grouped_adapt, adapt.adapt_cycle_impl = ga, cycle
     try:
-        launches, rec, wall = _run_main(workdir, "cube32", out, device,
-                                        flags=GROUPED_FLAGS)
+        launches, rec, wall = _run_main(workdir, stem, out, device,
+                                        flags=flags or GROUPED_FLAGS)
     finally:
         groups.grouped_adapt, adapt.adapt_cycle_impl = real_ga, real_cycle
     return launches, rec, wall, info
@@ -1125,6 +1157,541 @@ def phase_grouped(workdir: str, device: str = "cuda"):
         raise RuntimeError(f"[grouped] topo_incr's calls {tap.calls} did "
                            f"not all launch their kernel {tap.launched}")
     return launches, samples, shapes
+
+
+# the [chaos] phase: the [grouped] input at chunk 8 (checks 1-4), and
+# (stem, cube_mesh(n), metric_n, flags, chunk) for checks 5-8: cube_mesh(16)
+# at -mesh-size 4096 (6 groups) under the shock map of cube_mesh(8)
+# (h = 1.5/8; the cube16 map refines these groups to 181,352 tets at 57 s a
+# run), chunk 4; the profiler window (check 9) on cube_mesh(4) at
+# -mesh-size 192 (2 groups): a host-bound pass launches ~10^4 ops a
+# group-cycle, and its trace holds a few events each (pass 1 of
+# cube_mesh(8), 3 groups, wrote 327 MB, of cube_mesh(6) 319 MB in 60 s)
+CHAOS_SMALL = ("cube16c", 16, 8, ("-mesh-size", "4096", "-niter", "2"), 4)
+CHAOS_PROF = ("cube4c", 4, ("-mesh-size", "192", "-niter", "2"))
+
+
+@contextlib.contextmanager
+def _knobs(**kv):
+    """PMTORCH_* knobs set for the scope (None unsets), the fault
+    registry re-armed from them at entry and exit."""
+    from parmmg_tpu_torch.resilience.faults import FAULTS
+    old = {k: os.environ.get(k) for k in kv}
+    for k, v in kv.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = str(v)
+    FAULTS.reset()
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        FAULTS.reset()
+
+
+def _counters():
+    from parmmg_tpu_torch.obs.metrics import REGISTRY
+    return dict(REGISTRY.snapshot()["counters"])
+
+
+def _moved(c0, name):
+    return _counters().get(name, 0) - c0.get(name, 0)
+
+
+def _same_outputs(a: str, b: str):
+    for ext in (".mesh", ".sol"):
+        _same_bytes(a[:-5] + ext, b[:-5] + ext)
+
+
+class _CkptWatch:
+    """Times every pass checkpoint (npz) and shard snapshot and every
+    grouped pass of the runs inside the scope; sizes come from the
+    files."""
+
+    def __init__(self):
+        self.npz, self.snap, self.passes = [], [], []
+
+    def __enter__(self):
+        from parmmg_tpu_torch.parallel import groups
+        from parmmg_tpu_torch.resilience import checkpoint as ck
+        self._real = (ck.save_pass_checkpoint, ck.snapshot_stacked,
+                      groups.grouped_adapt_pass)
+        save, snap, gpass = self._real
+
+        def timed(fn, log):
+            def call(*a, **k):
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                log.append((time.perf_counter() - t0, out))
+                return out
+            return call
+        ck.save_pass_checkpoint = timed(save, self.npz)
+        ck.snapshot_stacked = timed(snap, self.snap)
+        groups.grouped_adapt_pass = timed(gpass, self.passes)
+        return self
+
+    def __exit__(self, *exc):
+        from parmmg_tpu_torch.parallel import groups
+        from parmmg_tpu_torch.resilience import checkpoint as ck
+        (ck.save_pass_checkpoint, ck.snapshot_stacked,
+         groups.grouped_adapt_pass) = self._real
+        return False
+
+    def lines(self):
+        out = []
+        for k, ((sn, nz), (sp, fs), (pw, _)) in enumerate(
+                zip(self.npz, self.snap, self.passes)):
+            nb = os.path.getsize(nz) if nz else 0
+            sb = sum(os.path.getsize(f) for f in fs)
+            out.append(f"pass {k}: wall {pw:.3f} s; npz {sn:.3f} s "
+                       f"{nb} B; shard snapshot {sp:.3f} s {sb} B in "
+                       f"{len(fs)} files")
+        return out
+
+
+def _mem_reset(device: str) -> None:
+    """Empty the allocator's cache and restart its peak counters, so that
+    the next run's peaks are its own."""
+    import torch
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _mem_peak(device: str) -> str:
+    """The card's peak allocated and reserved bytes since
+    :func:`_mem_reset`."""
+    import torch
+    if device != "cuda":
+        return "peak memory not measured (CPU)"
+    return (f"peak allocated {torch.cuda.max_memory_allocated()} B, "
+            f"reserved {torch.cuda.max_memory_reserved()} B")
+
+
+def _side_streams() -> int:
+    """The side streams the guarded dispatch attempts made so far."""
+    from parmmg_tpu_torch.parallel import groups
+    return sum(len(p) for p in groups._SIDE_STREAMS.values())
+
+
+def _join_abandoned():
+    """Wait for abandoned dispatch attempts (they stop at their next
+    progress report)."""
+    import threading
+    for t in threading.enumerate():
+        if t.name.startswith("parmmg-watchdog-dispatch"):
+            t.join(timeout=120)
+
+
+def _small_state(workdir: str, device: str):
+    """The small chaos input as a grouped pass takes it: (mesh, metric,
+    groups) on the device."""
+    from parmmg_tpu_torch.ops.analysis import analyze_mesh
+    from parmmg_tpu_torch.parallel.groups import how_many_groups
+    stem, _, _, flags, _ = CHAOS_SMALL
+    mesh, met, _ = _read_output(os.path.join(workdir, f"{stem}.mesh"),
+                                device)
+    mesh = analyze_mesh(mesh).mesh
+    return mesh, met, how_many_groups(int(mesh.tmask.sum()), int(flags[1]))
+
+
+def _pass_bytes(out):
+    from parmmg_tpu_torch.core.mesh import MESH_FIELDS
+    mesh, met, part = out
+    return tuple(getattr(mesh, f).cpu().numpy().tobytes()
+                 for f in MESH_FIELDS) + (met.cpu().numpy().tobytes(),
+                                          part.tobytes())
+
+
+def phase_chaos(workdir: str, device: str = "cuda", base: str | None = None):
+    """The [chaos] phase: the resilience layer on the card, every drill
+    against the fault-free bytes.  On the [grouped] input at chunk 8
+    (``base``: [grouped]'s output; made here when None): 1. checkpoints
+    armed, no fault: the base bytes, 2 pass checkpoints and 12 shard
+    files a pass, no new shape in the ledger; 2. an nth-1
+    ``dispatch.chunk`` fault: the base bytes, the retry rung recorded;
+    3. ``dispatch.chunk:hang=3;nth-1`` under a 0.5 s dispatch deadline
+    (grace 0): the base bytes, a watchdog expiry; 4. a CLI subprocess
+    SIGKILLed once ``grouped.pass0.npz`` appears, then ``-resume`` in this
+    process: the base bytes, one resume.  On cube_mesh(16) at -mesh-size
+    4096 under a coarser map (CHAOS_SMALL): 5. ``io.checkpoint`` armed:
+    its base bytes, no
+    ``.npz`` or ``.tmp`` left; 6. every dispatch failing: PMMG_LOWFAILURE
+    and a conforming output; 7. ``grouped_adapt_pass(polish=True)`` with
+    the subprocess worker equals the in-process polish (the worker ran on
+    the card: its launches); 8. a dead and a hung worker each equal the
+    polish-less pass.  9. On cube_mesh(4) at -mesh-size 192 (CHAOS_PROF),
+    the profiler window over pass 1 writes one Chrome trace with CUDA
+    kernel events.  Launch counts are summed over the phase's runs in this
+    process: K1 and K3-K8 must launch, K2 not.
+    Returns the launches."""
+    import subprocess
+    import torch
+    from parmmg_tpu_torch import cli
+    from parmmg_tpu_torch.core import constants as C
+    from parmmg_tpu_torch.ops import kernels
+    from parmmg_tpu_torch.ops.adapt import AdaptStats
+    from parmmg_tpu_torch.parallel import groups
+    from parmmg_tpu_torch.resilience import checkpoint as ck
+    from parmmg_tpu_torch.resilience import recover
+    from parmmg_tpu_torch.utils.compilecache import variants_by_prefix
+    stem = "cube32"
+    total = {k: 0 for k in kernels.LAUNCHES}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    if not os.path.exists(os.path.join(workdir, f"{stem}.mesh")):
+        _write_input(workdir, stem, n=32, metric_n=16)
+    if base is None:
+        base = os.path.join(workdir, f"{stem}.chaos_base.mesh")
+        _mem_reset(device)
+        _, _, wb, _ = _run_grouped(workdir, base, device)
+        print(f"[chaos] base run (defaults): wall {wb:.3f} s, "
+              f"{_mem_peak(device)}")
+    chunk = {"chunk": 8}
+
+    # 1. checkpoints armed, no fault
+    ckdir = os.path.join(workdir, "chaos_ck")
+    subprocess.run(["rm", "-rf", ckdir], check=True)
+    v0 = variants_by_prefix("")
+    out1 = os.path.join(workdir, f"{stem}.chaos1.mesh")
+    _mem_reset(device)
+    with _knobs(PMTORCH_CKPT_DIR=ckdir), _CkptWatch() as cw:
+        l1, rec1, w1, _ = _run_grouped(workdir, out1, device, pass_kw=chunk)
+    add(l1)
+    _same_outputs(base, out1)
+    names = sorted(os.listdir(ckdir))
+    npz = [n for n in names if n.endswith(".npz")]
+    shards = [sum(n.startswith(f"grouped.pass{k}.") and n.endswith(".mesh")
+                  for n in names) for k in range(2)]
+    v1 = variants_by_prefix("")
+    if npz != ["grouped.pass0.npz", "grouped.pass1.npz"] or \
+            shards != JAX_CLI_GROUPS or v1 != v0:
+        raise RuntimeError(f"[chaos] 1: checkpoints {npz}, shard files a "
+                           f"pass {shards}, ledger variants {v0} -> {v1}")
+    print(f"[chaos] 1 ckpt armed, chunk 8: {rec1['ntets']} tets, wall "
+          f"{w1:.3f} s, base bytes; {npz}, shard files a pass {shards}; "
+          f"no new ledger shape; {_mem_peak(device)}")
+    for ln in cw.lines():
+        print(f"[chaos] 1   {ln}")
+
+    # the dispatch watchdog armed, no fault: its wall and memory against
+    # run 1's (every attempt on the first side stream of the pool)
+    out1b = os.path.join(workdir, f"{stem}.chaos1b.mesh")
+    _mem_reset(device)
+    with _knobs(PMTORCH_DEADLINE_DISPATCH_S="30"):
+        l1b, _, w1b, _ = _run_grouped(workdir, out1b, device,
+                                      pass_kw=chunk)
+    add(l1b)
+    _same_outputs(base, out1b)
+    if device == "cuda" and _side_streams() != 1:
+        raise RuntimeError(f"[chaos] 1b: {_side_streams()} side streams "
+                           "made without an expiry, not 1")
+    print(f"[chaos] 1b dispatch deadline 30 s armed, no fault, chunk 8: "
+          f"wall {w1b:.3f} s ({w1b - w1:+.3f} s against run 1), base "
+          f"bytes; {_mem_peak(device)}; side streams {_side_streams()}")
+
+    # 2. a dispatch fault, retried
+    c0 = _counters()
+    spent = []
+    real_retry = recover.retry_call
+
+    def timed_retry(fn, *a, **k):
+        runs = []
+
+        def attempt():
+            t1 = time.perf_counter()
+            try:
+                return fn()
+            finally:
+                runs.append(time.perf_counter() - t1)
+        t0 = time.perf_counter()
+        try:
+            return real_retry(attempt, *a, **k)
+        finally:
+            spent.append((time.perf_counter() - t0, sum(runs)))
+    out2 = os.path.join(workdir, f"{stem}.chaos2.mesh")
+    recover.retry_call = timed_retry
+    try:
+        with _knobs(PMTORCH_FAULT="dispatch.chunk:nth-1"):
+            l2, _, w2, _ = _run_grouped(workdir, out2, device, pass_kw=chunk)
+    finally:
+        recover.retry_call = real_retry
+    add(l2)
+    _same_outputs(base, out2)
+    if _moved(c0, "resilience.retry") < 1 or \
+            _moved(c0, "resilience.faults_injected") != 1:
+        raise RuntimeError("[chaos] 2: no retry recorded")
+    print(f"[chaos] 2 dispatch.chunk:nth-1: wall {w2:.3f} s ({w2 - w1:+.3f} "
+          f"s against run 1), base bytes; retry rung "
+          f"{_moved(c0, 'resilience.retry')}; retry_call "
+          f"{sum(t for t, _ in spent):.3f} s, of which the plan's re-run "
+          f"{sum(r for _, r in spent):.3f} s and backoff and bookkeeping "
+          f"{sum(t - r for t, r in spent):.3f} s")
+
+    # 3. a wedged dispatch under the watchdog
+    c0 = _counters()
+    out3 = os.path.join(workdir, f"{stem}.chaos3.mesh")
+    _mem_reset(device)
+    with _knobs(PMTORCH_FAULT="dispatch.chunk:hang=3;nth-1",
+                PMTORCH_DEADLINE_DISPATCH_S="0.5",
+                PMTORCH_DEADLINE_GRACE_S="0"):
+        l3, _, w3, _ = _run_grouped(workdir, out3, device, pass_kw=chunk)
+        _join_abandoned()
+    add(l3)
+    _same_outputs(base, out3)
+    if _moved(c0, "resilience.watchdog_timeouts") < 1:
+        raise RuntimeError("[chaos] 3: no watchdog expiry")
+    if device == "cuda" and _side_streams() > 2:
+        raise RuntimeError(f"[chaos] 3: {_side_streams()} side streams "
+                           "for one expiry, more than 2")
+    print(f"[chaos] 3 dispatch.chunk:hang=3;nth-1, deadline 0.5 s: wall "
+          f"{w3:.3f} s, base bytes; watchdog expiries "
+          f"{_moved(c0, 'resilience.watchdog_timeouts')}, retries "
+          f"{_moved(c0, 'resilience.retry')}; {_mem_peak(device)}; side "
+          f"streams {_side_streams()}")
+
+    # 4. a real kill after pass 0, then -resume
+    kdir = os.path.join(workdir, "chaos_kill")
+    subprocess.run(["rm", "-rf", kdir], check=True)
+    kout = os.path.join(workdir, f"{stem}.chaos4k.mesh")
+    env = dict(os.environ, PMTORCH_CKPT_DIR=kdir, PMTORCH_GROUP_CHUNK="8",
+               PYTHONPATH=HERE)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "parmmg_tpu_torch.cli", "-in",
+         os.path.join(workdir, f"{stem}.mesh"), "-sol",
+         os.path.join(workdir, f"{stem}.sol"), "-out", kout, *GROUPED_FLAGS,
+         "-v", "1", "-device", device], cwd=HERE, env=env,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    p0 = os.path.join(kdir, "grouped.pass0.npz")
+    try:
+        while not os.path.exists(p0):
+            if proc.poll() is not None:
+                raise RuntimeError("[chaos] 4: the CLI ended before pass 0's "
+                                   f"checkpoint: {proc.stderr.read()[-2000:]}")
+            if time.perf_counter() - t0 > 300:
+                raise RuntimeError("[chaos] 4: no pass 0 checkpoint in 300 s")
+            time.sleep(0.02)
+        tk = time.perf_counter() - t0
+        proc.kill()
+    finally:
+        proc.kill()
+        proc.wait()
+    left = sorted(os.listdir(kdir))
+    with _knobs(PMTORCH_CKPT_DIR=kdir):
+        found = ck.latest_pass_checkpoint("grouped")
+    if proc.returncode != -9 or found is None or \
+            not found[0].endswith("grouped.pass0.npz"):
+        raise RuntimeError(f"[chaos] 4: rc {proc.returncode}, files {left}, "
+                           f"latest {found}")
+    c0 = _counters()
+    out4 = os.path.join(workdir, f"{stem}.chaos4.mesh")
+    with _knobs(PMTORCH_CKPT_DIR=kdir):
+        l4, _, w4, _ = _run_grouped(workdir, out4, device, pass_kw=chunk,
+                                    flags=GROUPED_FLAGS + ("-resume",))
+    add(l4)
+    _same_outputs(base, out4)
+    if _moved(c0, "resilience.resumes") != 1:
+        raise RuntimeError("[chaos] 4: resumes "
+                           f"{_moved(c0, 'resilience.resumes')}")
+    print(f"[chaos] 4 SIGKILL {tk:.3f} s after start (pass 0 checkpoint "
+          f"seen; files then {left}; .tmp taken: none), -resume: wall "
+          f"{w4:.3f} s against the full run's {w1:.3f} s, base bytes, "
+          "resumes 1")
+
+    # the small configuration
+    sstem, n, mn, sflags, schunk = CHAOS_SMALL
+    _write_input(workdir, sstem, n=n, metric_n=mn)
+    sbase = os.path.join(workdir, f"{sstem}.o.mesh")
+    ls, recs, ws, _ = _run_grouped(workdir, sbase, device, stem=sstem,
+                                   flags=sflags)
+    add(ls)
+    print(f"[chaos] small base: cube_mesh({n}), h = 1.5/{mn}, "
+          f"{' '.join(sflags)}: "
+          f"{recs['ntets']} tets, wall {ws:.3f} s")
+    skw = {"chunk": schunk}
+
+    # 5. checkpoint IO failing
+    iodir = os.path.join(workdir, "chaos_io")
+    subprocess.run(["rm", "-rf", iodir], check=True)
+    c0 = _counters()
+    out5 = os.path.join(workdir, f"{sstem}.chaos5.mesh")
+    with _knobs(PMTORCH_CKPT_DIR=iodir, PMTORCH_FAULT="io.checkpoint"):
+        l5, _, w5, _ = _run_grouped(workdir, out5, device, pass_kw=skw,
+                                    stem=sstem, flags=sflags)
+    add(l5)
+    _same_outputs(sbase, out5)
+    left = os.listdir(iodir) if os.path.isdir(iodir) else []
+    if any(f.endswith((".npz", ".tmp")) for f in left) or \
+            _moved(c0, "resilience.checkpoint_failures") < 2:
+        raise RuntimeError(f"[chaos] 5: left {left}, failures "
+                           f"{_moved(c0, 'resilience.checkpoint_failures')}")
+    print(f"[chaos] 5 io.checkpoint: wall {w5:.3f} s, base bytes, "
+          f"checkpoint failures "
+          f"{_moved(c0, 'resilience.checkpoint_failures')}, files left "
+          f"{left}")
+
+    # 6. retries exhausted: LOWFAILURE with a conforming output
+    c0 = _counters()
+    out6 = os.path.join(workdir, f"{sstem}.chaos6.mesh")
+    before = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with _knobs(PMTORCH_FAULT="dispatch.chunk", PMTORCH_RETRY_MAX="1",
+                PMTORCH_GROUP_CHUNK=str(schunk)), \
+            contextlib.redirect_stdout(buf):
+        rc = cli.main(["-in", os.path.join(workdir, f"{sstem}.mesh"), "-sol",
+                       os.path.join(workdir, f"{sstem}.sol"), "-out", out6,
+                       *sflags, "-v", "1", "-device", device])
+    w6 = time.perf_counter() - t0
+    add({k: kernels.LAUNCHES[k] - before[k] for k in before})
+    mesh6, met6, _ = _read_output(out6, device)
+    bad, qmin, _ = _check_conforming("[chaos] 6", mesh6, met6)
+    if rc != C.PMMG_LOWFAILURE or _moved(c0, "resilience.lowfailure") != 1:
+        raise RuntimeError(f"[chaos] 6: rc {rc}, lowfailure "
+                           f"{_moved(c0, 'resilience.lowfailure')}")
+    print(f"[chaos] 6 dispatch.chunk every hit, 1 retry: rc {rc} "
+          f"(PMMG_LOWFAILURE), wall {w6:.3f} s, conforming "
+          f"{int(mesh6.tmask.sum())} tets, qmin {qmin:.6f}")
+
+    # 7-8. the grouped polish: in this process, in the worker, without
+    mesh, met, ng = _small_state(workdir, device)
+
+    def gpass(**kw):
+        st = AdaptStats()
+        b0 = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        out = groups.grouped_adapt_pass(mesh, met, ng, cycles=12,
+                                        chunk=schunk, stats=st, **kw)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        add({k: kernels.LAUNCHES[k] - b0[k] for k in b0})
+        return _pass_bytes(out), wall, st
+    plain, wp, _ = gpass()
+    inproc, wi, _ = gpass(polish=True)
+    if inproc == plain:
+        raise RuntimeError("[chaos] 7: the grouped polish changed nothing")
+    with _knobs(PMTORCH_POLISH_SUBPROC="1"):
+        sub, wsub, st = gpass(polish=True)
+    se = st.sched_extra
+    wl = se["polish_worker_launches"][0]
+    if sub != inproc or (device == "cuda" and not any(wl.values())):
+        raise RuntimeError(f"[chaos] 7: worker bytes equal {sub == inproc}, "
+                           f"its launches {wl}")
+    print(f"[chaos] 7 grouped_adapt_pass({ng} groups, chunk {schunk}): "
+          f"polish-less {wp:.3f} s, in-process polish {wi:.3f} s, worker "
+          f"{wsub:.3f} s (subprocess wall "
+          f"{se['polish_worker_wall_s'][0]:.3f} s: cold start "
+          f"{se['polish_worker_cold_s'][0]:.3f} s, polish "
+          f"{se['polish_worker_polish_s'][0]:.3f} s), worker bytes = "
+          f"in-process bytes; worker launches {wl}")
+    # 7b. the user's path to it: the CLI's -group-polish, one pass, in
+    # this process and in the worker
+    pflags = (*sflags[:2], "-niter", "1", "-group-polish")
+    outs = {}
+    for tag, kv in (("in-process", {}), ("worker",
+                                         {"PMTORCH_POLISH_SUBPROC": "1"})):
+        o = os.path.join(workdir, f"{sstem}.chaos7b_{tag}.mesh")
+        with _knobs(**kv):
+            lg, _, wg, ig = _run_grouped(workdir, o, device, pass_kw=skw,
+                                         stem=sstem, flags=pflags)
+        add(lg)
+        outs[tag] = (o, wg, ig["stats"].sched_extra)
+    (oi, wgi, sei), (ow, wgw, sew) = outs["in-process"], outs["worker"]
+    _same_outputs(oi, ow)
+    if "polish_worker_cold_s" in sei or \
+            len(sew.get("polish_worker_cold_s", [])) != 1:
+        raise RuntimeError("[chaos] 7b: the worker ran "
+                           f"{len(sew.get('polish_worker_cold_s', []))} "
+                           "times under PMTORCH_POLISH_SUBPROC, "
+                           f"{'polish_worker_cold_s' in sei} without")
+    print(f"[chaos] 7b CLI {' '.join(pflags)}, chunk {schunk}: in-process "
+          f"wall {wgi:.3f} s, worker wall {wgw:.3f} s (cold start "
+          f"{sew['polish_worker_cold_s'][0]:.3f} s, polish "
+          f"{sew['polish_worker_polish_s'][0]:.3f} s), same .mesh/.sol "
+          "bytes")
+    pre = {d for d in os.listdir(tempfile.gettempdir())
+           if d.startswith("parmmg_polish_")}
+    for tag, kv in (("dead", {"PMTORCH_FAULT": "polish.worker",
+                              "PMTORCH_RETRY_MAX": "1"}),
+                    ("hung", {"PMTORCH_FAULT": "polish.worker:hang=120",
+                              "PMTORCH_RETRY_MAX": "0",
+                              "PMTORCH_POLISH_TIMEOUT_S": "5"})):
+        c0 = _counters()
+        with _knobs(PMTORCH_POLISH_SUBPROC="1", **kv):
+            got, wdg, _ = gpass(polish=True)
+        if got != plain or _moved(c0, "resilience.merged_polish") != 1:
+            raise RuntimeError(f"[chaos] 8 {tag} worker: polish-less bytes "
+                               f"{got == plain}, merged_polish "
+                               f"{_moved(c0, 'resilience.merged_polish')}")
+        print(f"[chaos] 8 {tag} worker: wall {wdg:.3f} s, the polish-less "
+              "bytes, rung merged_polish")
+    leaks = {d for d in os.listdir(tempfile.gettempdir())
+             if d.startswith("parmmg_polish_")} - pre
+    if leaks:
+        raise RuntimeError(f"[chaos] 8: staging left behind {leaks}")
+
+    # 9. the profiler window over pass 1
+    pstem, pn, pflags = CHAOS_PROF
+    _write_input(workdir, pstem, n=pn)
+    pbase = os.path.join(workdir, f"{pstem}.o.mesh")
+    lp, _, wpb, _ = _run_grouped(workdir, pbase, device, stem=pstem,
+                                 flags=pflags)
+    add(lp)
+    pdir = os.path.join(workdir, "chaos_prof")
+    subprocess.run(["rm", "-rf", pdir], check=True)
+    out9 = os.path.join(workdir, f"{pstem}.chaos9.mesh")
+    # in a process of its own: after a capture of ~10^6 events in this
+    # process, [kernels]' profiler counts missed kernels on the H100
+    env = dict(os.environ, PMTORCH_PROFILE_DIR=pdir,
+               PMTORCH_PROFILE_PASS="1", PYTHONPATH=HERE)
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "parmmg_tpu_torch.cli", "-in",
+         os.path.join(workdir, f"{pstem}.mesh"), "-sol",
+         os.path.join(workdir, f"{pstem}.sol"), "-out", out9, *pflags,
+         "-v", "1", "-bench-json", "-device", device], cwd=HERE, env=env,
+        capture_output=True, text=True, timeout=600)
+    w9 = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise RuntimeError(f"[chaos] 9: the profiled CLI exited "
+                           f"{r.returncode}: {r.stderr[-2000:]}")
+    rec9 = json.loads([ln for ln in r.stdout.splitlines()
+                       if ln.startswith("{")][-1])
+    _same_outputs(pbase, out9)
+    files = sorted(os.listdir(pdir))
+    if len(files) != 1:
+        raise RuntimeError(f"[chaos] 9: trace files {files}")
+    tpath = os.path.join(pdir, files[0])
+    with open(tpath) as fh:
+        evs = json.load(fh).get("traceEvents", [])
+    nk = sum(e.get("cat") == "kernel" for e in evs)
+    if device == "cuda" and nk == 0:
+        raise RuntimeError("[chaos] 9: no CUDA kernel event in the trace")
+    print(f"[chaos] 9 profiler window pass 1, cube_mesh({pn}) "
+          f"{' '.join(pflags)}, a CLI subprocess: wall {w9:.3f} s (its "
+          f"remesh {rec9['wall_s']:.3f} s; {wpb:.3f} s unprofiled in this "
+          f"process), same bytes; {files[0]} "
+          f"{os.path.getsize(tpath)} B, {len(evs)} events, {nk} CUDA "
+          "kernel events")
+
+    print(f"[chaos] launches {total}")
+    must, must_not = PATH_KERNELS["cube32"]
+    missing = sorted(k for k in must if total[k] == 0)
+    if device == "cuda" and (missing or total[must_not]):
+        raise RuntimeError(f"[chaos] kernels never launched {missing}, "
+                           f"{must_not} launched {total[must_not]} times")
+    return total
 
 
 # the JAX pool's tet count on the first tenant of each [serve] class, as
@@ -2036,15 +2603,16 @@ def main(argv=()) -> int:
         return 2
     workdir = os.path.join(HERE, "build", "smoke")
     os.makedirs(workdir, exist_ok=True)
-    if list(argv) == ["--serve"]:
+    if list(argv) in (["--serve"], ["--chaos"]):
+        phase = phase_serve if argv[0] == "--serve" else phase_chaos
         try:
             phase_build()
-            launches = phase_serve(workdir)
+            launches = phase(workdir)
         except Exception:
             traceback.print_exc()
             print("chip_smoke: FAILED", file=sys.stderr)
             return 1
-        print(json.dumps({"serve_launches": launches}))
+        print(json.dumps({f"{argv[0][2:]}_launches": launches}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -2073,6 +2641,8 @@ def main(argv=()) -> int:
         phase_aniso_repeat(workdir)
         launches_field = phase_field(workdir)
         launches_grouped, band_samples, band_shapes = phase_grouped(workdir)
+        launches_chaos = phase_chaos(
+            workdir, base=os.path.join(workdir, "cube32.o.mesh"))
         launches_serve = phase_serve(workdir)
         rows = phase_kernels(launches, shapes, launches_ani, shapes_ani,
                              workdir, band_samples)
@@ -2087,6 +2657,7 @@ def main(argv=()) -> int:
         r["field_launches"] = int(launches_field[r["name"]])
         r["grouped_launches"] = int(launches_grouped[r["name"]])
         r["serve_launches"] = int(launches_serve[r["name"]])
+        r["chaos_launches"] = int(launches_chaos[r["name"]])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

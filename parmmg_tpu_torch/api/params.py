@@ -121,6 +121,9 @@ class Info:
     # resilience (resilience/checkpoint.py): resume the grouped outer
     # loop from the newest PARMMG_CKPT_DIR pass checkpoint (-resume)
     resume: bool = False
+    # polish each group after a grouped pass's cycles (-group-polish; the
+    # port's switch for the JAX package's grouped_adapt_pass(polish=))
+    group_polish: bool = False
     # devices
     n_devices: int = 1
 

@@ -15,9 +15,13 @@ output is ``.mesh``/``.meshb``, ``.vtu`` or ``.pvtu``; with
 ``-distributed-output`` it is written as the distributed file
 ``name.0.mesh``.  ``-mesh-size N`` below the tet count remeshes in
 groups of about N tets (``parallel/groups.py``) over ``-niter`` passes,
-displacing the group seams by ``-nlayers`` layers between passes.  Every
-flag of the JAX package's CLI is accepted; ``-ndev > 1`` and ``-resume``
-of a grouped run are not yet ported and exit with an error saying so.
+displacing the group seams by ``-nlayers`` layers between passes; with
+``PMTORCH_CKPT_DIR`` set, every pass is checkpointed there and
+``-resume`` restarts a killed grouped run after its newest pass
+checkpoint, writing the bytes of an uninterrupted run.  Every flag of the
+JAX package's CLI is accepted; ``-ndev > 1`` is not yet ported and exits
+with an error saying so.  ``python -m parmmg_tpu_torch.api.knobs`` lists
+the ``PMTORCH_*`` environment knobs.
 """
 from __future__ import annotations
 
@@ -94,8 +98,13 @@ def build_parser() -> argparse.ArgumentParser:
     a("-distributed-output", dest="dist_out", action="store_true",
       help="write the output as the distributed file name.0.mesh")
     a("-resume", action="store_true",
-      help="resume a grouped run from its pass checkpoints (not yet "
-           "ported: a grouped run given -resume exits with an error)")
+      help="resume a grouped (-mesh-size) run after the newest pass "
+           "checkpoint of the same input in PMTORCH_CKPT_DIR (from scratch "
+           "if there is none)")
+    a("-group-polish", dest="group_polish", action="store_true",
+      help="polish each group after every grouped (-mesh-size) pass, "
+           "before the merge; a chunked pass polishes in a fresh process "
+           "with PMTORCH_POLISH_SUBPROC=1")
     a("-val", action="store_true", help="print default values and exit")
     a("-bench-json", dest="bench_json", action="store_true",
       help="print one JSON line with timing/quality stats")
@@ -240,6 +249,7 @@ def main(argv=None) -> int:
     info.centralized_output = not args.dist_out
     info.noout = args.noout
     info.resume = args.resume
+    info.group_polish = args.group_polish
 
     parfile = Path(args.inp).with_suffix(".mmg3d")
     if parfile.exists():

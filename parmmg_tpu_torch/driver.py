@@ -6,8 +6,17 @@ groups or more, the grouped outer loop (``parallel/groups.grouped_adapt``:
 group split, frozen-seam remesh, seam displacement, ``niter`` passes) and
 a polish of the merged mesh; then the run tail (sequential repair, FEM
 conformity, P1 interpolation of the user fields from the background,
-quality report).  Multi-device runs, and ``-resume`` of a grouped run
-(pass checkpoints), are not yet ported and raise."""
+quality report).  A run starts a fresh trace context and takes the
+process verbosity from ``imprim``; its stages are timed under the JAX
+driver's names, its counters published to the metrics registry, and at
+``PMMG_VERB_STEPS`` the stage times and the shape ledger printed.  A run
+that cannot finish (a capacity overflow, the card's memory, a grouped
+dispatch whose retries ran out) restores the conforming input with status
+``PMMG_LOWFAILURE`` (ladder rung ``lowfailure``).  ``PMTORCH_CYCLE_BLOCK``,
+``PMTORCH_GROUP_CHUNK`` and ``PMTORCH_INCR_TOPO`` are read once here, as
+the defaults of ``adapt_mesh(cycle_block=)`` and
+``grouped_adapt_pass(chunk=, incr=)``.  Multi-device runs are not yet
+ported and raise."""
 from __future__ import annotations
 
 import time
@@ -15,8 +24,10 @@ import time
 import numpy as np
 import torch
 
+from .api import knobs
 from .core import constants as C
 from .core.mesh import MESH_FIELDS, Mesh, replace
+from .obs import trace as otrace
 from .ops.adapt import AdaptStats, adapt_mesh
 from .ops.metric import clamp_metric, gradation, metric_hsiz, metric_optim
 
@@ -26,8 +37,25 @@ class NotYetPorted(NotImplementedError):
 
 
 def _log(level: int, msg: str, imprim: int) -> None:
-    if imprim >= level:
-        print(msg)
+    otrace.log(level, msg, verbose=imprim)
+
+
+def knob_defaults() -> tuple[dict, dict]:
+    """(adapt_mesh kwargs, grouped_adapt_pass kwargs) from
+    ``PMTORCH_CYCLE_BLOCK``, ``PMTORCH_GROUP_CHUNK`` and
+    ``PMTORCH_INCR_TOPO``; an unset knob gives no argument (the callee's
+    default)."""
+    adapt_kw, pass_kw = {}, {}
+    v = knobs.get("PMTORCH_CYCLE_BLOCK")
+    if v:
+        adapt_kw["cycle_block"] = max(1, int(v))
+    v = knobs.get("PMTORCH_GROUP_CHUNK")
+    if v:
+        pass_kw["chunk"] = max(0, int(v))
+    v = knobs.get("PMTORCH_INCR_TOPO")
+    if v and v != "0":
+        pass_kw["incr"] = True
+    return adapt_kw, pass_kw
 
 
 def _auto_hmin_hmax(vert: np.ndarray, info) -> tuple[float, float]:
@@ -120,12 +148,19 @@ def parmmg_run(pm) -> tuple:
     """Run the adaptation staged in ``pm``; returns (Mesh, metric,
     AdaptStats)."""
     from .api.params import check_input_data
+    from .resilience.recover import ladder_step
+    from .utils.timers import Timers
     info = pm.info
     check_input_data(info, met_is_aniso=(
         pm.met is not None and getattr(pm.met, "ndim", 1) == 2))
     _check_slice(pm)
+    otrace.new_run(pm.device)
+    otrace.set_verbosity(info.imprim)
+    adapt_kw, pass_kw = knob_defaults()
+    tim = Timers()
     t0 = time.perf_counter()
-    mesh, met = pm._build_core_mesh()
+    with tim("analysis"):
+        mesh, met = pm._build_core_mesh()
     if info.nosurf:
         bdy = C.MG_BDY
         mesh = replace(
@@ -136,7 +171,8 @@ def parmmg_run(pm) -> tuple:
                              mesh.etag),
             vtag=torch.where((mesh.vtag & bdy) != 0, mesh.vtag | C.MG_REQ,
                              mesh.vtag))
-    met = build_metric(mesh, met, info)
+    with tim("metric"):
+        met = build_metric(mesh, met, info)
 
     # background copy for the field interpolation, on the device
     bg_fields = [np.array(f, copy=True) for f in pm.fields]
@@ -152,107 +188,146 @@ def parmmg_run(pm) -> tuple:
         hausd = None
     target = _group_target(info, int(mesh.tmask.sum()))
     if target is not None:
-        mesh, met = _grouped_run(mesh, met, target, stats, info, hausd)
+        mesh, met = _grouped_run(mesh, met, target, stats, info, hausd,
+                                 tim, pass_kw)
         _log(C.PMMG_VERB_STEPS,
              f"  -- adaptation {time.perf_counter() - t0:.3f} s",
              info.imprim)
-        return _finish_run(pm, mesh, met, stats, info, bg_mesh, bg_fields)
+        return _finish_run(pm, mesh, met, stats, info, bg_mesh, bg_fields,
+                           tim)
     for _ in range(max(1, info.niter)):
         backup = (replace(mesh), met.clone())
         try:
-            mesh, met, st = adapt_mesh(
-                mesh, met,
-                verbose=3 if info.imprim >= C.PMMG_VERB_ITWAVES else 0,
-                noinsert=info.noinsert, noswap=info.noswap,
-                nomove=info.nomove, angedg=info.angedg(), hausd=hausd)
-        except (MemoryError, torch.cuda.OutOfMemoryError):
+            with tim("adaptation"):
+                mesh, met, st = adapt_mesh(
+                    mesh, met,
+                    verbose=3 if info.imprim >= C.PMMG_VERB_ITWAVES else 0,
+                    noinsert=info.noinsert, noswap=info.noswap,
+                    nomove=info.nomove, angedg=info.angedg(), hausd=hausd,
+                    **adapt_kw)
+        except (MemoryError, torch.cuda.OutOfMemoryError) as e:
             mesh, met = backup
             stats.status = C.PMMG_LOWFAILURE
+            ladder_step("lowfailure", site=_oom_site(e, "adapt.capacity"),
+                        detail=str(e)[:200])
             break
         stats += st
     _log(C.PMMG_VERB_STEPS,
          f"  -- adaptation {time.perf_counter() - t0:.3f} s", info.imprim)
-    return _finish_run(pm, mesh, met, stats, info, bg_mesh, bg_fields)
+    return _finish_run(pm, mesh, met, stats, info, bg_mesh, bg_fields, tim)
 
 
-def _grouped_run(mesh, met, target: int, stats, info, hausd):
+def _oom_site(e, capacity_site: str) -> str:
+    """The ladder site of a capacity failure: the card's memory, or a
+    mesh capacity that kept overflowing."""
+    return "device.oom" if isinstance(e, torch.cuda.OutOfMemoryError) \
+        else capacity_site
+
+
+def _grouped_run(mesh, met, target: int, stats, info, hausd, tim,
+                 pass_kw):
     """The grouped branch: ``grouped_adapt`` (``-niter`` passes,
-    ``-nlayers`` displacement layers), the conforming input restored with
-    status LOWFAILURE when a group's capacity or the card's memory runs
-    out, else 8 waves of ``sliver_polish`` on the merged mesh (group seams
-    breed slivers).  The chunk pipeline's segment seconds are printed at
-    verbosity ``PMMG_VERB_STEPS``.  Returns (mesh, met)."""
+    ``-nlayers`` displacement layers, ``-resume`` from the pass
+    checkpoints of ``PMTORCH_CKPT_DIR``, ``-group-polish``: the groups
+    polished before each merge); the conforming input restored
+    with status LOWFAILURE when a group's capacity or the card's memory
+    runs out or a chunk dispatch's retries do; else 8 waves of
+    ``sliver_polish`` on the merged mesh (group seams breed slivers).
+    Returns (mesh, met)."""
     from .ops.adapt import sliver_polish
     from .parallel.groups import grouped_adapt
-    from .utils.timers import Timers
-    if info.resume:
-        raise NotYetPorted("-resume (grouped pass checkpoints) is not yet "
-                           "ported to parmmg_tpu_torch")
+    from .resilience.recover import RetryBudgetExhausted, ladder_step
     backup = (replace(mesh), met.clone())
-    tim = Timers()
     try:
-        mesh, met = grouped_adapt(
-            mesh, met, target, niter=max(1, info.niter),
-            verbose=3 if info.imprim >= C.PMMG_VERB_ITWAVES else 0,
-            stats=stats, noinsert=info.noinsert, noswap=info.noswap,
-            nomove=info.nomove, hausd=hausd, ifc_layers=info.ifc_layers,
-            timers=tim)
-    except (MemoryError, torch.cuda.OutOfMemoryError):
+        with tim("adaptation"):
+            mesh, met = grouped_adapt(
+                mesh, met, target, niter=max(1, info.niter),
+                verbose=3 if info.imprim >= C.PMMG_VERB_ITWAVES else 0,
+                stats=stats, noinsert=info.noinsert, noswap=info.noswap,
+                nomove=info.nomove, hausd=hausd, ifc_layers=info.ifc_layers,
+                timers=tim, resume=bool(info.resume),
+                polish=bool(info.group_polish), **pass_kw)
+    except (MemoryError, torch.cuda.OutOfMemoryError) as e:
         stats.status = C.PMMG_LOWFAILURE
+        ladder_step("lowfailure", site=_oom_site(e, "groups.capacity"),
+                    detail=str(e)[:200])
         return backup
-    if tim.acc:
-        _log(C.PMMG_VERB_STEPS, tim.report(), info.imprim)
+    except RetryBudgetExhausted as e:
+        # the retry rung is spent (a chunk dispatch kept failing): the
+        # conforming backup is the answer
+        stats.status = C.PMMG_LOWFAILURE
+        ladder_step("lowfailure", site=e.site,
+                    detail=str(e.__cause__ or e))
+        return backup
     if info.noinsert and info.noswap and info.nomove:
         return mesh, met
-    for w in range(8):
-        mesh, counts = sliver_polish(
-            mesh, met, 1000 + w, do_collapse=not info.noinsert,
-            do_swap=not info.noswap, do_smooth=not info.nomove,
-            hausd=hausd)
-        nc, nw, nm, _ = counts.tolist()
-        stats.ncollapse += nc
-        stats.nswap += nw
-        stats.nmoved += nm
-        if nc == 0 and nw == 0:
-            break
+    with tim("bad-element polish"):
+        for w in range(8):
+            mesh, counts = sliver_polish(
+                mesh, met, 1000 + w, do_collapse=not info.noinsert,
+                do_swap=not info.noswap, do_smooth=not info.nomove,
+                hausd=hausd)
+            nc, nw, nm, _ = counts.tolist()
+            stats.ncollapse += nc
+            stats.nswap += nw
+            stats.nmoved += nm
+            if nc == 0 and nw == 0:
+                break
     return mesh, met
 
 
-def _finish_run(pm, mesh, met, stats, info, bg_mesh, bg_fields):
+def _finish_run(pm, mesh, met, stats, info, bg_mesh, bg_fields, tim):
     """Run tail: sequential sliver repair, FEM conformity, user-field
-    interpolation, report."""
+    interpolation, the registry's counters, reports."""
     if not (info.noinsert and info.noswap and info.nomove):
         from .ops.repair import repair_mesh
-        mesh, nrep = repair_mesh(mesh, met,
-                                 allow_collapse=not info.noinsert,
-                                 allow_swap=not info.noswap,
-                                 allow_move=not info.nomove)
+        with tim("sequential repair"):
+            mesh, nrep = repair_mesh(mesh, met,
+                                     allow_collapse=not info.noinsert,
+                                     allow_swap=not info.noswap,
+                                     allow_move=not info.nomove)
         if nrep:
             _log(C.PMMG_VERB_STEPS, f"  sequential repair: {nrep} cluster "
                  "ops", info.imprim)
     if info.fem and not info.noinsert:
-        from .ops.adapt import fem_pass, grow_mesh_met
-        nf = 0
-        for _ in range(8):
-            mesh, met, fc = fem_pass(mesh, met)
-            nf, ovf = (int(v) for v in fc.tolist())
-            stats.nsplit += nf
-            if ovf:
-                mesh, met = grow_mesh_met(mesh, met, 2 * mesh.capP,
-                                          2 * mesh.capT)
-                stats.regrows += 1
-                continue
-            if nf == 0:
-                break
+        with tim("fem conformity"):
+            mesh, met, nf = _fem_conformity(mesh, met, stats)
         if nf:
             _log(C.PMMG_VERB_VERSION,
                  "  ## Warning: fem conformity pass did not converge "
                  f"({nf} edges remain).", info.imprim)
     if bg_fields:
-        pm.fields = interpolate_fields(bg_mesh, bg_fields, mesh)
+        with tim("metric and fields interpolation"):
+            pm.fields = interpolate_fields(bg_mesh, bg_fields, mesh)
+    stats.publish()
     if info.imprim >= C.PMMG_VERB_QUAL:
         print_quality_report(mesh, met, info)
+    _log(C.PMMG_VERB_STEPS, tim.report(), info.imprim)
+    from .utils.compilecache import format_ledger, ledger_snapshot
+    if any(r["calls"] or r["compiles"]
+           for r in ledger_snapshot().values()):
+        _log(C.PMMG_VERB_STEPS, "  -- SHAPE LEDGER (governed entry points "
+             "and nvcc builds)\n" + format_ledger(), info.imprim)
     return mesh, met, stats
+
+
+def _fem_conformity(mesh, met, stats):
+    """Up to 8 FEM-conformity waves (regrowing on overflow); returns
+    (mesh, met, edges left)."""
+    from .ops.adapt import fem_pass, grow_mesh_met
+    nf = 0
+    for _ in range(8):
+        mesh, met, fc = fem_pass(mesh, met)
+        nf, ovf = (int(v) for v in fc.tolist())
+        stats.nsplit += nf
+        if ovf:
+            mesh, met = grow_mesh_met(mesh, met, 2 * mesh.capP,
+                                      2 * mesh.capT)
+            stats.regrows += 1
+            continue
+        if nf == 0:
+            break
+    return mesh, met, nf
 
 
 def print_quality_report(mesh: Mesh, met, info) -> None:

@@ -25,6 +25,7 @@ import torch
 
 from ..core.constants import ANGEDG
 from ..core.mesh import Mesh, with_capacity
+from ..utils.compilecache import governed, track
 from .adjacency import boundary_edge_tags, build_adjacency
 from .analysis import analyze_mesh, ridge_vertex_tangents
 from .collapse import collapse_wave
@@ -228,13 +229,16 @@ def fem_pass(mesh: Mesh, met: torch.Tensor):
                                        res.overflow.to(torch.int32)])
 
 
-def sliver_polish(mesh: Mesh, met: torch.Tensor, wave: int,
-                  sliver_q: float = 0.2, do_collapse: bool = True,
-                  do_swap: bool = True, do_smooth: bool = True,
-                  hausd: float | None = None):
+def sliver_polish_impl(mesh: Mesh, met: torch.Tensor, wave: int,
+                       sliver_q: float = 0.2, do_collapse: bool = True,
+                       do_swap: bool = True, do_smooth: bool = True,
+                       hausd: float | None = None):
     """Bad-element pass: quality-targeted collapses, edge / generalized /
     face swaps and an optimal-position smoothing wave.  Returns
-    (mesh, counts[4] = [ncollapse, nswap, nmoved, live_tets])."""
+    (mesh, counts[4] = [ncollapse, nswap, nmoved, live_tets]).
+    :func:`sliver_polish` is its ledger entry point (``utils/
+    compilecache.py``); the grouped polish calls it per slot, as the JAX
+    package's ``groups.polish_block`` does."""
     dev = mesh.device
     ncol = nswap = nmoved = torch.zeros((), dtype=torch.int32, device=dev)
     if do_collapse:
@@ -256,6 +260,9 @@ def sliver_polish(mesh: Mesh, met: torch.Tensor, wave: int,
     mesh = build_adjacency(mesh)
     return mesh, torch.stack([ncol, nswap, nmoved,
                               mesh.tmask.sum(dtype=torch.int32)])
+
+
+sliver_polish = governed("adapt.sliver_polish")(sliver_polish_impl)
 
 
 def grow_mesh_met(mesh: Mesh, met: torch.Tensor, newP: int, newT: int):
@@ -315,8 +322,9 @@ def adapt_mesh(mesh: Mesh, met: torch.Tensor, max_cycles: int = 50,
         if wide_check or cycle_block == 1 or quiet > 0:
             do_swap = ((cycle % swap_every == swap_every - 1)
                        or quiet > 0) and not noswap
-            mesh, met, counts = adapt_cycle_impl(
-                mesh, met, cycle, do_swap=do_swap, do_smooth=not nomove,
+            mesh, met, counts = track(
+                "adapt.cycle", adapt_cycle_impl, mesh, met, cycle,
+                do_swap=do_swap, do_smooth=not nomove,
                 do_insert=not noinsert, hausd=hausd,
                 budget_div=2 if wide_check else 8, wide=wide_check)
             rows = [(do_swap, counts[:5].tolist())]
@@ -331,9 +339,10 @@ def adapt_mesh(mesh: Mesh, met: torch.Tensor, max_cycles: int = 50,
                 dirty = torch.zeros(mesh.capP, dtype=torch.bool,
                                     device=mesh.device)
                 okflag = False
-            mesh, met, dirty, okflag, counts_all = adapt_cycles_auto(
-                mesh, met, dirty, okflag, cycle, swap_flags=flags,
-                hausd=hausd, do_smooth=not nomove, do_insert=not noinsert)
+            mesh, met, dirty, okflag, counts_all = track(
+                "active.adapt_cycles_auto", adapt_cycles_auto, mesh, met,
+                dirty, okflag, cycle, swap_flags=flags, hausd=hausd,
+                do_smooth=not nomove, do_insert=not noinsert)
             ca = counts_all.tolist()
             rows = [(flags[c], ca[c][:5]) for c in range(nblk)]
 

@@ -4,8 +4,11 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
 into ``build/lib<name>.so`` at the repository root the first time a kernel
 of it is needed, then loaded with ctypes.  :func:`build_all` starts one
-``nvcc`` per source, all together.  Nothing here runs at import time; a
-missing ``nvcc`` or a failed build raises.
+``nvcc`` per source, all together, and records each build's seconds in
+the shape ledger (``utils/compilecache.record_build``).  ``build/`` is
+the persistent cache: a library newer than its sources is loaded as it is
+(the polish worker, a fresh process, builds nothing).  Nothing here runs
+at import time; a missing ``nvcc`` or a failed build raises.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -69,10 +73,22 @@ def build_all(names=SOURCES, verbose: bool = False) -> float:
                "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs.append((name, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
+            text=True), {}))
+
+    def reap(p, box):
+        box["out"], _ = p.communicate()
+        box["s"] = time.perf_counter() - t0
+    waits = [threading.Thread(target=reap, args=(p, box))
+             for _, _, p, box in procs]
+    for w in waits:
+        w.start()
+    for w in waits:
+        w.join()
+    from ..utils.compilecache import record_build
     errors = []
-    for name, tmp, p in procs:
-        out, _ = p.communicate()
+    for name, tmp, p, box in procs:
+        out = box["out"]
+        record_build(name, box["s"])
         if verbose and out:
             print(f"[nvcc {name}]\n{out}")
         if p.returncode != 0:

@@ -363,6 +363,13 @@ def sequential_repair(vert, tet, tmask, vtag, vmask, tref, ftag, etag,
     return vert, tet, tmask, vmask, tref, ftag, etag, fref, nfixed
 
 
+def _quality_probe(vert, tet):
+    """Tet quality of every slot (the repair tail's first look, the JAX
+    package's ``repair.quality_probe`` entry point)."""
+    from .quality import quality_from_points
+    return quality_from_points(vert[tet.long()])
+
+
 def repair_mesh(mesh, met, q_floor: float = 1e-3,
                 allow_collapse: bool = True, allow_swap: bool = True,
                 allow_move: bool = True):
@@ -371,9 +378,9 @@ def repair_mesh(mesh, met, q_floor: float = 1e-3,
     import torch
     from ..core.mesh import replace
     from .adjacency import build_adjacency, boundary_edge_tags
-    from .quality import quality_from_points
+    from ..utils.compilecache import track
 
-    q = quality_from_points(mesh.vert[mesh.tet.long()])
+    q = track("repair.quality_probe", _quality_probe, mesh.vert, mesh.tet)
     if not bool((mesh.tmask & (q < q_floor)).any()):
         return mesh, 0
 

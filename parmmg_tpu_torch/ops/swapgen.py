@@ -10,6 +10,7 @@ import torch
 
 from ..core.constants import EDGE_FACES, EPSD, LLONG, QUAL_FLOOR
 from ..core.mesh import Mesh, replace
+from ..utils.compilecache import governed
 from .edges import claim_shells, free_rows, unique_edges, wave_budget
 from .primitives import set_drop, topk_lowest_index
 from .quality import (corner_metric, edge_length_ani, edge_length_iso,
@@ -304,3 +305,9 @@ def swapgen_wave(mesh: Mesh, met: torch.Tensor, budget_div: int = 8,
                           torch.zeros_like(extra))
     nelem = torch.maximum(mesh.nelem, used_hi.max().to(torch.int32))
     return SwapGenResult(replace(out, nelem=nelem), nsw)
+
+
+# the ledger's front door for callers outside a cycle (tests, diagnostics):
+# the JAX package's ``ops.swapgen_wave`` entry point; the cycles call
+# swapgen_wave itself
+swapgen_wave_j = governed("ops.swapgen_wave", budget=4)(swapgen_wave)

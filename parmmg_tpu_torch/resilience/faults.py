@@ -1,8 +1,9 @@
 """Named-faultpoint registry: provoke the real failure paths on demand
 (the port's copy of ``resilience/faults.py``).
 
-A spec in the JAX package's ``PARMMG_FAULT`` grammar is armed by a call,
-``FAULTS.arm(spec)``, not read from the environment:
+A spec in the JAX package's ``PARMMG_FAULT`` grammar arms the registry,
+from the ``PMTORCH_FAULT`` knob at the first hit after it changes, or by a
+call, ``FAULTS.arm(spec)``:
 
     site[:trigger][,site[:trigger]...]
 
@@ -24,9 +25,11 @@ A spec in the JAX package's ``PARMMG_FAULT`` grammar is armed by a call,
 :func:`faultpoint` raises the site's failure shape: ``OSError`` for IO
 sites, ``RuntimeError`` for device dispatches (what a failed CUDA launch
 raises in PyTorch; the JAX package raises XLA's runtime error there).
-Flag sites use :func:`fault_trigger` and return a bool.  The subprocess
-sites' parent-side firing (``subprocess_fault_env``) serves the
-subprocess polish, which the port does not have.
+Flag sites use :func:`fault_trigger` and return a bool.  The polish
+worker's failure is a non-zero subprocess exit: the parent decides the
+firing (:func:`subprocess_fault_env`, so nth/every counting lives in one
+process) and the worker exits 3 before importing torch when it finds
+``PMTORCH_FAULT_FORCE`` naming it.
 """
 from __future__ import annotations
 
@@ -35,9 +38,12 @@ import random
 import threading
 import time
 
+from ..api import knobs
+
 __all__ = [
-    "FAULTS", "FaultRegistry", "FaultRule", "SITES", "fault_trigger",
-    "faultpoint", "parse_fault_spec",
+    "FAULTS", "FORCE_ENV", "FaultRegistry", "FaultRule", "SITES",
+    "fault_trigger", "faultpoint", "parse_fault_spec",
+    "subprocess_fault_env",
 ]
 
 # the injectable sites and the exception shape each raises (xla = device
@@ -54,6 +60,8 @@ SITES = {
     "serve.daemon_rpc": "os",
     "io.checkpoint": "os",
 }
+
+FORCE_ENV = "PMTORCH_FAULT_FORCE"
 
 
 @dataclasses.dataclass
@@ -127,11 +135,16 @@ def parse_fault_spec(spec: str) -> dict:
 
 
 class FaultRegistry:
-    """The armed rules; hit counters live as long as one armed spec."""
+    """The armed rules; hit counters live as long as one armed spec.
+
+    ``PMTORCH_FAULT`` is read at every hit (one dict lookup) and re-armed
+    when its value differs from the one seen last; an explicit
+    :meth:`arm` holds until the variable changes."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._rules: dict[str, FaultRule] = {}
+        self._env: str | None = None
 
     def arm(self, spec: str) -> None:
         """Parse ``spec`` and arm its rules (replacing any armed before,
@@ -139,22 +152,32 @@ class FaultRegistry:
         rules = parse_fault_spec(spec) if spec else {}
         with self._lock:
             self._rules = rules
+            self._env = knobs.get("PMTORCH_FAULT")
 
     def reset(self) -> None:
-        """Disarm every site."""
+        """Disarm every site; the next hit reads ``PMTORCH_FAULT``
+        again."""
         with self._lock:
             self._rules = {}
+            self._env = None
+
+    def _resolve(self) -> dict:
+        raw = knobs.get("PMTORCH_FAULT")
+        if raw != self._env:
+            self._env = raw
+            self._rules = parse_fault_spec(raw) if raw else {}
+        return self._rules
 
     def armed(self) -> bool:
         with self._lock:
-            return bool(self._rules)
+            return bool(self._resolve())
 
     def fired_rule(self, site: str,
                    key: str | None = None) -> FaultRule | None:
         """The armed rule for ``site`` when it fires on this hit, else
         None."""
         with self._lock:
-            rule = self._rules.get(site)
+            rule = self._resolve().get(site)
             if rule is None:
                 return None
             if rule.fires(None if key is None else str(key)):
@@ -212,3 +235,19 @@ def fault_trigger(site: str, key: str | None = None) -> bool:
         return False
     _record(site, key)
     return True
+
+
+def subprocess_fault_env(site: str) -> dict:
+    """Firing decision for a subprocess site, taken in the parent (so
+    nth/every counting survives across worker invocations): the overlay
+    to merge into the worker's environment.  The worker exits non-zero
+    when ``PMTORCH_FAULT_FORCE`` names it, or sleeps before importing
+    torch on the ``site:hang=S`` form (the wedged-worker drill: the
+    parent's subprocess timeout is what must catch it)."""
+    rule = FAULTS.fired_rule(site)
+    if rule is None:
+        return {}
+    _record(site, None, hang=rule.hang)
+    if rule.hang is not None:
+        return {FORCE_ENV: f"{site}:hang={rule.hang:g}"}
+    return {FORCE_ENV: site}

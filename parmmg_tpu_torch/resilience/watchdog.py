@@ -1,6 +1,6 @@
 """Deadline watchdogs: make the wedge an exception (the port's copy of
-``resilience/watchdog.py`` without its heartbeat leases and crash-loop
-breaker, which serve the multi-host supervisor).
+``resilience/watchdog.py``; its heartbeat leases serve the multi-host
+supervisor, which the port does not have yet).
 
 - :class:`Deadline` — a nestable, polled deadline for code that can
   check cooperatively (``dl.check()`` raises :class:`WatchdogTimeout` once
@@ -10,29 +10,37 @@ breaker, which serve the multi-host supervisor).
   cannot poll (a blocked device wait): the guarded call runs in a worker
   thread and the caller raises ``WatchdogTimeout`` when it overruns.  The
   abandoned worker rides on the exception so a caller that serializes on
-  shared state (the serve daemon's driver lock) can wait it out;
-- **first-use grace**: a site's first guarded call gets ``grace_s`` extra
-  seconds (300 unless the caller says otherwise), so a cold first step (on
-  the card: the first launch of every kernel and the allocator's first
-  growth) is told apart from a wedged warm one.
+  shared state (the serve daemon's driver lock) can wait it out.  A
+  guarded call that reports its progress (``beats=True`` and
+  :func:`progress`, once per cycle on the grouped path) re-arms the
+  deadline each time: in the port a chunk's cycles are launched from the
+  host one op at a time, so a dispatch lasts as long as its work, and what
+  the deadline bounds is the time between two steps of progress.  Such a
+  call, once abandoned, stops at its next report;
+- **first-use grace**: a site's first guarded call gets
+  ``PMTORCH_DEADLINE_GRACE_S`` extra seconds (300 unless set), so a cold
+  first step (on the card: the first launch of every kernel and the
+  allocator's first growth) is told apart from a wedged warm one.
 
 Every expiry bumps ``resilience.watchdog_timeouts`` and emits a
-``watchdog.timeout`` trace event.  Deadlines are off unless a caller
-arms one (``seconds > 0``).
+``watchdog.timeout`` trace event.  Deadlines are off unless armed: a
+``PMTORCH_DEADLINE_*`` knob unset or 0, ``seconds <= 0``, means off.
 """
 from __future__ import annotations
 
 import threading
 import time
 
-__all__ = [
-    "GRACE_S", "Deadline", "WatchdogTimeout", "first_use_grace",
-    "record_timeout", "run_with_deadline",
-]
+from ..api import knobs
 
-# a site's first guarded call waits this much longer (the JAX package's
-# PARMMG_DEADLINE_GRACE_S default)
+# the first-use grace when PMTORCH_DEADLINE_GRACE_S is unset (the serve
+# daemon's step_grace_s default)
 GRACE_S = 300.0
+
+__all__ = [
+    "Abandoned", "GRACE_S", "Deadline", "WatchdogTimeout", "deadline_knob",
+    "first_use_grace", "progress", "record_timeout", "run_with_deadline",
+]
 
 
 class WatchdogTimeout(RuntimeError):
@@ -54,6 +62,15 @@ def record_timeout(site: str, seconds: float) -> None:
     otrace.event("watchdog.timeout", site=site, seconds=float(seconds))
     otrace.log(1, f"  ## resilience: watchdog deadline expired at "
                   f"{site} after {seconds:g}s", err=True)
+
+
+def deadline_knob(name: str) -> float:
+    """A ``PMTORCH_DEADLINE_*`` / timeout knob in seconds; unset, empty,
+    unparseable or 0 means the watchdog is off."""
+    try:
+        return max(0.0, float(knobs.get(name) or 0))
+    except ValueError:
+        return 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -124,16 +141,46 @@ _FIRST_DONE: set[str] = set()
 _FIRST_LOCK = threading.Lock()
 
 
-def first_use_grace(site: str, grace_s: float = GRACE_S) -> float:
-    """Extra seconds granted to ``site``'s first guarded call."""
+def first_use_grace(site: str, grace_s: float | None = None) -> float:
+    """Extra seconds granted to ``site``'s first guarded call
+    (``grace_s``, or ``PMTORCH_DEADLINE_GRACE_S``)."""
     with _FIRST_LOCK:
         if site in _FIRST_DONE:
             return 0.0
+    if grace_s is None:
+        try:
+            grace_s = float(knobs.get("PMTORCH_DEADLINE_GRACE_S")
+                            or GRACE_S)
+        except ValueError:
+            grace_s = GRACE_S
     return max(0.0, float(grace_s))
 
 
+# the progress box of the guarded call (beats=True) running on this
+# thread, if any
+_GUARD = threading.local()
+
+
+class Abandoned(RuntimeError):
+    """Raised by :func:`progress` inside a guarded call whose deadline
+    expired: the caller has moved on, and the call stops at its next
+    progress report instead of competing with the retry."""
+
+
+def progress() -> None:
+    """Report a step of progress of the guarded call running on this
+    thread (``run_with_deadline(beats=True)``): its deadline starts again
+    from now.  Raises :class:`Abandoned` when the deadline already
+    expired.  Free outside such a call."""
+    box = getattr(_GUARD, "box", None)
+    if box is not None:
+        if box.get("abandoned"):
+            raise Abandoned(f"abandoned at {box['site']}")
+        box["beat"] = time.monotonic()
+
+
 def run_with_deadline(fn, seconds: float, site: str,
-                      grace_s: float = GRACE_S):
+                      grace_s: float | None = None, beats: bool = False):
     """Run ``fn()`` bounded by a wall-clock deadline.
 
     ``seconds <= 0`` calls inline (watchdog off, the default).  Otherwise
@@ -141,30 +188,37 @@ def run_with_deadline(fn, seconds: float, site: str,
     first_use_grace(site, grace_s)``; an overrun raises
     :class:`WatchdogTimeout` here while the worker is abandoned (its late
     result is discarded).  The abandoned thread rides on the exception as
-    ``.thread``."""
+    ``.thread``.  ``beats``: ``fn`` reports :func:`progress`, each report
+    restarts the wait, and once abandoned the call stops at its next
+    report."""
     s = float(seconds)
     if s <= 0:
         return fn()
-    box: dict = {}
+    box: dict = {"beat": time.monotonic(), "site": site}
     done = threading.Event()
 
     def _target():
+        if beats:
+            _GUARD.box = box
         try:
             box["value"] = fn()
         except BaseException as e:            # noqa: BLE001 — relayed
             box["error"] = e
         finally:
+            _GUARD.box = None
             done.set()
 
     t = threading.Thread(target=_target, daemon=True,
                          name=f"parmmg-watchdog-{site}")
     eff = s + first_use_grace(site, grace_s)
     t.start()
-    if not done.wait(eff):
-        record_timeout(site, eff)
-        exc = WatchdogTimeout(site, eff)
-        exc.thread = t
-        raise exc
+    while not done.wait(max(0.0, box["beat"] + eff - time.monotonic())):
+        if time.monotonic() >= box["beat"] + eff:
+            box["abandoned"] = True
+            record_timeout(site, eff)
+            exc = WatchdogTimeout(site, eff)
+            exc.thread = t
+            raise exc
     with _FIRST_LOCK:
         _FIRST_DONE.add(site)
     if "error" in box:

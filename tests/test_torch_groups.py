@@ -26,13 +26,16 @@ the host between dispatches) and with the band merges of the incremental
 topology engine on write the same bytes as the unchunked pass;
 ``grouped_adapt(niter=2)`` is conforming, volume-preserving (1e-4) with
 qmin > 0.02; ``ParMesh`` with ``IParam.meshSize`` and the CLI with
-``-mesh-size`` take the grouped path, and ``-resume`` there raises
-``NotYetPorted``.
+``-mesh-size`` take the grouped path, and with ``PMTORCH_CKPT_DIR`` set a
+run resumed after its pass checkpoints (``-resume``) writes the
+uninterrupted run's output.
 """
 import contextlib
 import io
 import json
+import os
 import threading
+from pathlib import Path
 from concurrent.futures import Future
 
 import numpy as np
@@ -514,7 +517,7 @@ def test_grouped_adapt_conforming():
     assert st.cycles >= 4 and st.nsplit > 0
 
 
-def _parmesh(resume=False):
+def _parmesh(resume=False, h=0.4):
     from parmmg_tpu_torch.api import IParam, ParMesh
     vert, tet = cube_mesh(2)
     pm = ParMesh(device="cpu")
@@ -522,7 +525,7 @@ def _parmesh(resume=False):
     pm.set_vertices(vert)
     pm.set_tetrahedra(tet + 1)
     pm.set_met_size(1, len(vert))
-    pm.set_scalar_mets(np.full(len(vert), 0.4))
+    pm.set_scalar_mets(np.full(len(vert), h))
     pm.set_iparameter(IParam.niter, 1)
     pm.set_iparameter(IParam.meshSize, len(tet) // 3)
     pm.info.resume = resume
@@ -530,8 +533,19 @@ def _parmesh(resume=False):
     return pm
 
 
-def test_mesh_size_engages_groups_and_resume_is_refused(monkeypatch):
-    from parmmg_tpu_torch.driver import NotYetPorted
+def test_mesh_size_engages_groups_and_resume_is_refused(monkeypatch,
+                                                        tmp_path):
+    """``IParam.meshSize`` below the tet count takes the grouped path: a
+    conforming, volume-preserving output.  With ``PMTORCH_CKPT_DIR`` set,
+    a run resumed after the checkpoint of its one pass gives the
+    uninterrupted run's output; ``resume`` refuses the checkpoint of
+    another input (its run fingerprint differs): that run starts from
+    scratch, counts no resume, and gives the output of a run without
+    checkpoints."""
+    from parmmg_tpu_torch.obs.metrics import REGISTRY
+
+    def resumes():
+        return REGISTRY.snapshot()["counters"].get("resilience.resumes", 0)
     called = {"n": 0}
     orig = TG.grouped_adapt
 
@@ -547,13 +561,36 @@ def test_mesh_size_engages_groups_and_resume_is_refused(monkeypatch):
     vol = np.einsum("ti,ti->t", p[:, 1] - p[:, 0],
                     np.cross(p[:, 2] - p[:, 0], p[:, 3] - p[:, 0])) / 6
     assert (vol > 0).all() and np.isclose(vol.sum(), 1.0, rtol=1e-4)
-    with pytest.raises(NotYetPorted):
-        _parmesh(resume=True).run()
+    monkeypatch.setenv("PMTORCH_CKPT_DIR", str(tmp_path))
+    full = _parmesh()
+    assert full.run() == C.PMMG_SUCCESS
+    assert sorted(os.listdir(tmp_path)) == [
+        "grouped.pass0.0.mesh", "grouped.pass0.1.mesh",
+        "grouped.pass0.2.mesh", "grouped.pass0.npz"]
+    r0 = resumes()
+    pm = _parmesh(resume=True)
+    assert pm.run() == C.PMMG_SUCCESS and called["n"] == 3
+    assert resumes() == r0 + 1
+    for get in ("get_vertices", "get_tetrahedra"):
+        for a, b in zip(getattr(pm, get)(), getattr(full, get)()):
+            assert np.array_equal(a, b)
+    other = _parmesh(resume=True, h=0.45)
+    assert other.run() == C.PMMG_SUCCESS and called["n"] == 4
+    assert resumes() == r0 + 1
+    monkeypatch.delenv("PMTORCH_CKPT_DIR")
+    fresh = _parmesh(h=0.45)
+    assert fresh.run() == C.PMMG_SUCCESS
+    for get in ("get_vertices", "get_tetrahedra"):
+        for a, b in zip(getattr(other, get)(), getattr(fresh, get)()):
+            assert np.array_equal(a, b)
 
 
-def test_cli_mesh_size_runs_grouped(tmp_path):
+def test_cli_mesh_size_runs_grouped(tmp_path, monkeypatch):
     """``-device cpu -mesh-size N -niter 2`` with N below the tet count:
-    the grouped path, a conforming output mesh; ``-resume`` exits 1."""
+    the grouped path, a conforming output mesh.  With ``PMTORCH_CKPT_DIR``
+    set, a run killed after pass 0 (its pass 1 checkpoint removed) and
+    run again with ``-resume`` writes the uninterrupted run's .mesh and
+    .sol bytes."""
     from parmmg_tpu_torch import cli
     from parmmg_tpu_torch.io.medit import MeditMesh, read_mesh, write_mesh
     vert, tet = cube_mesh(3)
@@ -586,8 +623,17 @@ def test_cli_mesh_size_runs_grouped(tmp_path):
     mesh = build_adjacency(tmesh.make_mesh(o.vert, o.tetra))
     assert check_adjacency(mesh) == {"asymmetric": 0, "face_mismatch": 0}
     assert int(((tmesh.tet_volumes(mesh) <= 0) & mesh.tmask).sum()) == 0
-    assert cli.main(["-in", src, "-out", out, "-mesh-size", "60",
-                     "-resume", "-device", "cpu", "-v", "-1"]) == 1
+    ck = tmp_path / "ck"
+    monkeypatch.setenv("PMTORCH_CKPT_DIR", str(ck))
+    flags = ["-in", src, "-hsiz", "0.3", "-mesh-size", "60", "-niter", "2",
+             "-device", "cpu", "-v", "-1"]
+    out1, out2 = str(tmp_path / "full.mesh"), str(tmp_path / "res.mesh")
+    assert cli.main(flags + ["-out", out1]) == 0
+    os.unlink(ck / "grouped.pass1.npz")
+    assert cli.main(flags + ["-out", out2, "-resume"]) == 0
+    for ext in (".mesh", ".sol"):
+        a, b = (Path(o).with_suffix(ext).read_bytes() for o in (out1, out2))
+        assert a == b, ext
 
 
 def test_grouped_pass_matches_eager_jax(eager_pass, port_pass):

@@ -13,8 +13,21 @@ gives the JAX ``Timers``' totals, and its trace replays to them.
 Port-only, mirroring ``tests/test_obs.py`` and
 ``tests/test_watchdog.py``: span nesting and the run context, ``log``
 gating, the JSONL sink, the ring bound, ``Deadline`` and
-``run_with_deadline``.  All host-only: nothing here runs a mesh.
+``run_with_deadline`` (with progress beats re-arming it).
+
+The run artifact and the shape ledger (``obs/artifact.py``,
+``utils/compilecache.py``), exact against the JAX package on every
+checked-in ``BENCH_r*`` / ``SERVE_r*`` / ``SCALE_r03`` / ``MULTICHIP_r*``
+/ ``MULTIHOST2P_r*`` / ``SOAK_r01`` artifact: ``upgrade_artifact``,
+``validate_artifact``, ``extract_artifact_ledger``, and ``artifact_diff``
+and ``ledger_diff`` against the artifact before it.  The debug dumps
+(``utils/debug.py``): ``dump_mesh`` (with its metric) and ``dump_tags``
+write the JAX package's bytes for cube_mesh(3), and
+``check_mesh_consistency`` returns its dict.  The profiler window: inert
+unarmed; armed on the CPU for pass 0 of a grouped run it writes one
+Chrome trace.
 """
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -22,11 +35,16 @@ import os
 import time
 
 import pytest
+import torch
 
+from parmmg_tpu.obs import artifact as JA
 from parmmg_tpu.obs import metrics as JM
+from parmmg_tpu.utils import compilecache as JCC
 from parmmg_tpu.resilience import faults as JF
 from parmmg_tpu.utils import timers as JT
+from parmmg_tpu_torch.obs import artifact as TA
 from parmmg_tpu_torch.obs import metrics as TM
+from parmmg_tpu_torch.utils import compilecache as TCC
 from parmmg_tpu_torch.obs import trace as otrace
 from parmmg_tpu_torch.resilience import faults as TF
 from parmmg_tpu_torch.resilience import watchdog as wd
@@ -434,3 +452,238 @@ def test_first_use_grace_covers_the_first_call_only():
     with pytest.raises(WatchdogTimeout) as ei:
         run_with_deadline(slow, 0.05, site, grace_s=0.4)
     ei.value.thread.join(timeout=2)
+
+
+def test_progress_re_arms_a_guarded_call():
+    """A guarded call reporting progress (beats=True) outlives its
+    deadline as long as no gap between two reports does; abandoned, it
+    stops at its next report.  Without beats, reports change nothing."""
+    def beating(n=8):
+        for _ in range(n):
+            time.sleep(0.04)
+            wd.progress()
+        return "done"
+    assert run_with_deadline(beating, 0.2, _site("t.beat"), grace_s=0,
+                             beats=True) == "done"
+    with pytest.raises(WatchdogTimeout) as ei:
+        run_with_deadline(beating, 0.2, _site("t.nobeat"), grace_s=0)
+    ei.value.thread.join(timeout=2)
+    wd.progress()                       # free outside a guarded call
+    seen = []
+
+    def stalls():
+        time.sleep(0.05)
+        wd.progress()
+        time.sleep(0.5)
+        try:
+            wd.progress()
+        except wd.Abandoned:
+            seen.append("stopped")
+            raise
+        seen.append("ran on")
+    with pytest.raises(WatchdogTimeout) as ei:
+        run_with_deadline(stalls, 0.2, _site("t.beat2"), grace_s=0,
+                          beats=True)
+    ei.value.thread.join(timeout=2)
+    assert seen == ["stopped"]
+
+
+def test_deadline_knob(monkeypatch):
+    monkeypatch.delenv("PMTORCH_DEADLINE_DISPATCH_S", raising=False)
+    assert wd.deadline_knob("PMTORCH_DEADLINE_DISPATCH_S") == 0.0
+    for v, want in (("0.5", 0.5), ("-3", 0.0), ("junk", 0.0), ("", 0.0)):
+        monkeypatch.setenv("PMTORCH_DEADLINE_DISPATCH_S", v)
+        assert wd.deadline_knob("PMTORCH_DEADLINE_DISPATCH_S") == want
+    monkeypatch.setenv("PMTORCH_DEADLINE_GRACE_S", "7")
+    assert wd.first_use_grace(_site("t.knobgrace")) == 7.0
+
+
+# ---- the run artifact and the shape ledger -----------------------------------
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ARTIFACTS = sorted(
+    f for f in os.listdir(ROOT) if f.endswith(".json") and f.split("_")[0]
+    in ("BENCH", "SERVE", "SCALE", "MULTICHIP", "MULTIHOST2P", "SOAK"))
+
+
+def _doc(name):
+    with open(os.path.join(ROOT, name)) as fh:
+        return json.load(fh)
+
+
+@pytest.mark.parametrize("name", ARTIFACTS)
+def test_artifact_upgrade_validate_diff_equal_jax(name):
+    doc = _doc(name)
+    up = TA.upgrade_artifact(doc)
+    assert up == JA.upgrade_artifact(doc)
+    assert TA.validate_artifact(up) == JA.validate_artifact(up)
+    assert TA.validate_artifact(doc) == JA.validate_artifact(doc)
+    assert TCC.extract_artifact_ledger(doc) == \
+        JCC.extract_artifact_ledger(doc)
+    i = ARTIFACTS.index(name)
+    prev = _doc(ARTIFACTS[i - 1])
+    for a, b in ((prev, doc), (doc, prev), (doc, doc)):
+        assert TA.artifact_diff(a, b) == JA.artifact_diff(a, b)
+        la, lb = (TCC.extract_artifact_ledger(x) for x in (a, b))
+        assert TCC.ledger_diff(la, lb) == JCC.ledger_diff(la, lb)
+    pattern = name.split("_")[0] + "_r*.json"
+    led = TCC.extract_artifact_ledger(doc)
+    assert TCC.regressions_vs_latest_artifact(ROOT, pattern, led) == \
+        JCC.regressions_vs_latest_artifact(ROOT, pattern, led)
+    assert len(ARTIFACTS) == 15
+
+
+def test_make_artifact_validates_and_reports_the_port(monkeypatch):
+    monkeypatch.setenv("PMTORCH_CKPT_EVERY", "3")
+    doc = TA.make_artifact("BENCH", "tets_per_s", 1.5, "tets/s",
+                           extra={"qmin": 0.3})
+    assert TA.validate_artifact(doc) == []
+    assert JA.validate_artifact(doc) == []
+    env = doc["env"]
+    assert env["backend"] == ("cuda" if torch.cuda.is_available()
+                              else "cpu")
+    assert env["torch"] == torch.__version__
+    assert env["knobs"]["PMTORCH_CKPT_EVERY"] == "3"
+    assert "compile_ledger" in doc["extra"]
+    with pytest.raises(ValueError):
+        TA.make_artifact("NOPE", "m", 1.0, "s")
+
+
+def test_ledger_rows_builds_and_budgets():
+    led = TCC.CompileLedger()
+    led.register("t.entry", budget=1)
+    for n in (4, 4, 6):
+        led.note_call("t.entry", TCC.static_key(
+            (torch.zeros(n), 3, True), {"hausd": None}))
+    led.note_build("nvcc.k", 2.5)
+    snap = led.snapshot()
+    assert snap["t.entry"]["calls"] == 3
+    assert snap["t.entry"]["variants"] == snap["t.entry"]["shapes_seen"] == 2
+    assert snap["nvcc.k"]["compiles"] == 1
+    assert snap["nvcc.k"]["compile_s"] == 2.5
+    assert led.violations() == ["t.entry: 2 compiled variants > budget 1"]
+    assert "nvcc.k" in led.format() and "t.entry" in led.format()
+    # a wave number is dynamic (an int), a flag static
+    k = TCC.static_key
+    assert k((torch.zeros(3), 5), {}) == k((torch.zeros(3), 9), {})
+    assert k((torch.zeros(3), True), {}) != k((torch.zeros(3), False), {})
+    led.reset()
+    assert led.snapshot()["t.entry"]["calls"] == 0
+
+
+def test_governed_entry_points_count_a_grouped_pass():
+    """The governed entry points of a whole-mesh run and of a polished
+    grouped pass land in the process ledger under the JAX names."""
+    from parmmg_tpu_torch.core import mesh as tmesh
+    from parmmg_tpu_torch.ops import adapt as TAd
+    from parmmg_tpu_torch.ops import analysis as TN
+    from parmmg_tpu_torch.ops.repair import repair_mesh
+    from parmmg_tpu_torch.parallel import groups as TG
+    from parmmg_tpu_torch.utils.fixtures import cube_mesh
+    v, t = cube_mesh(2)
+    m = TN.analyze_mesh(tmesh.make_mesh(v, t, capP=4 * len(v),
+                                        capT=4 * len(t))).mesh
+    met = torch.full((m.capP,), 0.35)
+    before = TCC.ledger_snapshot()
+    out, met2, _ = TAd.adapt_mesh(m, met, max_cycles=3)
+    repair_mesh(out, met2)
+    TG.grouped_adapt_pass(m, met, 3, cycles=2, polish=True)
+    after = TCC.ledger_snapshot()
+    for name in ("adapt.cycle", "adapt.sliver_polish", "groups.polish_block",
+                 "repair.quality_probe"):
+        assert after[name]["calls"] > before.get(name, {}).get("calls", 0)
+        assert after[name]["variants"] >= 1
+    # the front door for callers outside a cycle: the wave's own result
+    from parmmg_tpu_torch.ops import swapgen
+    calls = after["ops.swapgen_wave"]["calls"]
+    a = swapgen.swapgen_wave_j(out, met2, budget_div=2)
+    b = swapgen.swapgen_wave(out, met2, budget_div=2)
+    assert int(a.nswap) == int(b.nswap)
+    for f in tmesh.MESH_FIELDS:
+        assert torch.equal(getattr(a.mesh, f), getattr(b.mesh, f)), f
+    assert TCC.ledger_snapshot()["ops.swapgen_wave"]["calls"] == calls + 1
+
+
+# ---- debug dumps -------------------------------------------------------------
+
+def _debug_meshes():
+    import jax.numpy as jnp
+    from parmmg_tpu.core import mesh as jmesh
+    from parmmg_tpu_torch.core import mesh as tmesh
+    from parmmg_tpu_torch.ops import analysis as TN
+    from parmmg_tpu_torch.utils.fixtures import cube_mesh
+    v, t = cube_mesh(3)
+    m = TN.analyze_mesh(tmesh.make_mesh(v, t, capP=2 * len(v),
+                                        capT=2 * len(t))).mesh
+    f = tmesh.mesh_to_numpy(m)
+    jm = jmesh.Mesh(**{k: jnp.asarray(a) for k, a in f.items()})
+    met = torch.linspace(0.1, 0.9, m.capP)
+    return m, jm, met
+
+
+def test_debug_dumps_equal_jax(tmp_path):
+    import jax.numpy as jnp
+    from parmmg_tpu.utils import debug as JD
+    from parmmg_tpu_torch.utils import debug as TD
+    m, jm, met = _debug_meshes()
+    TD.dump_mesh(m, tmp_path / "t.mesh", met=met)
+    JD.dump_mesh(jm, tmp_path / "j.mesh", met=jnp.asarray(met.numpy()))
+    for ext in (".mesh", ".sol"):
+        assert (tmp_path / f"t{ext}").read_bytes() == \
+            (tmp_path / f"j{ext}").read_bytes()
+    assert b"Triangles" in (tmp_path / "t.mesh").read_bytes()
+    TD.dump_tags(m, tmp_path / "t.tags")
+    JD.dump_tags(jm, tmp_path / "j.tags")
+    assert (tmp_path / "t.tags").read_bytes() == \
+        (tmp_path / "j.tags").read_bytes()
+    got = TD.check_mesh_consistency(m)
+    assert got == JD.check_mesh_consistency(jm)
+    assert got["nonpositive_vols"] == got["dangling_vertex_refs"] == 0
+
+
+# ---- the profiler window -----------------------------------------------------
+
+def test_profiler_unarmed_is_inert(monkeypatch, tmp_path):
+    monkeypatch.delenv("PMTORCH_PROFILE_DIR", raising=False)
+    assert not otrace.profile_pass_begin(0)
+    assert not otrace.profiling_active()
+    assert not otrace.profile_pass_end(0) and not otrace.profile_abort()
+    assert isinstance(otrace.annotate("x"), contextlib.nullcontext)
+    # armed, but out of the window
+    monkeypatch.setenv("PMTORCH_PROFILE_DIR", str(tmp_path))
+    monkeypatch.setenv("PMTORCH_PROFILE_PASS", "1:2")
+    assert not otrace.profile_pass_begin(0)
+    assert list(tmp_path.iterdir()) == []
+
+
+def test_profiler_window_writes_one_trace_for_pass0(monkeypatch, tmp_path):
+    from parmmg_tpu_torch.core import mesh as tmesh
+    from parmmg_tpu_torch.ops import analysis as TN
+    from parmmg_tpu_torch.parallel import groups as TG
+    from parmmg_tpu_torch.utils.fixtures import cube_mesh
+    monkeypatch.setenv("PMTORCH_PROFILE_DIR", str(tmp_path))
+    monkeypatch.setenv("PMTORCH_PROFILE_PASS", "0")
+    v, t = cube_mesh(2)
+    m = TN.analyze_mesh(tmesh.make_mesh(v, t, capP=4 * len(v),
+                                        capT=4 * len(t))).mesh
+    TG.grouped_adapt(m, torch.full((m.capP,), 0.35), 16, niter=2, cycles=2,
+                     chunk=2)
+    assert not otrace.profiling_active()
+    files = list(tmp_path.iterdir())
+    assert len(files) == 1 and files[0].suffix == ".json"
+    stops = [r for r in otrace.TRACER.ring
+             if r.get("name") == "profile_stop"]
+    assert stops[-1]["path"] == str(files[0])
+    with open(files[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert "grp_dispatch_chunk0" in names
+    assert any(str(n).startswith("aten::") for n in names)
+    # an exception unwinding the loop leaves no capture open
+    monkeypatch.setattr(TG, "grouped_adapt_pass",
+                        lambda *a, **k: (_ for _ in ()).throw(
+                            MemoryError("x")))
+    with pytest.raises(MemoryError):
+        TG.grouped_adapt(m, torch.full((m.capP,), 0.35), 16, niter=2)
+    assert not otrace.profiling_active()
+    assert len(list(tmp_path.iterdir())) == 1
