@@ -5,6 +5,7 @@
     python3 chip_smoke.py --pairs N
     python3 chip_smoke.py --serve
     python3 chip_smoke.py --chaos
+    python3 chip_smoke.py --dist
 
 With ``--pairs N`` it builds the kernels and runs only N alternating
 pairs of each cube16 path (phases 2 and 4) at ``cycle_block=1`` and at
@@ -12,7 +13,7 @@ the default, blocks of 9, after one unmeasured pair, and prints the walls,
 the output sizes and qualities and the paired wall differences as one
 JSON line before the last.  With ``--serve`` it runs phases 1 and 7
 alone, with ``--chaos`` phases 1 and 6b (making the [grouped] output it
-compares with).  Without arguments:
+compares with), with ``--dist`` phases 1 and 6c.  Without arguments:
 
 Phases (any failure exits non-zero without the final result line):
 
@@ -105,6 +106,26 @@ Phases (any failure exits non-zero without the final result line):
              pipeline segment seconds, host reads a group-cycle, the band
              merges, their widths and the kernels' shapes there, and each
              run's wall.
+6c. dist   - the distributed pass (``parallel/dist.py``, ``comms.py``,
+             ``analysis_dev.py``): the CLI with ``-ndev 4 -niter 1`` on the
+             [grouped] input, four shards stacked on the card (the
+             split, the communicators and their coordinate + metric
+             echo, blocks of 9 cycles on every shard, the device analysis
+             refresh, one merge), then the polish and the run tail.  Launch
+             counts zeroed just before and read just after: K1 and K3-K8
+             must have launched, K2 must not.  Checked: a conforming output
+             with qmin > 0, its tet count within 2% of the JAX CLI's
+             (``tools/jax_cli_reference.py 32 --metric-n 16 --ndev 4
+             --niter 1 --block 9``: 253,749); the echo 0 mismatches before
+             the pass and on the adapted shards; a run before it under
+             PyTorch's sync debug mode (it counts the host reads) writes
+             the same bytes; a ``-distributed-output`` run writes 4 rank
+             files whose communicator sections, read back, pass
+             ``check_node_comms`` / ``check_face_comms``.  Prints the wall,
+             dist cycles, active shards a cycle, live tets a shard, the
+             ``dist.adapt`` / ``dist.refresh`` / ``dist.merge`` span
+             seconds, host reads a dist cycle, the band exchange bytes, one
+             shard's record extraction time and the launches.
 6b. chaos  - the resilience layer (``resilience/``, ``parallel/groups.py``,
              ``_polish_worker.py``), each drill held to the fault-free
              bytes.  The [grouped] input and flags at chunk 8: (1)
@@ -114,8 +135,8 @@ Phases (any failure exits non-zero without the final result line):
              ``dispatch.chunk:hang=3;nth-1`` under a 0.5 s dispatch
              deadline, grace 0: the bytes, a watchdog expiry; (4) a CLI
              subprocess SIGKILLed once ``grouped.pass0.npz`` appears, then
-             ``-resume``: the bytes, one resume.  cube_mesh(16) under the
-             shock map h = 1.5/8 at ``-mesh-size 4096 -niter 2`` (6
+             ``-resume``: the bytes, one resume.  cube_mesh(12) under the
+             shock map h = 1.5/8 at ``-mesh-size 1728 -niter 2`` (6
              groups), chunk 4: (5) ``io.checkpoint`` armed: its unarmed
              bytes, no ``.npz`` or ``.tmp``; (6) every dispatch failing, 1
              retry: PMMG_LOWFAILURE, a conforming output; (7) a
@@ -167,7 +188,8 @@ Phases (any failure exits non-zero without the final result line):
              the same function, that call; the profiler's device time a
              call, warm and cold (the L2 flushed before every call); the
              least time the card could take (bytes / 3.35 TB/s, operations
-             / 67 TFLOP/s float32).  K8 runs on the sorted edge keys and
+             / 67 TFLOP/s float32; K3 and K4 count the values of the
+             selected edges only).  K8 runs on the sorted edge keys and
              face keys and, in its gathered mode, on the unsorted keys with
              K7's permutation, beside the unfused pair it replaced (the
              gather, then sorted-mode K8) as its yardstick.  K5 also on
@@ -193,8 +215,8 @@ profiler's kernel count over 20 calls / 20) and fails unless K5, K6 and K8
 (both modes) are one launch a call and K7 1 + npass.
 
 The last two lines are one JSON object with the kernel table (each row's
-launches on the main path, and on the field, grouped, serve and chaos
-paths) and
+launches on the main path, and on the field, grouped, dist, serve and
+chaos paths) and
 one JSON object ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1159,15 +1181,230 @@ def phase_grouped(workdir: str, device: str = "cuda"):
     return launches, samples, shapes
 
 
+# the [dist] phase: the [grouped] input through the distributed pass, four
+# shards stacked on the card, one pass; the JAX CLI's tet count on it
+# (tools/jax_cli_reference.py 32 --metric-n 16 --ndev 4 --niter 1 --block
+# 9, on the CPU: 253,749 tets, 10 dist cycles)
+DIST_FLAGS = ("-ndev", "4", "-niter", "1")
+JAX_CLI_NTETS["cube32dist"] = 253749
+
+
+class _DistWatch:
+    """Watches the distributed pass of the CLI runs inside the scope: the
+    run's AdaptStats, the comm tables and input coordinates of the
+    interface echo (and its mismatch count), the stacked state after the
+    adapt cycles, the refresh's numbering, live tets a shard before the
+    merge, the ``dist.*`` span seconds and, with ``count_reads``, the
+    synchronizing calls inside ``distributed_adapt_multi`` (PyTorch's
+    sync debug mode)."""
+
+    def __init__(self, count_reads: bool = False):
+        self.count_reads = count_reads
+        self.info = {"stats": None, "reads": 0, "spans": {}, "echo": [],
+                     "live_tets": None}
+
+    def __enter__(self):
+        import warnings
+        import torch
+        from parmmg_tpu_torch.obs import trace as otrace
+        from parmmg_tpu_torch.parallel import dist, distribute
+        info = self.info
+        self._real = (dist.distributed_adapt_multi,
+                      dist.check_interface_echo, dist.run_adapt_cycles,
+                      dist._refresh, distribute.merge_shards,
+                      otrace.emit_span)
+        multi, echo, cycles, refresh, merge, span = self._real
+
+        def w_multi(*a, **k):
+            info["stats"] = k.get("stats")
+            if not self.count_reads:
+                return multi(*a, **k)
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return multi(*a, **k)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                    info["reads"] += sum("synchroniz" in str(w.message)
+                                         for w in seen)
+
+        def w_echo(stacked, met_s, comms, vert_h):
+            info["echo_args"] = (comms, vert_h)
+            n = echo(stacked, met_s, comms, vert_h)
+            info["echo"].append(n)
+            return n
+
+        def w_cycles(*a, **k):
+            out = cycles(*a, **k)
+            info["adapted"] = out
+            return out
+
+        def w_refresh(stacked, comms, n_shards, ang, glo, **k):
+            info["glo"] = [g.copy() for g in glo]
+            return refresh(stacked, comms, n_shards, ang, glo, **k)
+
+        def w_merge(stacked, *a, **k):
+            info["live_tets"] = stacked.tmask.sum(dim=1).tolist()
+            return merge(stacked, *a, **k)
+
+        def w_span(name, dur, *a, **k):
+            if name.startswith("dist."):
+                info["spans"][name] = info["spans"].get(name, 0.0) + dur
+            return span(name, dur, *a, **k)
+        dist.distributed_adapt_multi = w_multi
+        dist.check_interface_echo = w_echo
+        dist.run_adapt_cycles = w_cycles
+        dist._refresh = w_refresh
+        distribute.merge_shards = w_merge
+        otrace.emit_span = w_span
+        return self
+
+    def __exit__(self, *exc):
+        from parmmg_tpu_torch.obs import trace as otrace
+        from parmmg_tpu_torch.parallel import dist, distribute
+        (dist.distributed_adapt_multi, dist.check_interface_echo,
+         dist.run_adapt_cycles, dist._refresh, distribute.merge_shards,
+         otrace.emit_span) = self._real
+        return False
+
+
+def _run_dist(workdir: str, out: str, device: str, count_reads=False,
+              flags=DIST_FLAGS):
+    """The [dist] CLI remesh once, written to ``out``; returns (launches,
+    record, wall, the watch's info, band exchange bytes)."""
+    from parmmg_tpu_torch.obs.metrics import REGISTRY
+    b0 = REGISTRY.counter("mh.band_exchange_bytes").value
+    with _DistWatch(count_reads) as w:
+        launches, rec, wall = _run_main(workdir, "cube32", out, device,
+                                        flags=flags)
+    return (launches, rec, wall, w.info,
+            REGISTRY.counter("mh.band_exchange_bytes").value - b0)
+
+
+def phase_dist(workdir: str, device: str = "cuda"):
+    """The [dist] path: the port's CLI with ``-ndev 4 -niter 1`` on the
+    [grouped] input (cube_mesh(32), 196,608 tets, the cube16 iso shock
+    map): four shards stacked on the card, the communicators checked by
+    the coordinate + metric echo, blocks of 9 cycles on every shard, the
+    device analysis refresh, one merge, then the polish and the run tail.
+    Checked: K1 and K3-K8 launched and K2 not; a conforming output with
+    qmin > 0, its tet count within 2% of the JAX CLI's; the echo 0
+    mismatches before the pass and again on the adapted shards; a run
+    before it under PyTorch's sync debug mode (counting the host reads)
+    writes the same bytes; a ``-distributed-output`` run writes 4 rank
+    files whose communicator sections, read back, pass
+    ``check_node_comms`` / ``check_face_comms``.  Prints the wall, the
+    dist cycles and the active shards a block, live tets a shard, the
+    ``dist.*`` span seconds, host reads a dist cycle, the band exchange
+    bytes, one shard's record extraction (``extract_probe_seconds``) and
+    the phase's launches.  Returns the launches of the default run."""
+    import numpy as np
+    import torch
+    from parmmg_tpu_torch.io.distributed import (interface_comms_of,
+                                                 load_distributed_mesh,
+                                                 probe_distributed)
+    from parmmg_tpu_torch.parallel import dist
+    from parmmg_tpu_torch.parallel.analysis_dev import extract_probe_seconds
+    from parmmg_tpu_torch.parallel.comms import (check_face_comms,
+                                                 check_node_comms)
+    stem = "cube32"
+    _write_input(workdir, stem, n=32, metric_n=16)
+    flags = " ".join(DIST_FLAGS)
+    # the host reads: a run under the sync debug mode, its wall apart
+    outr = os.path.join(workdir, f"{stem}.dist.reads.mesh")
+    reads = None
+    if device == "cuda":
+        _, _, wallr, infor, _ = _run_dist(workdir, outr, device,
+                                          count_reads=True)
+        reads = (infor["reads"], infor["stats"].cycles, wallr)
+    out = os.path.join(workdir, f"{stem}.dist.mesh")
+    launches, rec, wall, info, band = _run_dist(workdir, out, device)
+    st = info["stats"]
+    mesh, _, _ = _read_output(out, device)
+    bad, qmin, qmean = _check_conforming("[dist]", mesh)
+    print(f"[dist] {stem} {flags}: ntets {rec['ntets']} qmin "
+          f"{rec['qmin']:.6f} qmean {rec['qmean']:.6f} splits "
+          f"{rec['nsplit']} collapses {rec['ncollapse']} swaps "
+          f"{rec['nswap']} wall {wall:.3f} s")
+    print(f"[dist] re-read output: {int(mesh.tmask.sum())} tets, adjacency "
+          f"{bad}, qmin {qmin:.6f} qmean {qmean:.6f}")
+    act = st.sched_extra.get("active_shards_per_cycle", [])
+    blocks = [act[i:i + 9] for i in range(0, len(act), 9)]
+    print(f"[dist] dist cycles {st.cycles}, active shards a cycle by block "
+          f"of 9 {blocks}; live tets a shard before the merge "
+          f"{info['live_tets']}")
+    print("[dist] span seconds " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(info["spans"].items())))
+    # the echo again, on the shards as the adapt cycles left them
+    comms, vert_h = info["echo_args"]
+    stacked, met_s = info["adapted"]
+    after = dist.check_interface_echo(stacked, met_s, comms, vert_h)
+    print(f"[dist] interface echo mismatches: {info['echo']} before the "
+          f"pass, {after} after it ({int((comms.node_idx >= 0).sum())} "
+          f"node items, {comms.nbr.shape[0]} shards)")
+    if info["echo"] != [0] or after != 0:
+        raise RuntimeError(f"[dist] echo mismatches {info['echo']}, "
+                           f"{after}")
+    sec = extract_probe_seconds(stacked.slot(0), torch.as_tensor(
+        info["glo"][0].astype(np.int32), device=stacked.device))
+    print(f"[dist] band exchange bytes {int(band)}; one shard's record "
+          f"extraction (extract_probe_seconds, capT {stacked.capT}) "
+          f"{sec * 1e3:.3f} ms")
+    if reads:
+        _same_outputs(out, outr)
+        print(f"[dist] host reads {reads[0]} in distributed_adapt_multi = "
+              f"{reads[0] / max(reads[1], 1):.1f} a dist cycle (a run "
+              f"before, under the sync debug mode: wall {reads[2]:.3f} s, "
+              "byte-identical .mesh and .sol)")
+    print(f"[dist] launches {launches}")
+    must, must_not = PATH_KERNELS["cube32"]
+    missing = sorted(k for k in must if launches[k] == 0)
+    if device == "cuda" and (missing or launches[must_not]):
+        raise RuntimeError(f"[dist]: kernels never launched {missing}, "
+                           f"{must_not} launched {launches[must_not]} "
+                           f"times ({launches})")
+    ref = JAX_CLI_NTETS["cube32dist"]
+    if abs(rec["ntets"] - ref) > NTETS_BOUND * ref:
+        raise RuntimeError(f"[dist] {rec['ntets']} tets: not within "
+                           f"{NTETS_BOUND:.0%} of the JAX CLI's {ref} on "
+                           "this input")
+    # the distributed output: 4 rank files with their communicators
+    outd = os.path.join(workdir, f"{stem}.distout.mesh")
+    _, recd, walld, _, _ = _run_dist(workdir, outd, device,
+                                     flags=DIST_FLAGS
+                                     + ("-distributed-output",))
+    nranks = 0
+    while probe_distributed(outd, nranks):
+        nranks += 1
+    parts = [load_distributed_mesh(outd, r) for r in range(nranks)]
+    comms_f = interface_comms_of(parts)
+    verts = [p[0].vert for p in parts]
+    tets = [np.asarray(p[0].tetra, np.int64) for p in parts]
+    chk_n = check_node_comms(comms_f, verts)
+    chk_f = check_face_comms(comms_f, tets, verts)
+    ntf = sum(len(t) for t in tets)
+    print(f"[dist] -distributed-output: {nranks} rank files, {ntf} tets "
+          f"(the run's {recd['ntets']}), wall {walld:.3f} s; node comms "
+          f"{chk_n}, face comms {chk_f}")
+    if nranks != 4 or ntf != recd["ntets"] or chk_n["mismatch"] or \
+            chk_f["mismatch"] or not chk_n["items_checked"] or \
+            not chk_f["items_checked"]:
+        raise RuntimeError("[dist] the distributed output's rank files or "
+                           "communicators do not check")
+    return launches
+
+
 # the [chaos] phase: the [grouped] input at chunk 8 (checks 1-4), and
-# (stem, cube_mesh(n), metric_n, flags, chunk) for checks 5-8: cube_mesh(16)
-# at -mesh-size 4096 (6 groups) under the shock map of cube_mesh(8)
+# (stem, cube_mesh(n), metric_n, flags, chunk) for checks 5-8: cube_mesh(12)
+# at -mesh-size 1728 (6 groups) under the shock map of cube_mesh(8)
 # (h = 1.5/8; the cube16 map refines these groups to 181,352 tets at 57 s a
-# run), chunk 4; the profiler window (check 9) on cube_mesh(4) at
+# run; cube_mesh(16) at -mesh-size 4096 took ~110 s of the phase, and the
+# [dist] phase needed the room), chunk 4; the profiler window (check 9) on cube_mesh(4) at
 # -mesh-size 192 (2 groups): a host-bound pass launches ~10^4 ops a
 # group-cycle, and its trace holds a few events each (pass 1 of
 # cube_mesh(8), 3 groups, wrote 327 MB, of cube_mesh(6) 319 MB in 60 s)
-CHAOS_SMALL = ("cube16c", 16, 8, ("-mesh-size", "4096", "-niter", "2"), 4)
+CHAOS_SMALL = ("cube12c", 12, 8, ("-mesh-size", "1728", "-niter", "2"), 4)
 CHAOS_PROF = ("cube4c", 4, ("-mesh-size", "192", "-niter", "2"))
 
 
@@ -1319,8 +1556,8 @@ def phase_chaos(workdir: str, device: str = "cuda", base: str | None = None):
     3. ``dispatch.chunk:hang=3;nth-1`` under a 0.5 s dispatch deadline
     (grace 0): the base bytes, a watchdog expiry; 4. a CLI subprocess
     SIGKILLed once ``grouped.pass0.npz`` appears, then ``-resume`` in this
-    process: the base bytes, one resume.  On cube_mesh(16) at -mesh-size
-    4096 under a coarser map (CHAOS_SMALL): 5. ``io.checkpoint`` armed:
+    process: the base bytes, one resume.  On cube_mesh(12) at -mesh-size
+    1728 under a coarser map (CHAOS_SMALL): 5. ``io.checkpoint`` armed:
     its base bytes, no
     ``.npz`` or ``.tmp`` left; 6. every dispatch failing: PMMG_LOWFAILURE
     and a conforming output; 7. ``grouped_adapt_pass(polish=True)`` with
@@ -2312,11 +2549,16 @@ def phase_kernels(launches, shapes, launches_ani, shapes_ani, workdir: str,
     g = K.score_count(cand, neg)
     r = K.score_count_plain(cand, neg)
     err = check("score_count", g, r, 0, 0, exact=True)
+    # the bytes the function needs: the mask, the output, the count and
+    # the values of the selected edges only (a masked-out value never
+    # reaches the output)
+    nsel = int(cand.sum())
     rows.append(row("score_count", "score_count.cu", 231, err,
         _time_ms(lambda: K.score_count(cand, neg)),
         _time_ms(lambda: K.score_count_plain(cand, neg)),
-        9 * capE + 4, 2 * capE, lambda: K.score_count(cand, neg),
-        "score_kernel"))
+        5 * capE + 4 + 4 * nsel, 2 * capE,
+        lambda: K.score_count(cand, neg), "score_kernel",
+        shape=f" [capE {capE}, {nsel} selected]"))
 
     # K4 score3 + count: the edge-swap cut over three shell qualities
     q = K.tet_quality(mesh.vert, mesh.tet, mesh.tmask)
@@ -2328,11 +2570,13 @@ def phase_kernels(launches, shapes, launches_ani, shapes_ani, workdir: str,
     g = K.score3_count(c3, v0, v1, v2)
     r = K.score3_count_plain(c3, v0, v1, v2)
     err = check("score3_count", g, r, 0, 0, exact=True)
+    nsel3 = int(c3.sum())
     rows.append(row("score3_count", "score_count.cu", 253, err,
         _time_ms(lambda: K.score3_count(c3, v0, v1, v2)),
         _time_ms(lambda: K.score3_count_plain(c3, v0, v1, v2)),
-        17 * capE + 4, 4 * capE, lambda: K.score3_count(c3, v0, v1, v2),
-        "score_kernel"))
+        5 * capE + 4 + 12 * nsel3, 4 * capE,
+        lambda: K.score3_count(c3, v0, v1, v2), "score_kernel",
+        shape=f" [capE {capE}, {nsel3} selected]"))
 
     # K6 tet quality: iso (the main path's mode) and the tensor mode on
     # the aniso path's output and metric
@@ -2603,8 +2847,9 @@ def main(argv=()) -> int:
         return 2
     workdir = os.path.join(HERE, "build", "smoke")
     os.makedirs(workdir, exist_ok=True)
-    if list(argv) in (["--serve"], ["--chaos"]):
-        phase = phase_serve if argv[0] == "--serve" else phase_chaos
+    if list(argv) in (["--serve"], ["--chaos"], ["--dist"]):
+        phase = {"--serve": phase_serve, "--chaos": phase_chaos,
+                 "--dist": phase_dist}[argv[0]]
         try:
             phase_build()
             launches = phase(workdir)
@@ -2633,22 +2878,33 @@ def main(argv=()) -> int:
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
+    walls = {}
+
+    def timed(name, fn, *a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        walls[name] = round(time.perf_counter() - t0, 3)
+        return out
     try:
-        phase_build()
-        launches, shapes = phase_path(workdir, "cube16")
-        phase_repeat(workdir)
-        launches_ani, shapes_ani = phase_path(workdir, "cube16ani")
-        phase_aniso_repeat(workdir)
-        launches_field = phase_field(workdir)
-        launches_grouped, band_samples, band_shapes = phase_grouped(workdir)
-        launches_chaos = phase_chaos(
-            workdir, base=os.path.join(workdir, "cube32.o.mesh"))
-        launches_serve = phase_serve(workdir)
-        rows = phase_kernels(launches, shapes, launches_ani, shapes_ani,
-                             workdir, band_samples)
-        phase_stress(band_shapes=band_shapes)
-        phase_profile(workdir, "cube16")
-        phase_profile(workdir, "cube16ani")
+        timed("build", phase_build)
+        launches, shapes = timed("main", phase_path, workdir, "cube16")
+        timed("repeat", phase_repeat, workdir)
+        launches_ani, shapes_ani = timed("aniso", phase_path, workdir,
+                                         "cube16ani")
+        timed("aniso_repeat", phase_aniso_repeat, workdir)
+        launches_field = timed("field", phase_field, workdir)
+        launches_grouped, band_samples, band_shapes = timed(
+            "grouped", phase_grouped, workdir)
+        launches_dist = timed("dist", phase_dist, workdir)
+        launches_chaos = timed(
+            "chaos", phase_chaos, workdir,
+            base=os.path.join(workdir, "cube32.o.mesh"))
+        launches_serve = timed("serve", phase_serve, workdir)
+        rows = timed("kernels", phase_kernels, launches, shapes,
+                     launches_ani, shapes_ani, workdir, band_samples)
+        timed("stress", phase_stress, band_shapes=band_shapes)
+        timed("profile", phase_profile, workdir, "cube16")
+        timed("profile_ani", phase_profile, workdir, "cube16ani")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -2658,6 +2914,9 @@ def main(argv=()) -> int:
         r["grouped_launches"] = int(launches_grouped[r["name"]])
         r["serve_launches"] = int(launches_serve[r["name"]])
         r["chaos_launches"] = int(launches_chaos[r["name"]])
+        r["dist_launches"] = int(launches_dist[r["name"]])
+    print(f"[walls] seconds a phase {walls}, "
+          f"{sum(walls.values()):.3f} in all")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

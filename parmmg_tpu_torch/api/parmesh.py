@@ -7,8 +7,12 @@ scalar size per vertex or a packed symmetric tensor (m11, m12, m13, m22,
 m23, m33).  User solution fields at vertices are carried through the
 remesh by P1 interpolation from a background copy of the input
 (``driver.interpolate_fields``).  Prisms and quadrilaterals pass through
-untouched, their vertices frozen.  The distributed communicators belong to
-a later slice.
+untouched, their vertices frozen.  The distributed API's node and face
+communicators (``set_*_communicator*`` / ``get_*_communicator*``, the
+owners queries, ``print_communicator``) are staged per rank as in the JAX
+class: ``nprocs`` / ``myrank`` name the rank, and a single-process run
+checks the staged items for range and order; ``info.n_devices`` > 1 runs
+the distributed pass.
 """
 from __future__ import annotations
 
@@ -45,8 +49,14 @@ def _grow(a, n: int, width, dtype):
 class ParMesh:
     """Staged mesh + metric + parameters; :meth:`run` adapts it."""
 
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", nprocs: int = 1, myrank: int = 0):
         self.device = resolve_device(device)
+        self.nprocs = nprocs
+        self.myrank = myrank
+        self.n_node_comm = 0
+        self.n_face_comm = 0
+        self.node_comms: list[dict] = []
+        self.face_comms: list[dict] = []
         self.info = Info()
         self.np_ = self.ne_ = self.nt_ = self.na_ = 0
         self.nprism_ = self.nquad_ = 0
@@ -229,6 +239,139 @@ class ParMesh:
         self.info.set_dparameter(key, val)
 
     # -- run ---------------------------------------------------------------
+    # ------------------------------------------------------------------
+    # distributed-API communicators (libparmmg.h Set_ith*Communicator*)
+    # ------------------------------------------------------------------
+    def set_number_of_node_communicators(self, n: int) -> None:
+        self.n_node_comm = n
+        self.node_comms = [dict(color_out=-1, local=None, global_=None)
+                           for _ in range(n)]
+
+    def set_number_of_face_communicators(self, n: int) -> None:
+        self.n_face_comm = n
+        self.face_comms = [dict(color_out=-1, local=None, global_=None)
+                           for _ in range(n)]
+
+    def set_ith_node_communicator_size(self, i: int, color_out: int,
+                                       nitem: int) -> None:
+        c = self.node_comms[i]
+        c["color_out"] = color_out
+        c["local"] = np.zeros(nitem, np.int64)
+        c["global_"] = np.zeros(nitem, np.int64)
+
+    def set_ith_face_communicator_size(self, i: int, color_out: int,
+                                       nitem: int) -> None:
+        c = self.face_comms[i]
+        c["color_out"] = color_out
+        c["local"] = np.zeros(nitem, np.int64)
+        c["global_"] = np.zeros(nitem, np.int64)
+
+    def set_ith_node_communicator_nodes(self, i: int, local_ids, global_ids,
+                                        is_not_ordered: bool = True) -> None:
+        """Items must appear in the same order on both sides of a rank
+        pair; with ``is_not_ordered`` they are sorted by global id (the
+        ordering contract, reference API_functions_pmmg.c:1295-1330)."""
+        c = self.node_comms[i]
+        lo = np.asarray(local_ids, np.int64)
+        gl = np.asarray(global_ids, np.int64)
+        if is_not_ordered:
+            o = np.argsort(gl, kind="stable")
+            lo, gl = lo[o], gl[o]
+        c["local"], c["global_"] = lo, gl
+
+    def set_ith_face_communicator_faces(self, i: int, local_ids, global_ids,
+                                        is_not_ordered: bool = True) -> None:
+        c = self.face_comms[i]
+        lo = np.asarray(local_ids, np.int64)
+        gl = np.asarray(global_ids, np.int64)
+        if is_not_ordered:
+            o = np.argsort(gl, kind="stable")
+            lo, gl = lo[o], gl[o]
+        c["local"], c["global_"] = lo, gl
+
+    def get_number_of_node_communicators(self) -> int:
+        return self.n_node_comm
+
+    def get_number_of_face_communicators(self) -> int:
+        return self.n_face_comm
+
+    def get_ith_node_communicator_size(self, i: int):
+        c = self.node_comms[i]
+        return c["color_out"], len(c["local"])
+
+    def get_ith_face_communicator_size(self, i: int):
+        c = self.face_comms[i]
+        return c["color_out"], len(c["local"])
+
+    def get_ith_node_communicator_nodes(self, i: int):
+        return self.node_comms[i]["local"]
+
+    def get_ith_face_communicator_faces(self, i: int):
+        return self.face_comms[i]["local"]
+
+    def check_set_node_communicators(self) -> bool:
+        """Coordinate-based sanity check of the user comms
+        (PMMG_Check_Set_NodeCommunicators, chkcomm oracle flavor).
+        Single-process form: verify ids are in range and orderings are
+        self-consistent (pairwise exchange happens in parallel/comms)."""
+        for c in self.node_comms:
+            if c["local"] is None:
+                return False
+            if (np.asarray(c["local"]) < 1).any() or \
+                    (np.asarray(c["local"]) > self.np_).any():
+                return False
+        return True
+
+    def check_set_face_communicators(self) -> bool:
+        """Face-comm mirror of the check above
+        (PMMG_Check_Set_FaceCommunicators, libparmmg.h:2279-2346 flavor):
+        every item set, local triangle ids in range."""
+        for c in self.face_comms:
+            if c["local"] is None:
+                return False
+            lo = np.asarray(c["local"])
+            ntri = self.nt_ if self.tria is None \
+                else max(self.nt_, len(self.tria))
+            if (lo < 1).any() or (lo > ntri).any():
+                return False
+        return True
+
+    def get_node_communicator_owners(self):
+        """Owner rank of each node-comm item + its global id
+        (PMMG_Get_NodeCommunicator_owners semantics: owner = max rank
+        touching the entity, libparmmg.c:962-973).  Returns
+        (owners_per_comm, globals_per_comm, nunique, ntot)."""
+        owners, globs = [], []
+        ntot = 0
+        seen = set()
+        for c in self.node_comms:
+            n = 0 if c["local"] is None else len(c["local"])
+            own = np.full(n, max(self.myrank, int(c["color_out"])), np.int64)
+            owners.append(own)
+            g = (np.zeros(n, np.int64) if c["global_"] is None
+                 else np.asarray(c["global_"], np.int64))
+            globs.append(g)
+            ntot += n
+            seen.update(int(x) for x in g)
+        return owners, globs, len(seen), ntot
+
+    def get_face_communicator_owners(self):
+        """Face-comm mirror of the owners query.  Interface faces are
+        shared by exactly 2 ranks; owner = max of the pair."""
+        owners, globs = [], []
+        ntot = 0
+        seen = set()
+        for c in self.face_comms:
+            n = 0 if c["local"] is None else len(c["local"])
+            own = np.full(n, max(self.myrank, int(c["color_out"])), np.int64)
+            owners.append(own)
+            g = (np.zeros(n, np.int64) if c["global_"] is None
+                 else np.asarray(c["global_"], np.int64))
+            globs.append(g)
+            ntot += n
+            seen.update(int(x) for x in g)
+        return owners, globs, len(seen), ntot
+
     def _build_core_mesh(self):
         """Staged arrays -> analysed core Mesh + metric on the device."""
         from ..core.mesh import make_mesh, replace
@@ -584,6 +727,28 @@ class ParMesh:
                                  (utags & C.MG_GEO) != 0,
                                  (utags & C.MG_REQ) != 0)
         return self._out_edges_cache
+
+    def print_communicator(self, path: str) -> None:
+        """PMMG_printCommunicator (libparmmg.h:2554): dump the staged
+        node/face communicators to a text file for debugging."""
+        with open(path, "w") as f:
+            f.write(f"rank {self.myrank} / {self.nprocs}\n")
+            f.write(f"node communicators: {self.n_node_comm}\n")
+            for i, c in enumerate(self.node_comms):
+                n = 0 if c["local"] is None else len(c["local"])
+                f.write(f"  comm {i}: color_out {c['color_out']} "
+                        f"nitem {n}\n")
+                if n:
+                    for lo, gl in zip(c["local"], c["global_"]):
+                        f.write(f"    {int(lo)} {int(gl)}\n")
+            f.write(f"face communicators: {self.n_face_comm}\n")
+            for i, c in enumerate(self.face_comms):
+                n = 0 if c["local"] is None else len(c["local"])
+                f.write(f"  comm {i}: color_out {c['color_out']} "
+                        f"nitem {n}\n")
+                if n:
+                    for lo, gl in zip(c["local"], c["global_"]):
+                        f.write(f"    {int(lo)} {int(gl)}\n")
 
     @property
     def stats(self):

@@ -13,7 +13,9 @@ per vertex; the output ``.sol`` has the input's kind.  ``-field`` names a
 ``.sol`` file of solution fields, P1-interpolated onto the new mesh.  The
 output is ``.mesh``/``.meshb``, ``.vtu`` or ``.pvtu``; with
 ``-distributed-output`` it is written as the distributed file
-``name.0.mesh``.  ``-mesh-size N`` below the tet count remeshes in
+``name.0.mesh``, or with ``-ndev N`` as N rank files ``name.<r>.mesh``
+holding their vertex and face communicator sections.  ``-mesh-size N``
+below the tet count remeshes in
 groups of about N tets (``parallel/groups.py``) over ``-niter`` passes,
 displacing the group seams by ``-nlayers`` layers between passes; with
 ``PMTORCH_CKPT_DIR`` set, every pass is checkpointed there and
@@ -41,7 +43,7 @@ from .driver import NotYetPorted
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="parmmg_tpu_torch", prefix_chars="-",
-        description="PyTorch/CUDA tetrahedral remesher (single device)")
+        description="PyTorch/CUDA tetrahedral remesher")
     a = p.add_argument
     a("-in", dest="inp", metavar="file",
       help="input mesh (.mesh/.meshb/.vtu, or name.<rank>.mesh shards)")
@@ -68,7 +70,8 @@ def build_parser() -> argparse.ArgumentParser:
       help="allowed group imbalance (multi-device)")
     a("-nobalance", action="store_true",
       help="no load balancing (multi-device)")
-    a("-ndev", type=int, default=1, help="number of devices")
+    a("-ndev", type=int, default=1,
+      help="number of shards (distributed pass, all on the one device)")
     a("-device", default="cuda", choices=("cuda", "cpu"),
       help="torch device (default cuda)")
     a("-hmin", type=float, default=-1.0)
@@ -96,7 +99,8 @@ def build_parser() -> argparse.ArgumentParser:
     a("-rn", type=int, default=-1, help="(renumbering: accepted, unused)")
     a("-centralized-output", dest="cent_out", action="store_true")
     a("-distributed-output", dest="dist_out", action="store_true",
-      help="write the output as the distributed file name.0.mesh")
+      help="write the output as distributed files name.<rank>.mesh (one "
+           "a shard with -ndev)")
     a("-resume", action="store_true",
       help="resume a grouped (-mesh-size) run after the newest pass "
            "checkpoint of the same input in PMTORCH_CKPT_DIR (from scratch "
@@ -111,12 +115,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _not_yet(args) -> str | None:
-    if args.ndev > 1:
-        return "-ndev > 1 (multi-device runs)"
-    return None
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.val:
@@ -126,11 +124,6 @@ def main(argv=None) -> int:
         return 0
     if not args.inp:
         print("missing -in <mesh>", file=sys.stderr)
-        return 1
-    missing = _not_yet(args)
-    if missing:
-        print(f"{missing} is not yet ported to parmmg_tpu_torch",
-              file=sys.stderr)
         return 1
     from .io import medit
     from .io.distributed import load_distributed_mesh, probe_distributed
@@ -155,6 +148,9 @@ def main(argv=None) -> int:
             while probe_distributed(inp, len(parts)):
                 parts.append(load_distributed_mesh(inp, len(parts))[0])
             m = _concat_shards(parts)
+            # distributed input stays distributed: the run adopts the
+            # caller's decomposition when -ndev matches the shard count
+            pm._in_part = m.src_part
         else:
             print(f"cannot open {inp}", file=sys.stderr)
             return 1
@@ -348,6 +344,79 @@ def _concat_shards(parts):
     return m
 
 
+def _save_distributed_shards(pm, m, tri_tet, out, ndev):
+    """Distributed output of a ``-ndev`` run: the adapted mesh split into
+    ``ndev`` shards, written as ``name.<rank>.mesh`` files with
+    ParallelVertex/TriangleCommunicators sections (inout_pmmg.c:74-486
+    format), the reference's ``-distributed-output`` round trip.  The
+    partition is the run's own (``pm._out_part``, the source shard of
+    every output tet) when the polish kept the tet set, else a fresh
+    greedy partition.  ``tri_tet``: the output tet adjacent to each of
+    ``m.tria``; a boundary triangle goes to that tet's shard."""
+    from .core.constants import IDIR
+    from .io.distributed import ShardComm, shards_to_distributed_files
+    from .parallel.comms import build_interface_comms
+    from .parallel.partition import fix_contiguity, greedy_partition
+
+    tet0 = np.asarray(m.tetra, np.int64)
+    part = getattr(pm, "_out_part", None)
+    if part is None or len(part) != len(tet0) or part.max() >= ndev:
+        cent = m.vert[tet0].mean(axis=1)
+        part = fix_contiguity(tet0, greedy_partition(tet0, cent, ndev))
+    l2g = [np.unique(tet0[part == s]) for s in range(ndev)]
+    g2l = []
+    for s in range(ndev):
+        mp = np.full(len(m.vert), -1, np.int64)
+        mp[l2g[s]] = np.arange(len(l2g[s]))
+        g2l.append(mp)
+    comms = build_interface_comms(tet0, part, ndev, l2g, g2l)
+
+    tglob = np.asarray(m.tria, np.int64) if len(m.tria) else \
+        np.zeros((0, 3), np.int64)
+    tri_owner = part[np.asarray(tri_tet, np.int64)]
+
+    shards = []
+    for s in range(ndev):
+        sel = part == s
+        stet = g2l[s][tet0[sel]].astype(np.int32)
+        # the shard's triangles: its interface faces (in comm-table order,
+        # so communicator items reference them by position), then its
+        # share of the true boundary triangles
+        tris, trefs, face_comms, node_comms = [], [], [], []
+        for k in range(comms.nbr.shape[1]):
+            b = int(comms.nbr[s, k])
+            if b < 0:
+                continue
+            nf = int(comms.face_cnt[s, k])
+            fidx = comms.face_idx[s, k, :nf]         # 4*local_tet+face
+            lt, lf = fidx // 4, fidx % 4
+            fv = stet[lt][np.arange(nf)[:, None], np.asarray(IDIR)[lf]]
+            first = sum(len(t) for t in tris)
+            tris.append(fv)
+            trefs.append(np.zeros(nf, np.int32))
+            # global face id, the same on both sides: the sorted global
+            # vertex triple
+            gfv = np.sort(l2g[s][fv], axis=1)
+            gid = (gfv[:, 0] << 42) | (gfv[:, 1] << 21) | gfv[:, 2]
+            face_comms.append(ShardComm(
+                b, np.arange(first + 1, first + nf + 1), gid))
+            nn = int(comms.node_cnt[s, k])
+            nidx = comms.node_idx[s, k, :nn]
+            node_comms.append(ShardComm(b, nidx + 1, l2g[s][nidx] + 1))
+        if len(tglob):
+            mine = tri_owner == s
+            tris.append(g2l[s][tglob[mine]].astype(np.int32))
+            trefs.append(m.triaref[mine])
+        sh = {"vert": m.vert[l2g[s]], "vref": m.vref[l2g[s]],
+              "tet": stet, "tref": m.tref[sel], "face_comms": face_comms,
+              "node_comms": node_comms}
+        if tris:
+            sh["tria"] = np.concatenate(tris).astype(np.int32)
+            sh["triaref"] = np.concatenate(trefs)
+        shards.append(sh)
+    shards_to_distributed_files(out, shards)
+
+
 def _report(pm, dt, as_json, verbose):
     from .ops.quality import tet_quality
     q = tet_quality(pm._out, pm._out_met).cpu().numpy()
@@ -399,7 +468,11 @@ def _save_outputs(pm, args):
     ).astype(np.int32)
     if args.dist_out:
         from .io.distributed import save_distributed_mesh
-        save_distributed_mesh(out, 0, m)
+        if pm.info.n_devices > 1:
+            _save_distributed_shards(pm, m, pm._out_triangles()[3], out,
+                                     pm.info.n_devices)
+        else:
+            save_distributed_mesh(out, 0, m)
     else:
         write_mesh(out, m)
     met = pm.get_metric()

@@ -1,22 +1,29 @@
-"""The adaptation loop driver (port of ``driver.py``): the single-device
-paths.  Metric synthesis, a background copy of the mesh when the run
-carries user fields, then either ``niter`` calls of the whole-mesh
-adaptation operator or, when ``-mesh-size`` splits the mesh into two
-groups or more, the grouped outer loop (``parallel/groups.grouped_adapt``:
-group split, frozen-seam remesh, seam displacement, ``niter`` passes) and
-a polish of the merged mesh; then the run tail (sequential repair, FEM
-conformity, P1 interpolation of the user fields from the background,
-quality report).  A run starts a fresh trace context and takes the
-process verbosity from ``imprim``; its stages are timed under the JAX
-driver's names, its counters published to the metrics registry, and at
-``PMMG_VERB_STEPS`` the stage times and the shape ledger printed.  A run
-that cannot finish (a capacity overflow, the card's memory, a grouped
-dispatch whose retries ran out) restores the conforming input with status
-``PMMG_LOWFAILURE`` (ladder rung ``lowfailure``).  ``PMTORCH_CYCLE_BLOCK``,
+"""The adaptation loop driver (port of ``driver.py``).  Metric synthesis,
+a background copy of the mesh when the run carries user fields, then
+either ``niter`` calls of the whole-mesh adaptation operator or, when
+``-mesh-size`` splits the mesh into two groups or more, the grouped outer
+loop (``parallel/groups.grouped_adapt``: group split, frozen-seam remesh,
+seam displacement, ``niter`` passes) and a polish of the merged mesh, or,
+with ``-ndev N`` (``info.n_devices`` > 1), the distributed pass
+(``parallel/dist.distributed_adapt_multi``: N shards stacked on the
+device, communicators, frozen-interface adapt blocks, the cross-shard
+analysis refresh, one merge) and the same polish; then the run tail
+(sequential repair, FEM conformity, P1 interpolation of the user fields
+from the background, quality report).  A run starts a fresh trace
+context and takes the process verbosity from ``imprim``; its stages are
+timed under the JAX driver's names, its counters published to the
+metrics registry, and at ``PMMG_VERB_STEPS`` the stage times and the
+shape ledger printed.  A run that cannot finish (a capacity overflow,
+the card's memory, a grouped dispatch whose retries ran out) restores
+the conforming input with status ``PMMG_LOWFAILURE`` (ladder rung
+``lowfailure``).  ``PMTORCH_CYCLE_BLOCK``,
 ``PMTORCH_GROUP_CHUNK`` and ``PMTORCH_INCR_TOPO`` are read once here, as
 the defaults of ``adapt_mesh(cycle_block=)`` and
-``grouped_adapt_pass(chunk=, incr=)``.  Multi-device runs are not yet
-ported and raise."""
+``grouped_adapt_pass(chunk=, incr=)`` (``PMTORCH_CYCLE_BLOCK`` also sets
+the distributed pass's block).  A distributed run that would repartition
+between passes (``-niter`` > 1 without ``-nobalance``) is not yet ported
+and raises before any work; a shard capacity that keeps overflowing
+degrades it to the merged conforming state with ``PMMG_LOWFAILURE``."""
 from __future__ import annotations
 
 import time
@@ -130,9 +137,11 @@ def apply_local_params(mesh: Mesh, met, info):
 
 def _check_slice(pm) -> None:
     info = pm.info
-    if info.n_devices > 1:
-        raise NotYetPorted("multi-device runs (-ndev > 1) are not yet "
-                           "ported to parmmg_tpu_torch")
+    if info.n_devices > 1 and max(1, info.niter) > 1 and \
+            not info.nobalancing:
+        raise NotYetPorted(
+            "repartitioning between passes (-ndev > 1 at -niter > 1 "
+            "without -nobalance) is not yet ported to parmmg_tpu_torch")
 
 
 def _group_target(info, ne0: int):
@@ -186,6 +195,14 @@ def parmmg_run(pm) -> tuple:
             hausd = min(hausd, _hd)
     if not info.angle_detection:
         hausd = None
+    if info.n_devices > 1:
+        mesh, met = _distributed_run(pm, mesh, met, stats, info, hausd, tim,
+                                     adapt_kw)
+        _log(C.PMMG_VERB_STEPS,
+             f"  -- adaptation {time.perf_counter() - t0:.3f} s",
+             info.imprim)
+        return _finish_run(pm, mesh, met, stats, info, bg_mesh, bg_fields,
+                           tim)
     target = _group_target(info, int(mesh.tmask.sum()))
     if target is not None:
         mesh, met = _grouped_run(mesh, met, target, stats, info, hausd,
@@ -273,6 +290,65 @@ def _grouped_run(mesh, met, target: int, stats, info, hausd, tim,
             stats.nmoved += nm
             if nc == 0 and nw == 0:
                 break
+    return mesh, met
+
+
+def _distributed_run(pm, mesh, met, stats, info, hausd, tim, adapt_kw):
+    """The distributed branch: ``distributed_adapt_multi`` on
+    ``info.n_devices`` shards (the caller's decomposition adopted when a
+    distributed input matches the shard count), degrading to the merged
+    conforming state with status LOWFAILURE on a ShardOverflowError
+    (ladder rung ``lowfailure``); then 8 waves of ``sliver_polish`` on the
+    merged mesh.  Leaves the shard of every output tet in
+    ``pm._out_part`` (None once the polish changed the tet set).
+    Returns (mesh, met)."""
+    from .ops.adapt import sliver_polish
+    from .parallel.dist import ShardOverflowError, distributed_adapt_multi
+    from .resilience.recover import ladder_step
+    mode = "ifc" if info.repartitioning == C.REPART_IFC_DISPLACEMENT \
+        else "graph"
+    # distributed input stays distributed: adopt the caller's partition
+    # when it matches the shard count (libparmmg.c:206-329)
+    in_part = getattr(pm, "_in_part", None)
+    n_t0 = int(mesh.tmask.sum())
+    if in_part is not None and (
+            len(in_part) != n_t0
+            or int(in_part.max()) + 1 != info.n_devices):
+        in_part = None
+    try:
+        with tim("adaptation"):
+            mesh, met, part = distributed_adapt_multi(
+                mesh, met, info.n_devices, niter=max(1, info.niter),
+                verbose=3 if info.imprim >= C.PMMG_VERB_ITWAVES else 0,
+                stats=stats, noinsert=info.noinsert, noswap=info.noswap,
+                nomove=info.nomove, angedg=info.angedg(), hausd=hausd,
+                ifc_layers=info.ifc_layers, nobalancing=info.nobalancing,
+                part=in_part, mode=mode,
+                block=adapt_kw.get("cycle_block"))
+    except ShardOverflowError as e:
+        mesh, met, part = e.mesh, e.met, e.part
+        stats.status = C.PMMG_LOWFAILURE
+        ladder_step("lowfailure", site="shard.overflow")
+        otrace.log(C.PMMG_VERB_VERSION,
+                   "  ## Warning: shard capacity exhausted; saving the "
+                   "last conforming mesh (LOWFAILURE).",
+                   verbose=info.imprim, err=True)
+    if not (info.noinsert and info.noswap and info.nomove):
+        with tim("bad-element polish"):
+            for w in range(8):
+                mesh, counts = sliver_polish(
+                    mesh, met, 1000 + w, do_collapse=not info.noinsert,
+                    do_swap=not info.noswap, do_smooth=not info.nomove,
+                    hausd=hausd)
+                nc, nw, nm, _ = counts.tolist()
+                stats.ncollapse += nc
+                stats.nswap += nw
+                stats.nmoved += nm
+                if nc + nw > 0:
+                    part = None      # tet set changed: labels are stale
+                if nc == 0 and nw == 0:
+                    break
+    pm._out_part = part
     return mesh, met
 
 

@@ -18,9 +18,13 @@ color/size headers, inout_pmmg.c:74-186; grouping the triples per comm is
 the same information.)  This doubles as the framework's checkpoint/resume
 format, like the reference's ``-distributed-output`` round trip.
 :func:`stacked_to_distributed_files` writes slots of a stacked state
-straight to rank files, without a merge (the serve pool's tenant output);
-its communicator sections, and ``shards_to_distributed_files``, come with
-the multi-device path.
+straight to rank files, without a merge (the serve pool's tenant output;
+with the comm tables and the global numbering of a distributed run, each
+file's vertex communicators), :func:`shards_to_distributed_files` host
+shards with their communicators (the CLI's ``-ndev N
+-distributed-output``); :func:`interface_comms_of` turns a read-back
+file set's sections into the padded tables of ``parallel/comms.py``, for
+its echo checks.
 """
 from __future__ import annotations
 
@@ -148,24 +152,31 @@ def writer_tables(vmask: torch.Tensor, tmask: torch.Tensor,
 
 
 def stacked_to_distributed_files(path, stacked, n_shards: int,
-                                 shards=None) -> list[Path]:
+                                 shards=None, comms=None,
+                                 glo=None) -> list[Path]:
     """Write ``name.<rank>.mesh`` files directly from a stacked state
     (``core.mesh.MeshStack``), with no ``merge_shards`` (the reference's
     ``-distributed-output`` never centralizes either, inout_pmmg.c:387).
 
     ``shards`` selects a subset of slots, re-ranked densely (slot
     ``shards[i]`` -> ``name.<i>.mesh``): the serve pool writes one
-    tenant's slot this way.  No communicator sections are written; the
-    JAX package's ``comms`` / ``glo`` arguments (the multi-device shards'
-    vertex communicators) wait for the port's distributed path."""
-    _, tet_l, _, _ = writer_tables(stacked.vmask, stacked.tmask,
-                                   stacked.tet)
+    tenant's slot this way.  With ``comms`` (a distributed run's
+    ``InterfaceComms``) and ``glo`` (its global vertex numbering, one
+    array a shard) each file gets its vertex communicators: local ids
+    renumbered into the file's compacted numbering, globals from ``glo``
+    (1-based); a neighbor outside the written subset is an error, since
+    the file set could never resolve it.  Without ``comms`` no
+    communicator section is written."""
+    new_id, tet_l, _, _ = writer_tables(stacked.vmask, stacked.tmask,
+                                        stacked.tet)
+    new_id = new_id.cpu().numpy()
     tet_l = tet_l.cpu().numpy()
     vert, vref, tref, vmask, tmask = (
         getattr(stacked, f).cpu().numpy()
         for f in ("vert", "vref", "tref", "vmask", "tmask"))
     ranks = list(range(n_shards)) if shards is None \
         else [int(s) for s in shards]
+    rankmap = {r: i for i, r in enumerate(ranks)}
     outs = []
     for i, r in enumerate(ranks):
         m = MeditMesh()
@@ -173,5 +184,81 @@ def stacked_to_distributed_files(path, stacked, n_shards: int,
         m.vref = vref[r][vmask[r]]
         m.tetra = tet_l[r][tmask[r]].astype(np.int32)
         m.tref = tref[r][tmask[r]]
-        outs.append(save_distributed_mesh(path, i, m, None, []))
+        node_comms = []
+        for k in range(comms.nbr.shape[1] if comms is not None else 0):
+            b = int(comms.nbr[r, k])
+            if b < 0:
+                continue
+            if b not in rankmap:
+                raise ValueError(
+                    f"shard {r} has a communicator to slot {b} outside "
+                    f"the written subset {ranks}: the subset must be "
+                    "closed under its communicators")
+            cnt = int(comms.node_cnt[r, k])
+            rows = comms.node_idx[r, k, :cnt]
+            node_comms.append(ShardComm(
+                rankmap[b], new_id[r][rows].astype(np.int64) + 1,
+                np.asarray(glo[r])[rows].astype(np.int64) + 1))
+        outs.append(save_distributed_mesh(path, i, m, None, node_comms))
     return outs
+
+
+def shards_to_distributed_files(path, shards_host: list[dict]) -> list[Path]:
+    """Write one rank file a shard: ``shards_host`` holds dicts with keys
+    vert, tet (0-based) and optionally vref, tref, tria / triaref and
+    'face_comms' / 'node_comms' (``ShardComm`` lists)."""
+    outs = []
+    for r, sh in enumerate(shards_host):
+        m = MeditMesh()
+        m.vert = np.asarray(sh["vert"], np.float64)
+        m.vref = np.asarray(sh.get("vref",
+                                   np.zeros(len(m.vert), np.int32)))
+        m.tetra = np.asarray(sh["tet"], np.int32)
+        m.tref = np.asarray(sh.get("tref",
+                                   np.zeros(len(m.tetra), np.int32)))
+        if "tria" in sh:
+            m.tria = np.asarray(sh["tria"], np.int32)
+            m.triaref = np.asarray(sh.get("triaref",
+                                          np.zeros(len(m.tria), np.int32)))
+        outs.append(save_distributed_mesh(
+            path, r, m, sh.get("face_comms"), sh.get("node_comms")))
+    return outs
+
+
+def interface_comms_of(parts):
+    """The ``parallel.comms.InterfaceComms`` of a distributed file set:
+    ``parts`` is one ``(MeditMesh, face_comms, node_comms)`` a rank, as
+    :func:`load_distributed_mesh` returns them.  Node items become vertex
+    rows, face items (triangle ids of the rank's ``tria``) the tet-face
+    slots 4*t+f of the tet holding that triangle; the owner of a vertex is
+    the largest rank that shares it.  ``check_node_comms`` /
+    ``check_face_comms`` on the result echo the files' communicators."""
+    from ..core.constants import IDIR
+    from ..parallel.comms import pad_comm_tables
+    S = len(parts)
+    node_lists = [[[] for _ in range(S)] for _ in range(S)]
+    face_lists = [[[] for _ in range(S)] for _ in range(S)]
+    owner = []
+    for s, (m, fcs, ncs) in enumerate(parts):
+        own = np.full(len(m.vert), s, np.int32)
+        for c in ncs:
+            rows = np.asarray(c.local, np.int64) - 1
+            node_lists[s][c.color_out] = rows.tolist()
+            own[rows] = np.maximum(own[rows], c.color_out)
+        owner.append(own)
+        if not fcs:
+            continue
+        tet = np.asarray(m.tetra, np.int64)
+        fk = np.sort(tet[:, IDIR].reshape(-1, 3), axis=1)
+        key = (fk[:, 0] << 42) | (fk[:, 1] << 21) | fk[:, 2]
+        order = np.argsort(key, kind="stable")
+        for c in fcs:
+            tri = np.sort(np.asarray(m.tria, np.int64)[
+                np.asarray(c.local, np.int64) - 1], axis=1)
+            tk = (tri[:, 0] << 42) | (tri[:, 1] << 21) | tri[:, 2]
+            pos = np.clip(np.searchsorted(key[order], tk), 0, len(key) - 1)
+            if not np.array_equal(key[order][pos], tk):
+                raise ValueError(f"rank {s}: a communicator triangle is no "
+                                 "face of the rank's tets")
+            face_lists[s][c.color_out] = order[pos].tolist()
+    return pad_comm_tables(node_lists, face_lists, owner, S)

@@ -103,7 +103,7 @@ def adapt_cycle_impl(mesh: Mesh, met: torch.Tensor, wave: int,
                      final_rebuild: bool = True, prescreen: bool = True,
                      active: bool | None = None,
                      smooth_idle: bool | None = None, topo=None,
-                     incr: bool = False):
+                     incr: bool = False, smooth_waves: int = 1):
     """One cycle: split -> collapse -> [swap] -> [smooth] -> [adjacency].
 
     ``vact`` [capP] bool: the narrow cycle's active vertices (candidates
@@ -112,7 +112,9 @@ def adapt_cycle_impl(mesh: Mesh, met: torch.Tensor, wave: int,
     MG_BDY; ``wwin`` [capP] bool: the morton window that limits
     collapses, swaps and smoothing (``ops/active.py``).
     ``final_rebuild=False`` skips the closing ``build_adjacency`` (a
-    fused block rebuilds once at its end).  ``prescreen=False`` (or
+    fused block rebuilds once at its end).  ``smooth_waves`` smoothing
+    waves run a cycle, wave ``w`` at index ``wave * smooth_waves + w``
+    (the distributed block runs 2).  ``prescreen=False`` (or
     ``wide``) turns off the split's approximate nomination prescreen.
 
     The grouped path's hooks (``parallel/groups.py``), host branches
@@ -201,9 +203,11 @@ def adapt_cycle_impl(mesh: Mesh, met: torch.Tensor, wave: int,
         if smooth_idle and sv is None:
             skip = int(nsplit + ncol + nswap) == 0
         if not skip:
-            sm = smooth_wave(mesh, met, wave=wave, vact=sv)
-            mesh = sm.mesh
-            nmoved = sm.nmoved
+            for w in range(smooth_waves):
+                sm = smooth_wave(mesh, met, wave=wave * smooth_waves + w,
+                                 vact=sv)
+                mesh = sm.mesh
+                nmoved = nmoved + sm.nmoved
 
     if final_rebuild:
         if topo is not None:

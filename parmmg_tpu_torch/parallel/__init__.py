@@ -1,1 +1,1 @@
-"""Group decomposition of one device's mesh (port of ``parallel/``)."""
+"""Group decomposition and the distributed pass (port of ``parallel/``)."""

@@ -1,0 +1,626 @@
+"""Distributed adaptation on a shard stack (port of ``parallel/dist.py``
+without the repartitioning between passes).
+
+ParMmg runs one MPI rank per subdomain with frozen interfaces, Sendrecv
+exchanges and ``MPI_Allreduce`` phase agreement (libparmmg1.c:812-912);
+the JAX package runs one shard a device under ``shard_map``, or ``G``
+logical shards a device serialised by ``lax.map``, with the agreement as
+a ``psum`` / ``pmax`` over the shard axis.  The port keeps every logical
+shard of ``-ndev N`` on the entry point's device as one
+:class:`~parmmg_tpu_torch.core.mesh.MeshStack` (G = N on one card), runs
+the block's cycles shard after shard, and turns each collective into an
+operation on the stack's leading axis: the ``psum`` / ``pmax`` of the
+block counters a sum / max over the shards' counts (one host read a
+block), the ``all_to_all`` of the halo exchange a gather of the
+neighbour's send row (``comms.py``).
+
+During shard-local adaptation the interfaces are frozen (MG_PARBDY tags
+set by ``distribute.split_to_shards``), so no exchange is needed inside
+the cycles.  A pass: split along a metric-weighted partition, build the
+communicators and check them by a coordinate + metric echo, the adapt
+cycles in blocks (:func:`run_adapt_cycles`: the swap cadence, the quiet
+levels a shard, the slot-stable regrow), the global numbering extended
+for the new vertices, the cross-shard analysis refresh on the device
+(``analysis_dev.py``; the host ``analysis_par`` path on a budget
+overflow), then one merge.  ``-nobalance`` runs ``niter`` such passes on
+the resident shards with no repartitioning between them.
+
+The repartitioning between passes (flood labels, band migration, welds,
+the group handoff), the pass checkpoints of the distributed loop and
+placing the shards on several cards come with later slices: a run that
+needs the first raises ``NotYetPorted``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from ..core.mesh import MeshStack
+from ..obs import trace as otrace
+from ..utils.compilecache import bucket, governed
+
+MAX_SHARD_REGROWS = 6
+
+# sched.py's quiet ladder: a shard at or above a block's skip level sits
+# the block out (LEVEL_PRE = 1 proven under a prescreened block,
+# LEVEL_FULL = 2 once a cycle ran with the prescreen off)
+_LEVEL_PRE, _LEVEL_FULL = 1, 2
+
+
+class ShardOverflowError(RuntimeError):
+    """Shard capacity exhausted after MAX_SHARD_REGROWS doublings.
+
+    Carries the last CONFORMING merged state so the caller can degrade
+    to PMMG_LOWFAILURE and still save a valid mesh — the reference's
+    failed_handling contract (libparmmg1.c:974-1011)."""
+
+    def __init__(self, mesh, met, part):
+        super().__init__("shard capacity overflow")
+        self.mesh = mesh
+        self.met = met
+        self.part = part
+
+
+def dist_adapt_block(swap_flags: tuple, do_smooth: bool = True,
+                     do_insert: bool = True, hausd: float | None = None,
+                     pre_flags: tuple | None = None,
+                     swap_inclusive: bool | None = None):
+    """The fused cycle block of the distributed pass: ``len(swap_flags)``
+    adapt cycles on every shard of the stack, shard after shard (the JAX
+    package's ``lax.map`` over the logical shards of a device; its ``G``
+    layout argument has no role on one device), each
+    cycle ``adapt_cycle_impl`` with two smoothing waves, wave index
+    ``wave0 + c``, the closing adjacency only on the block's last cycle.
+
+    Returns fn(stacked, met_s, wave0, quiet_lvl [L] int8 numpy) ->
+      (stacked, met_s, counts [n][4] (summed over the shards),
+       active [n] (shards posting split+collapse+swap > 0 a cycle),
+       overflow (max over the shards), quiet_lvl').
+
+    The quiet levels: a shard whose level is at or above this block's
+    skip level (1 under an all-prescreened block, 2 once a prescreen-off
+    cycle ran) sits the block out — its cycles return their input with
+    zero counts — and a swap-inclusive block (``any(flags) or noswap``
+    from a ``-noswap`` caller) posting zero split + collapse + swap +
+    move + overflow for a shard raises its level to the skip level (the
+    frozen-seam + deterministic-wave fixed-point argument of
+    ``sched.py``).  The counters of every shard come off the device in
+    one read a block; the levels are derived from them on the host."""
+    from ..ops.adapt import adapt_cycle_impl
+    from ..resilience.watchdog import progress
+    if pre_flags is None:
+        pre_flags = (True,) * len(swap_flags)
+    if swap_inclusive is None:
+        swap_inclusive = any(swap_flags)
+    skip_lvl = _LEVEL_PRE if all(pre_flags) else _LEVEL_FULL
+    nblk = len(swap_flags)
+
+    @governed("dist.adapt_block")
+    def run(stacked: MeshStack, met_s, wave0: int, lvl):
+        act_in = np.asarray(lvl) < skip_lvl
+        meshes, mets, rows = [], [], []
+        for g in range(stacked.ngroups):
+            m, k = stacked.slot(g), met_s[g]
+            cs = []
+            for c, dosw in enumerate(swap_flags):
+                with otrace.scope(f"dist_cycle{c}"):
+                    m, k, cnt = adapt_cycle_impl(
+                        m, k, wave0 + c, do_swap=dosw, do_smooth=do_smooth,
+                        do_insert=do_insert, smooth_waves=2, hausd=hausd,
+                        final_rebuild=(c == nblk - 1),
+                        prescreen=pre_flags[c], active=bool(act_in[g]))
+                progress()
+                cs.append(cnt)
+            meshes.append(m)
+            mets.append(k)
+            rows.append(torch.stack(cs))
+        # the one host read of the block: every shard's counters
+        cs_g = np.asarray(torch.stack(rows).tolist(), np.int64)  # [L,n,8]
+        lvl = np.asarray(lvl, np.int8).copy()
+        if swap_inclusive:
+            blk_zero = cs_g[:, :, :5].reshape(len(cs_g), -1).sum(1) == 0
+            lvl = np.maximum(lvl, np.where(blk_zero, skip_lvl, 0)
+                             ).astype(np.int8)
+        ovf = int(cs_g[:, :, 4].max())
+        counts = cs_g[:, :, :4].sum(axis=0).tolist()          # [n][4]
+        nact = ((cs_g[:, :, :3].sum(axis=2) > 0).sum(axis=0)).tolist()
+        return (MeshStack.stack(meshes), torch.stack(mets), counts, nact,
+                ovf, lvl)
+
+    return run
+
+
+class DistSteps:
+    """Per-driver-invocation cache of the block programs keyed by the
+    (swap, prescreen, swap-inclusive) flag tuples."""
+
+    def __init__(self, do_smooth: bool = True, do_insert: bool = True,
+                 hausd: float | None = None):
+        self.kw = dict(do_smooth=do_smooth, do_insert=do_insert,
+                       hausd=hausd)
+        self._cache: dict = {}
+
+    def get(self, flags: tuple, pre_flags: tuple | None = None,
+            swap_inclusive: bool | None = None):
+        flags = tuple(bool(f) for f in flags)
+        if pre_flags is None:
+            pre_flags = (True,) * len(flags)
+        pre_flags = tuple(bool(f) for f in pre_flags)
+        if swap_inclusive is None:
+            swap_inclusive = any(flags)
+        key = (flags, pre_flags, bool(swap_inclusive))
+        if key not in self._cache:
+            self._cache[key] = dist_adapt_block(
+                flags, pre_flags=pre_flags, swap_inclusive=swap_inclusive,
+                **self.kw)
+        return self._cache[key]
+
+
+def dist_interface_check():
+    """The interface echo (PMMG_check_extNodeComm): every shard sends its
+    interface vertices' coordinates + metric through the halo exchange
+    and compares them with its own copy; the mismatch count over every
+    shard must be zero.
+
+    Returns fn(stacked, met_s, node_idx [L,K,I], nbr [L,K], tol) ->
+    mismatch count (0-d tensor)."""
+    from .comms import halo_exchange
+
+    def fn(stacked, met_s, node_idx, nbr, tol):
+        met_g = met_s[..., None] if met_s.dim() == 2 else met_s
+        vals = torch.cat([stacked.vert, met_g.to(stacked.vert.dtype)],
+                         dim=-1)                          # [L, capP, 3+m]
+        recv = halo_exchange(vals, node_idx, nbr)
+        L = vals.shape[0]
+        capP = stacked.capP
+        lix = torch.arange(L, device=vals.device).view(L, 1, 1).expand_as(
+            node_idx)
+        mine = vals[lix, node_idx.clamp(0, capP - 1).long()]
+        valid = (node_idx >= 0)[..., None]
+        bad = valid & ((recv - torch.where(valid, mine, 0.0)).abs() > tol)
+        return bad.sum(dtype=torch.int32)
+    return fn
+
+
+def _on(device, a):
+    return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+
+def check_interface_echo(stacked, met_s, comms, vert_h):
+    """The interface coordinate + metric echo of the comm tables (the
+    chkcomm guard, chkcomm_pmmg.c:815 role) at tolerance 1e-6 x the input
+    bounding-box diagonal; raises on an ordering-contract violation.
+    Returns the mismatch count (0)."""
+    chk = governed("dist.interface_check", budget=2)(dist_interface_check())
+    diag = float(np.linalg.norm(vert_h.max(0) - vert_h.min(0))) \
+        if len(vert_h) else 1.0
+    dev = stacked.device
+    nbad = int(chk(stacked, met_s, _on(dev, comms.node_idx),
+                   _on(dev, comms.nbr),
+                   torch.tensor(1e-6 * diag, dtype=stacked.vert.dtype,
+                                device=dev)))
+    if nbad:
+        raise RuntimeError(
+            f"interface comm echo mismatch: {nbad} items "
+            "(ordering contract violated)")
+    return nbad
+
+
+def refresh_shard_analysis_device(stacked, comms, n_shards: int,
+                                  angedg: float, glo,
+                                  cache: dict | None = None):
+    """The device analysis refresh (``analysis_dev.py``), keyed by the
+    persistent global numbering ``glo``.
+
+    Returns the updated stacked mesh, or None when the shared-record
+    budget overflowed, the int32 id range is exhausted or the
+    ``analysis.ks_overflow`` fault fires (the caller then takes the host
+    path) — never a silent truncation.  Any error raised inside the
+    program (a kernel's, CUDA's) propagates."""
+    from ..resilience.faults import fault_trigger
+    if fault_trigger("analysis.ks_overflow"):
+        return None
+    from .analysis_dev import dist_analysis
+    glo_np = np.stack([np.asarray(g) for g in glo])
+    if glo_np.max() >= np.iinfo(np.int32).max:
+        return None                      # int32 id budget exhausted
+    capT = stacked.capT
+    # bucketed shared-record budget (the JAX package's compile governor
+    # keys; the same budget here gives the same overflow decisions)
+    KS = bucket(max(1024, 4 * comms.node_idx[0].size), floor=1024,
+                cap=12 * capT, scheme="pow2")
+    key = (angedg, KS)
+    fn = cache.get(key) if cache is not None else None
+    if fn is None:
+        fn = governed("dist.analysis", budget=2)(dist_analysis(angedg, KS))
+        if cache is not None:
+            cache[key] = fn
+    dev = stacked.device
+    vt, et, ovf = fn(stacked, _on(dev, glo_np.astype(np.int32)),
+                     _on(dev, comms.node_idx), _on(dev, comms.nbr))
+    if bool(ovf):
+        return None
+    return dataclasses.replace(stacked, vtag=vt, etag=et)
+
+
+def refresh_shard_analysis(stacked, comms, n_shards: int, angedg: float,
+                           glo=None, views=None):
+    """The host analysis refresh (the PMMG_update_analys analogue,
+    analys_pmmg.c:1571): ridge / corner / reference classification
+    recomputed with cross-interface dihedrals by
+    ``analysis_par.analyze_shards`` on host copies of the shards, then
+    written back into the stacked shard tags.  The fallback of the device
+    refresh.  Interface slots are stable under adaptation (frozen
+    entities are never collapsed and slots are not compacted in-cycle),
+    so the split-time comm tables remain valid."""
+    from ..core.constants import IARE, MG_BDY, MG_PARBDY
+    from .analysis_dev import CLS
+    from .analysis_par import analyze_shards, extend_numbering
+    from .migrate import pull_views
+
+    if views is None:
+        views = pull_views(stacked, stacked.vert.new_zeros(
+            stacked.vert.shape[:2]))
+    capP = stacked.capP
+    u32 = np.uint32
+    verts, tets, ftags, frefs, tms = [], [], [], [], []
+    for s in range(n_shards):
+        tm = views.tmask[s]
+        verts.append(views.vert[s])
+        tets.append(views.tet[s][tm].astype(np.int64))
+        ftags.append(views.ftag[s][tm].view(u32))
+        frefs.append(views.fref[s][tm])
+        tms.append(tm)
+    if glo is None:
+        glo = extend_numbering(comms, [capP] * n_shards)
+    vtag_add, special_edges, _ = analyze_shards(
+        verts, tets, ftags, frefs, comms, angedg, glo=glo)
+    cls = u32(CLS)
+    new_vtag, new_etag = [], []
+    for s in range(n_shards):
+        vt = views.vtag[s].view(u32).copy()
+        add = vtag_add[s].astype(u32)
+        # re-derive the classification bits; never drop freeze/user bits
+        vt = (vt & ~cls) | (add & cls) | (add & u32(MG_BDY))
+        new_vtag.append(vt)
+        et = views.etag[s].view(u32).copy()
+        tm = tms[s]
+        tth = views.tet[s].astype(np.int64)
+        evl = np.sort(tth[:, IARE], axis=2)[tm]            # [nt,6,2]
+        live_rows = np.where(tm)[0]
+        plain_bdy = ((et[tm] & MG_BDY) != 0) & ((et[tm] & MG_PARBDY) == 0)
+        cleared = et[tm] & ~np.where(plain_bdy, cls, u32(0))
+        rows = special_edges[s]
+        if len(rows):
+            ka = np.minimum(rows[:, 0], rows[:, 1]).astype(np.int64)
+            kb = np.maximum(rows[:, 0], rows[:, 1]).astype(np.int64)
+            skey = ka * capP + kb
+            o = np.argsort(skey, kind="stable")
+            sk, sb = skey[o], rows[:, 2][o].astype(u32)
+            heads = np.concatenate([[True], sk[1:] != sk[:-1]])
+            uk = sk[heads]
+            ub = np.bitwise_or.reduceat(sb, np.where(heads)[0])
+            ekey = evl[..., 0] * capP + evl[..., 1]        # [nt,6]
+            loc = np.clip(np.searchsorted(uk, ekey), 0, len(uk) - 1)
+            hit = uk[loc] == ekey
+            cleared |= np.where(hit, ub[loc], 0).astype(u32)
+        et[live_rows] = cleared
+        new_etag.append(et)
+    for s in range(n_shards):
+        views.vtag[s] = new_vtag[s].view(np.int32)
+        views.etag[s] = new_etag[s].view(np.int32)
+    dev = stacked.device
+    return dataclasses.replace(
+        stacked, vtag=_on(dev, np.stack(new_vtag).view(np.int32)),
+        etag=_on(dev, np.stack(new_etag).view(np.int32)))
+
+
+def dist_quality():
+    """The global quality histogram across shards (PMMG_qualhisto,
+    quality_pmmg.c:156 — the custom MPI_Op reduction becomes a sum / min
+    over the stack).  Returns fn(stacked, met_s) -> (counts [5], qmin,
+    qmean, nbad, ntot)."""
+    from ..ops.quality import quality_histogram, tet_quality
+
+    @governed("dist.quality", budget=2)
+    def fn(stacked, met_s):
+        counts, qmins, qsum, nbad, ntot = [], [], 0.0, 0, 0
+        for g in range(stacked.ngroups):
+            m = stacked.slot(g)
+            q = tet_quality(m, met_s[g])
+            c, qmin, qmean, nb = quality_histogram(q, m.tmask)
+            n = m.tmask.sum(dtype=torch.int32)
+            counts.append(c)
+            qmins.append(qmin)
+            qsum = qsum + qmean * n
+            nbad = nbad + nb
+            ntot = ntot + n
+        return (torch.stack(counts).sum(0), torch.stack(qmins).min(),
+                qsum / torch.clamp(ntot, min=1), nbad, ntot)
+    return fn
+
+
+def run_adapt_cycles(stacked, met_s, steps: DistSteps, cycles, stats=None,
+                     verbose=0, on_grow=None, regrow_state=None,
+                     label="dist", noswap=False, block=None):
+    """The cycle loop of a pass: swaps every 3rd cycle and on the final
+    two (which also run with the split's prescreen off), the blocks'
+    summed counters into ``stats``, the quiet levels a shard carried
+    from block to block, and the in-place overflow regrow
+    (zaldy_pmmg.c:140-254 analogue — slot ids preserved so the comm
+    tables stay valid).  Past MAX_SHARD_REGROWS doublings it raises a
+    ShardOverflowError carrying the merged conforming state
+    (failed_handling, libparmmg1.c:974-1011).  A swap-inclusive (or
+    noswap) cycle on which no shard posted a topological op ends the
+    pass.
+
+    Cycles run in blocks of ``block`` (default
+    ``ops.adapt.default_cycle_block``: 9 on the card, 1 on the CPU).
+    ``on_grow(old_capP)`` grows the caller's side tables (the global
+    numbering) in lockstep; ``regrow_state`` is a 1-element list carried
+    across passes so they share the regrow budget."""
+    from ..ops.adapt import default_cycle_block
+    from .distribute import grow_shards, merge_shards
+    if regrow_state is None:
+        regrow_state = [0]
+    if block is None:
+        block = default_cycle_block(stacked.device)
+    n_logical = stacked.ngroups
+    lvl = np.zeros(n_logical, np.int8)
+    c = 0
+    while c < cycles:
+        nblk = min(block, cycles - c)
+        flags = tuple((cc % 3 == 2 or cc >= cycles - 2) and not noswap
+                      for cc in range(c, c + nblk))
+        pres = tuple(cc < cycles - 2 for cc in range(c, c + nblk))
+        step = steps.get(flags, pres, swap_inclusive=any(flags) or noswap)
+        stacked, met_s, ca, na, ovf, lvl = step(stacked, met_s, c, lvl)
+        for i in range(nblk):
+            cs = ca[i]
+            if stats is not None:
+                stats.nsplit += cs[0]
+                stats.ncollapse += cs[1]
+                stats.nswap += cs[2]
+                stats.nmoved += cs[3]
+                stats.cycles += 1
+                stats.sched_extra.setdefault(
+                    "active_shards_per_cycle", []).append(na[i])
+            otrace.log(3, f"  {label} cycle {c + i}: split {cs[0]} "
+                          f"collapse {cs[1]} swap {cs[2]} move {cs[3]} "
+                          f"active {na[i]}/{n_logical} grp",
+                       verbose=verbose)
+        if ovf:
+            if regrow_state[0] >= MAX_SHARD_REGROWS:
+                m_, k_, p_ = merge_shards(stacked, met_s, return_part=True)
+                raise ShardOverflowError(m_, k_, p_)
+            capP, capT = stacked.capP, stacked.capT
+            stacked, met_s = grow_shards(stacked, met_s, 2 * capP, 2 * capT)
+            if on_grow is not None:
+                on_grow(capP)
+            regrow_state[0] += 1
+            # every quiet proof is stale at the new capacity
+            lvl = np.zeros(n_logical, np.int8)
+            continue        # re-run the block: truncated winners rerun
+        c += nblk
+        if any((flags[i] or noswap) and na[i] == 0 for i in range(nblk)):
+            break
+    return stacked, met_s
+
+
+def _partition(mesh, met, n_shards: int, partitioner: str, vert_h, tet_h):
+    """The metric-weighted, boundary-refined partition of the input."""
+    from .partition import (fix_contiguity, greedy_partition,
+                            metric_edge_weights, morton_partition,
+                            refine_partition)
+    cent = vert_h[tet_h].mean(axis=1)
+    if partitioner == "morton":
+        part = morton_partition(cent, n_shards)
+    else:
+        part = greedy_partition(tet_h, cent, n_shards)
+    part = fix_contiguity(tet_h, part)
+    # metric-aware cut refinement (PMMG_computeWgt role, metis_pmmg.c:280)
+    methost = met.cpu().numpy()[mesh.vmask.cpu().numpy()]
+    wd = metric_edge_weights(tet_h, vert_h, methost)
+    return fix_contiguity(tet_h, refine_partition(
+        part, n_shards, wd["pairs"], wd["w"]))
+
+
+def _split_with_comms(mesh, met, part, n_shards: int, nvert: int, tet_h):
+    """Split along ``part`` and build the communicators: (stacked,
+    met_s, l2g, comms)."""
+    from .comms import build_interface_comms
+    from .distribute import split_to_shards
+    stacked, met_s, l2g = split_to_shards(mesh, met, part, n_shards,
+                                          cap_mult=3.0, return_l2g=True)
+    g2l = []
+    for s_ in range(n_shards):
+        mmap = np.full(nvert, -1, np.int64)
+        mmap[l2g[s_]] = np.arange(len(l2g[s_]))
+        g2l.append(mmap)
+    comms = build_interface_comms(tet_h, part, n_shards, l2g, g2l)
+    return stacked, met_s, l2g, comms
+
+
+def _refresh(stacked, comms, n_shards: int, ang: float, glo, cache=None):
+    """The device refresh, or the host path (ladder rung
+    ``host_analysis``) when it reports an overflow."""
+    st2 = refresh_shard_analysis_device(stacked, comms, n_shards, ang, glo,
+                                        cache=cache)
+    if st2 is not None:
+        return st2
+    from ..resilience.recover import ladder_step
+    ladder_step("host_analysis", site="analysis.ks_overflow")
+    return refresh_shard_analysis(stacked, comms, n_shards, ang, glo=glo)
+
+
+def distributed_adapt(mesh, met, n_shards: int, cycles: int = 10,
+                      partitioner: str = "morton", verbose: int = 0,
+                      part: np.ndarray | None = None, stats=None,
+                      noinsert: bool = False, noswap: bool = False,
+                      nomove: bool = False, angedg: float | None = None,
+                      hausd: float | None = None,
+                      block: int | None = None):
+    """One outer remesh pass on ``n_shards`` shards: partition (or the
+    caller's ``part``) -> freeze interfaces -> interface echo -> adapt
+    cycles -> analysis refresh (numbering from the split-time comm
+    tables) -> merge.  Returns (merged mesh, met, part_of_merged): the
+    source shard of every merged tet."""
+    from ..core.constants import ANGEDG
+    from ..core.mesh import mesh_to_host
+    from .analysis_par import extend_numbering
+    from .distribute import merge_shards
+    vert_h, tet_h, _, _, _ = mesh_to_host(mesh)
+    if part is None:
+        part = _partition(mesh, met, n_shards, partitioner, vert_h, tet_h)
+    stacked, met_s, _, comms = _split_with_comms(mesh, met, part, n_shards,
+                                                 len(vert_h), tet_h)
+    check_interface_echo(stacked, met_s, comms, vert_h)
+    steps = DistSteps(do_smooth=not nomove, do_insert=not noinsert,
+                      hausd=hausd)
+    stacked, met_s = run_adapt_cycles(stacked, met_s, steps, cycles,
+                                      stats=stats, verbose=verbose,
+                                      noswap=noswap, block=block)
+    ang = ANGEDG if angedg is None else angedg
+    glo = extend_numbering(comms, [stacked.capP] * n_shards)
+    stacked = _refresh(stacked, comms, n_shards, ang, glo)
+    return merge_shards(stacked, met_s, return_part=True)
+
+
+@otrace.profile_guard(clear_pass=True)
+def distributed_adapt_multi(mesh, met, n_shards: int, niter: int = 3,
+                            cycles: int = 10, partitioner: str = "morton",
+                            verbose: int = 0, stats=None,
+                            noinsert: bool = False, noswap: bool = False,
+                            nomove: bool = False,
+                            angedg: float | None = None,
+                            hausd: float | None = None,
+                            ifc_layers: int = 2, nobalancing: bool = False,
+                            part: np.ndarray | None = None,
+                            mode: str = "ifc", n_devices: int | None = None,
+                            block: int | None = None):
+    """Shard-resident multi-pass adaptation (host driver): ONE split,
+    then a pass per iteration
+
+        adapt cycles (device) -> numbering extended (device, band-sized
+        tables to the host mirror) -> analysis refresh (device)
+
+    and ONE merge at the end.  Returns (merged mesh, met, part_of_merged).
+
+    Every logical shard lives on the mesh's device (``n_devices`` None or
+    1).  ``niter`` > 1 without ``nobalancing`` repartitions between
+    passes (``mode`` "ifc" or "graph", ``ifc_layers``), which is not yet
+    ported: it raises ``NotYetPorted`` before any work.  ``block`` sets
+    the cycles a block (default: the device's)."""
+    from ..core.constants import ANGEDG
+    from ..core.mesh import mesh_to_host
+    from ..driver import NotYetPorted
+    from .distribute import merge_shards
+    from .migrate import (apply_fresh_ids, extend_global_ids_from_vmask,
+                          kill_glo_rows)
+    from .migrate_dev import dead_glo_rows, extend_ids_device, \
+        session_ids_fit
+    from .pod import gather_band
+
+    if n_devices not in (None, 1):
+        raise NotYetPorted(
+            f"placing the shards of a distributed run on {n_devices} "
+            "cards (every logical shard runs on one card)")
+    if max(1, niter) > 1 and not nobalancing:
+        raise NotYetPorted(
+            "repartitioning between passes (-ndev > 1 at -niter > 1 "
+            "without -nobalance)")
+    if mode not in ("ifc", "graph"):
+        raise ValueError(f"unknown repartitioning mode {mode!r}")
+    dev = mesh.device
+    ang = ANGEDG if angedg is None else angedg
+
+    vert_h, tet_h, _, _, _ = mesh_to_host(mesh)
+    if part is None:
+        part = _partition(mesh, met, n_shards, partitioner, vert_h, tet_h)
+    stacked, met_s, l2g, comms = _split_with_comms(
+        mesh, met, part, n_shards, len(vert_h), tet_h)
+    capP0 = stacked.capP
+    # persistent global vertex numbering: split-time ids, extended with
+    # fresh ids for adapt-created vertices each pass (the
+    # PMMG_Compute_verticesGloNum role, libparmmg.c:923)
+    glo = [np.full(capP0, -1, np.int64) for _ in range(n_shards)]
+    for s_ in range(n_shards):
+        glo[s_][: len(l2g[s_])] = l2g[s_]
+    top = len(vert_h)
+
+    check_interface_echo(stacked, met_s, comms, vert_h)
+    steps = DistSteps(do_smooth=not nomove, do_insert=not noinsert,
+                      hausd=hausd)
+
+    def grow_glo(old_capP):
+        # keep the numbering tables in lockstep with a regrow
+        for s_ in range(n_shards):
+            glo[s_] = np.concatenate(
+                [glo[s_], np.full(old_capP, -1, np.int64)])
+
+    def device_glo():
+        return torch.as_tensor(np.stack(glo).astype(np.int32), device=dev)
+
+    use_band = True
+    glo_d = device_glo()
+    regrow_state = [0]
+    ana_cache: dict = {}
+    for it in range(max(1, niter)):
+        otrace.profile_pass_begin(it)
+        otrace.set_context(**{"pass": it})
+        capP_before = stacked.capP
+        t_seg = time.perf_counter()
+        stacked, met_s = run_adapt_cycles(
+            stacked, met_s, steps, cycles, stats=stats, verbose=verbose,
+            on_grow=grow_glo, regrow_state=regrow_state,
+            label=f"dist it {it}", noswap=noswap, block=block)
+        otrace.emit_span("dist.adapt", time.perf_counter() - t_seg)
+        t_seg = time.perf_counter()
+        # the session numbering: fresh ids for the new vertices and the
+        # newly-dead rows, assigned on the device, band-sized tables to
+        # the host mirror; the host path from the liveness masks when a
+        # budget misses
+        oke = False
+        if use_band:
+            if stacked.capP != capP_before:
+                glo_d = device_glo()         # regrown: rebuild the copy
+            KN = max(256, stacked.capP // 2)
+            if session_ids_fit(top, n_shards, KN):
+                d_rows, d_cnt, d_ok = dead_glo_rows(glo_d, stacked.vmask,
+                                                    KD=KN)
+                glo_d2, top_d, f_rows, f_gids, oke = extend_ids_device(
+                    glo_d, stacked.vmask, top, KN=KN)
+                oke = bool(oke) and bool(d_ok)
+        if oke:
+            glo_d = glo_d2
+            top = int(top_d)
+            f_rows, f_gids, d_rows, d_cnt = gather_band(
+                f_rows, f_gids, d_rows, d_cnt)
+            apply_fresh_ids(glo, f_rows, f_gids)
+            kill_glo_rows(glo, d_rows, d_cnt)
+        else:
+            top = extend_global_ids_from_vmask(
+                glo, stacked.vmask.cpu().numpy(), top)
+            if use_band:
+                if top >= 2 ** 31:
+                    # the int32 device copy can no longer hold the ids:
+                    # the host mirror (int64) carries them on
+                    use_band = False
+                else:
+                    glo_d = device_glo()
+        stacked = _refresh(stacked, comms, n_shards, ang, glo,
+                           cache=ana_cache)
+        otrace.emit_span("dist.refresh", time.perf_counter() - t_seg)
+        # (the repartitioning between passes, it + 1 < niter without
+        # nobalancing, was refused at entry)
+        otrace.profile_pass_end(it)
+    otrace.set_context(**{"pass": None})
+    t_seg = time.perf_counter()
+    merged, met_m, part_new = merge_shards(stacked, met_s,
+                                           return_part=True)
+    otrace.emit_span("dist.merge", time.perf_counter() - t_seg)
+    return merged, met_m, part_new
+

@@ -19,7 +19,7 @@ Tags are int32 tensors in the port; the host arithmetic below works on
 their uint32 views, so every mask keeps the JAX package's bits.
 
 ``permute_shards`` (the multi-device group handoff) comes with the
-distributed path.
+repartitioning between distributed passes.
 """
 from __future__ import annotations
 
@@ -47,11 +47,13 @@ def _i32(a: np.ndarray, device) -> torch.Tensor:
 
 
 def split_to_shards(mesh, met, part: np.ndarray, nparts: int,
-                    cap_mult: float = 3.0):
+                    cap_mult: float = 3.0, return_l2g: bool = False):
     """Split a Mesh into ``nparts`` group meshes, stacked on the mesh's
     device.
 
-    Returns (MeshStack [nparts, ...], met stacked [nparts, capP(, 6)]).
+    Returns (MeshStack [nparts, ...], met stacked [nparts, capP(, 6)]),
+    plus the per-part local->global vertex maps when ``return_l2g`` (the
+    input of ``comms.build_interface_comms``).
     All groups share one capacity (``cap_mult`` x the largest group,
     rounded up the geometric bucket ladder from 64)."""
     dev = mesh.device
@@ -155,6 +157,9 @@ def split_to_shards(mesh, met, part: np.ndarray, nparts: int,
         lmet[:np_] = methost[gids]
         shards_met.append(torch.from_numpy(lmet).to(dev))
 
+    if return_l2g:
+        return (MeshStack.stack(shards_m), torch.stack(shards_met),
+                [loc[0] for loc in locals_])
     return MeshStack.stack(shards_m), torch.stack(shards_met)
 
 

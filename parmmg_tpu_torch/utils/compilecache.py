@@ -40,14 +40,19 @@ __all__ = [
 ]
 
 
-def bucket(n: int, floor: int = 256, cap: int | None = None) -> int:
-    """Round ``n`` up the geometric 1.5x ladder from ``floor``
-    (``b -> 3b//2 + 1``).  ``cap`` clamps the result, which may then be
-    smaller than ``n``."""
+def bucket(n: int, floor: int = 256, cap: int | None = None,
+           scheme: str = "geo") -> int:
+    """Round ``n`` up a ladder from ``floor``: the geometric 1.5x ladder
+    (``b -> 3b//2 + 1``, ``scheme="geo"``) or powers of two times
+    ``floor`` (``scheme="pow2"``, the JAX package's default for index
+    tables and compaction budgets).  ``cap`` clamps the result, which may
+    then be smaller than ``n``."""
     n = max(int(n), 1)
     b = max(int(floor), 1)
+    if scheme not in ("geo", "pow2"):
+        raise ValueError(f"unknown bucket scheme {scheme!r}")
     while b < n:
-        b = b * 3 // 2 + 1
+        b = b * 2 if scheme == "pow2" else b * 3 // 2 + 1
     if cap is not None:
         b = min(b, int(cap))
     return b

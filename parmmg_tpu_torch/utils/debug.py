@@ -4,8 +4,8 @@ parity).
 The reference dumps per-group meshes, tag tables and communicator
 contents to text and ``.mesh`` files (debug_pmmg.c:62-773) for
 post-mortem inspection.  :func:`dump_mesh` writes the JAX package's bytes
-for the same mesh; the communicator printer waits for the port's
-multi-device path.
+for the same mesh, :func:`dump_comms` its text for the same communicator
+tables.
 """
 from __future__ import annotations
 
@@ -58,6 +58,25 @@ def dump_tags(mesh: Mesh, path: str | Path) -> Path:
             tags = "|".join(n for n, b in names if t & b) or "-"
             f.write(f"{i} {vert[i][0]:.6g} {vert[i][1]:.6g} "
                     f"{vert[i][2]:.6g} {tags}\n")
+    return path
+
+
+def dump_comms(comms, path: str | Path) -> Path:
+    """Communicator tables printer (PMMG_print_ext_comm flavor): for every
+    shard pair its node and face counts and the node items."""
+    path = Path(path)
+    with open(path, "w") as f:
+        S, K, _ = comms.node_idx.shape
+        for s in range(S):
+            for k in range(K):
+                b = int(comms.nbr[s, k])
+                if b < 0:
+                    continue
+                n = int(comms.node_cnt[s, k])
+                nf = int(comms.face_cnt[s, k])
+                f.write(f"shard {s} <-> {b}: {n} nodes, {nf} faces\n")
+                f.write("  nodes: " + " ".join(
+                    map(str, comms.node_idx[s, k, :n])) + "\n")
     return path
 
 

@@ -4,7 +4,7 @@ with the port, and print its one-line JSON report.
 
     JAX_PLATFORMS=cpu python tools/jax_cli_reference.py [n] [workdir] \
         [--aniso | --sphere] [--block N] [--metric-n M] \
-        [--mesh-size N] [--niter N]
+        [--mesh-size N] [--niter N] [--ndev N]
 
 The input is cube_mesh(n) (default 16), written as Medit ``.mesh``/``.sol``;
 the run is ``-niter 1``.  The metric is the planar "shock" iso metric
@@ -26,10 +26,17 @@ their defaults (hausd bound, ridge detection, curved-boundary moves).
 with N below the tet count the run takes the grouped path
 (``parallel/groups.py``), and the tool prints the group count of each
 outer pass on its second JSON line (``groups``), its ``cycles`` counting
-the grouped passes' cycles.  The reference CI's
+the grouped passes' cycles.  A distributed run adds ``dist_cycles``, the
+cycles of its shard-resident passes.  The reference CI's
 standard matrix is ``--mesh-size 16384 --niter 2``; on cube_mesh(32) with
 ``--metric-n 16`` that is 12 groups, the input of ``chip_smoke.py``'s
 ``[grouped]`` phase.
+
+``--ndev N`` passes ``-ndev N`` (the distributed path,
+``parallel/dist.py``: N shards with frozen interfaces) and, before JAX is
+imported, ``--xla_force_host_platform_device_count=N`` so that the CPU
+offers N devices.  ``--metric-n 16 --ndev 4 --niter 1 --block 9`` on
+cube_mesh(32) is the input of ``chip_smoke.py``'s ``[dist]`` phase.
 
 ``--block N`` sets ``PARMMG_CYCLE_BLOCK=N`` for the run, the JAX package's
 own knob for the cycles per dispatch: 9 is its accelerator configuration
@@ -76,11 +83,20 @@ def _count_cycles(tally: dict) -> None:
     its blocks and the narrow cycles into ``tally``."""
     from parmmg_tpu import driver
     from parmmg_tpu.ops import active
-    from parmmg_tpu.parallel import groups
+    from parmmg_tpu.parallel import dist, groups
     tally.update(cycles=0, narrow=0, blocks=0, groups=[])
     cap = {}
     adapt_mesh, auto = driver.adapt_mesh, active.adapt_cycles_auto
     grouped_pass = groups.grouped_adapt_pass
+    dist_multi = dist.distributed_adapt_multi
+
+    def counted_dist(*a, **kw):
+        st = kw.get("stats")
+        c0 = st.cycles if st is not None else 0
+        out = dist_multi(*a, **kw)
+        if st is not None:
+            tally["dist_cycles"] = st.cycles - c0
+        return out
 
     def counted_pass(mesh, met, ngroups, *a, **kw):
         tally["groups"].append(int(ngroups))
@@ -113,6 +129,7 @@ def _count_cycles(tally: dict) -> None:
     driver.adapt_mesh = counted_adapt_mesh
     active.adapt_cycles_auto = counted_auto
     groups.grouped_adapt_pass = counted_pass
+    dist.distributed_adapt_multi = counted_dist
 
 
 def write_sphere_input(workdir: str, n: int) -> str:
@@ -140,11 +157,16 @@ def main(argv) -> int:
         os.environ["PARMMG_CYCLE_BLOCK"] = str(int(argv[i + 1]))
         del argv[i:i + 2]
     opts = {}
-    for flag in ("--metric-n", "--mesh-size", "--niter"):
+    for flag in ("--metric-n", "--mesh-size", "--niter", "--ndev"):
         if flag in argv:
             i = argv.index(flag)
             opts[flag] = int(argv[i + 1])
             del argv[i:i + 2]
+    if opts.get("--ndev", 1) > 1:
+        # the CPU's device count is fixed when JAX first initialises
+        os.environ["XLA_FLAGS"] = (
+            os.environ.get("XLA_FLAGS", "") +
+            f" --xla_force_host_platform_device_count={opts['--ndev']}")
     rc = _run(argv, aniso, sphere, opts)
     print(json.dumps(dict(TALLY, block=int(
         os.environ.get("PARMMG_CYCLE_BLOCK", "0") or 0))))
@@ -162,6 +184,8 @@ def _run(argv, aniso: bool, sphere: bool, opts: dict) -> int:
              "-bench-json"]
     if "--mesh-size" in opts:
         flags += ["-mesh-size", str(opts["--mesh-size"])]
+    if "--ndev" in opts:
+        flags += ["-ndev", str(opts["--ndev"])]
     from parmmg_tpu import cli
     _count_cycles(TALLY)
     if sphere:
