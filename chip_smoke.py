@@ -39,7 +39,11 @@ Phases (any failure exits non-zero without the final result line):
              all of which must have launched their kernel, and there must
              be some where a cycle ran narrow.  Fails unless a cycle ran
              narrow (the JAX CLI ran 27 of its 50 narrow); so do phases 4
-             and 5 (10 and 27 of 50).
+             and 5 (10 and 27 of 50).  Records the rows and selected rows
+             of every K3 / K4 call (no host read added) and prints their
+             median and largest rows and selected shares; the reruns of
+             phases 3 and 4 capture the inputs of the densest call (the
+             largest selected share) for phase 8.
 3. repeat  - the main path twice more: once as it is, once with the sort
              engine's wrappers (radix_sort, merge_prefix, segment_flags)
              swapped for their plain versions.  Both must write the same
@@ -195,9 +199,14 @@ Phases (any failure exits non-zero without the final result line):
              gather, then sorted-mode K8) as its yardstick.  K5 also on
              the [grouped] run's first band merge (the survivor flags of
              a group's edge sort) and K7 on its first edge band (keys and
-             slots, 2 words).
-9. stress  - K5, K7 and K8 against their plain versions, exactly, each case
-             5 times (look-back order changes from run to run): sizes 1,
+             slots, 2 words).  K3 and K4 also on the call with the largest
+             selected share that the iso and tensor paths gave them.
+9. stress  - K3, K4, K5, K7 and K8 against their plain versions, exactly,
+             each case 5 times (look-back order changes from run to run).
+             K3 / K4 (output bits and count): 1, 3, 5, 7, 9, 15, 17, 4095,
+             4097 and 2**24 + 3 rows, NaN and +-inf among the values, masks
+             of 3% and 50%, the mask and the values each aligned or at a
+             1-element offset.  K5, K7 and K8: sizes 1,
              tile - 1, tile, tile + 1 and 2**24 + 3 (the look-back crosses
              thousands of tiles); K5 on small values and on values near
              +-2**31 whose sums wrap; K7 on full-range 32-bit keys with
@@ -207,12 +216,20 @@ Phases (any failure exits non-zero without the final result line):
              tombstones, aligned and viewed at a 1-element offset.  A
              failure here is a look-back, stability or tail bug of the
              kernel, not a mesh bug.  Also K5 and K7 at every (rows,
-             words) the [grouped] run's band merges gave them.
-10. profile - the cube16 paths once more under torch.profiler.
+             words) the [grouped] run's band merges gave them, and K3, K4,
+             K5 and K7 on two streams at once (their scratch is per
+             stream).
+10. profile - the cube16 paths once more under torch.profiler, recording
+             the device's activity only: the device busy share of the wall
+             and the kernels that take it, read from the raw events; then
+             once more with one auto cycle halfway through recorded with
+             host and device activity: its top ops by self device time and
+             its busy share by the device's events and by the sum over
+             ``key_averages``.
 
-Phase 8 also prints the CUDA launches per K5, K6, K7 and K8 call (the
-profiler's kernel count over 20 calls / 20) and fails unless K5, K6 and K8
-(both modes) are one launch a call and K7 1 + npass.
+Phase 8 also prints the CUDA launches per K3-K8 call (the profiler's
+kernel count over 20 calls / 20) and fails unless K3-K6 and K8 (both
+modes) are one launch a call and K7 1 + npass.
 
 The last two lines are one JSON object with the kernel table (each row's
 launches on the main path, and on the field, grouped, dist, serve and
@@ -426,10 +443,83 @@ def _read_output(path: str, device: str = "cuda", capP=None, capT=None):
     return mesh, met.contiguous(), types
 
 
+class _ScoreTap:
+    """Stands in for ``kernels.score_count`` / ``score3_count`` (K3 / K4)
+    over a run: records every call as (kernel, rows, count), the count kept
+    as its 0-d tensor and read only after the run (no host read is added),
+    and clones the inputs of the calls whose indices are in ``capture``."""
+    NAMES = ("score_count", "score3_count")
+
+    def __init__(self, capture=()):
+        self.capture = set(capture)
+        self.calls, self.inputs = [], {}
+
+    def __enter__(self):
+        from parmmg_tpu_torch.ops import kernels
+        self._real = {n: getattr(kernels, n) for n in self.NAMES}
+        for name, fn in self._real.items():
+            def call(mask, *vals, _fn=fn, _name=name):
+                out = _fn(mask, *vals)
+                if len(self.calls) in self.capture:
+                    self.inputs[len(self.calls)] = tuple(
+                        t.clone() for t in (mask, *vals))
+                self.calls.append((_name, mask.shape[0], out[1]))
+                return out
+            setattr(kernels, name, call)
+        return self
+
+    def __exit__(self, *exc):
+        from parmmg_tpu_torch.ops import kernels
+        for name, fn in self._real.items():
+            setattr(kernels, name, fn)
+
+    def counts(self):
+        """[(kernel, rows, selected rows)] of every call, in call order."""
+        return [(k, n, int(c)) for k, n, c in self.calls]
+
+
+def _score_picks(tag: str, calls):
+    """Print the rows and selected shares K3 and K4 were given over a run
+    (``_ScoreTap.counts``); returns {kernel: {"densest": call index,
+    "largest": call index}}: the largest selected share (ties: more rows)
+    and the most rows (ties: more selected)."""
+    import numpy as np
+    picks = {}
+    for name in _ScoreTap.NAMES:
+        idx = [i for i, c in enumerate(calls) if c[0] == name]
+        if not idx:
+            continue
+        n = np.array([calls[i][1] for i in idx])
+        sel = np.array([calls[i][2] for i in idx])
+        share = sel / np.maximum(n, 1)
+        dense = idx[max(range(len(idx)), key=lambda j: (share[j], n[j]))]
+        large = idx[max(range(len(idx)), key=lambda j: (n[j], sel[j]))]
+        picks[name] = {"densest": dense, "largest": large}
+        print(f"[{tag}] {name} calls {len(idx)}: rows median "
+              f"{int(np.median(n))} max {int(n.max())}; selected share "
+              f"median {float(np.median(share)):.4f} max "
+              f"{float(share.max()):.4f}; densest call {calls[dense][1]} "
+              f"rows, {calls[dense][2]} selected; largest call "
+              f"{calls[large][1]} rows, {calls[large][2]} selected")
+    return picks
+
+
+def _score_capture(tap: "_ScoreTap", calls, picks):
+    """{kernel: {pick: (inputs, rows, selected)}} of a rerun's captured
+    calls, after checking that the rerun made the same K3 / K4 calls."""
+    if tap.counts() != calls:
+        raise RuntimeError("a rerun of the path made other K3 / K4 calls "
+                           "than the first run")
+    return {name: {k: (tap.inputs[i], calls[i][1], calls[i][2])
+                   for k, i in p.items()} for name, p in picks.items()}
+
+
 def phase_path(workdir: str, stem: str, device: str = "cuda"):
     """One path of the CLI remesh (phase 2 "cube16" or phase 4
     "cube16ani"): launch counts, output checks; returns (launches, the
-    largest shapes each kernel wrapper was given)."""
+    largest shapes each kernel wrapper was given, with every K3 / K4 call's
+    rows and selected rows under "score_calls" and the densest and largest
+    of them under "score_picks")."""
     from parmmg_tpu_torch.io.medit import SOL_TENSOR
     from parmmg_tpu_torch.ops import kernels
 
@@ -451,11 +541,13 @@ def phase_path(workdir: str, stem: str, device: str = "cuda"):
         wrapped[name] = fn
         setattr(kernels, name, rec_shape)
     try:
-        with _cycle_watch(count_reads=device == "cuda") as info:
+        with _cycle_watch(count_reads=device == "cuda") as info, \
+                _ScoreTap() as tap:
             launches, rec, wall = _run_main(workdir, stem, out, device)
     finally:
         for name, fn in wrapped.items():
             setattr(kernels, name, fn)
+    shapes["score_calls"] = tap.counts()
     mesh, met, types = _read_output(out, device)
     aniso = met.dim() == 2
     bad, qmin, qmean = _check_conforming(stem, mesh, met if aniso else None)
@@ -473,6 +565,7 @@ def phase_path(workdir: str, stem: str, device: str = "cuda"):
     print(f"[{tag}] launches {launches}; largest capP {shapes['capP']} "
           f"capT {shapes['capT']} capE {shapes['capE']}")
     _print_cycles(tag, stem, info, device)
+    shapes["score_picks"] = _score_picks(tag, shapes["score_calls"])
     must, must_not = PATH_KERNELS[stem]
     missing = sorted(k for k in must if launches[k] == 0)
     if missing or launches[must_not]:
@@ -657,14 +750,20 @@ def _same_bytes(a: str, b: str):
                        f"{len(la)}")
 
 
-def phase_repeat(workdir: str, device: str = "cuda"):
+def phase_repeat(workdir: str, device: str = "cuda", shapes=None):
     """Run the main path again as it is, then with the sort engine's
     wrappers swapped for their plain versions; both outputs must be
-    byte-identical to phase_main's."""
+    byte-identical to phase_main's.  The first rerun captures the inputs
+    of the densest K3 / K4 calls ``shapes["score_picks"]`` names
+    (phase_path's); returns them (``_score_capture``)."""
     from parmmg_tpu_torch.ops import kernels
     ref = os.path.join(workdir, "cube16.o")
-    launches, rec2, wall2 = _run_main(
-        workdir, "cube16", os.path.join(workdir, "cube16.r2.mesh"), device)
+    calls, picks = _score_want(shapes)
+    with _ScoreTap(i for p in picks.values() for i in p.values()) as tap:
+        launches, rec2, wall2 = _run_main(
+            workdir, "cube16", os.path.join(workdir, "cube16.r2.mesh"),
+            device)
+    captured = _score_capture(tap, calls, picks) if shapes else {}
     for ext in (".mesh", ".sol"):
         _same_bytes(ref + ext, os.path.join(workdir, "cube16.r2" + ext))
     print(f"[repeat] second run: {rec2['ntets']} tets, wall {wall2:.3f} s, "
@@ -729,6 +828,7 @@ def phase_repeat(workdir: str, device: str = "cuda"):
         raise RuntimeError(f"cycle_block=1: {rec1['ntets']} tets, not "
                            f"within {NTETS_BOUND:.0%} of {ref1}, or "
                            f"{len(info['blocks'])} auto blocks")
+    return captured
 
 
 def phase_pairs(workdir: str, npairs: int, device: str = "cuda"):
@@ -781,16 +881,31 @@ def phase_pairs(workdir: str, npairs: int, device: str = "cuda"):
     return out
 
 
-def phase_aniso_repeat(workdir: str, device: str = "cuda"):
-    """The tensor-metric path once more: the same bytes as phase 4's."""
+def _score_want(shapes, kinds=("densest",)):
+    """(every K3 / K4 call, {kernel: {kind: call index}} for ``kinds``)
+    that phase_path recorded in ``shapes``, or nothing to capture."""
+    if not shapes:
+        return [], {}
+    return shapes["score_calls"], {
+        name: {k: p[k] for k in kinds}
+        for name, p in shapes["score_picks"].items()}
+
+
+def phase_aniso_repeat(workdir: str, device: str = "cuda", shapes=None):
+    """The tensor-metric path once more: the same bytes as phase 4's; the
+    K3 / K4 inputs captured as in ``phase_repeat``."""
     stem = "cube16ani"
-    _, rec, wall = _run_main(workdir, stem,
-                             os.path.join(workdir, f"{stem}.r2.mesh"), device)
+    calls, picks = _score_want(shapes)
+    with _ScoreTap(i for p in picks.values() for i in p.values()) as tap:
+        _, rec, wall = _run_main(workdir, stem,
+                                 os.path.join(workdir, f"{stem}.r2.mesh"),
+                                 device)
     for ext in (".mesh", ".sol"):
         _same_bytes(os.path.join(workdir, f"{stem}.o{ext}"),
                     os.path.join(workdir, f"{stem}.r2{ext}"))
     print(f"[aniso] second run: {rec['ntets']} tets, wall {wall:.3f} s, "
           f"byte-identical .mesh and .sol")
+    return _score_capture(tap, calls, picks) if shapes else {}
 
 
 def phase_field(workdir: str, device: str = "cuda"):
@@ -2265,10 +2380,10 @@ def phase_serve(workdir: str, device: str = "cuda"):
 
 
 def phase_stress(repeats: int = 5, band_shapes=None):
-    """K5, K7 and K8 exactly against their plain versions at the edges of
-    their tiles and at 2**24 + 3 rows, each case ``repeats`` times; and K5
-    and K7 at the shapes the [grouped] run's band merges gave them
-    (``band_shapes``: kernel -> [(rows, words)])."""
+    """K3, K4, K5, K7 and K8 exactly against their plain versions at the
+    edges of their tiles and runs and at 2**24 + 3 rows, each case
+    ``repeats`` times; and K5 and K7 at the shapes the [grouped] run's band
+    merges gave them (``band_shapes``: kernel -> [(rows, words)])."""
     import torch
     from parmmg_tpu_torch.core.constants import INT32_MAX
     from parmmg_tpu_torch.ops import kernels as K
@@ -2354,6 +2469,32 @@ def phase_stress(repeats: int = 5, band_shapes=None):
                 same(f"segment_flags gathered n={n} {nw} words {view}",
                      gathered, torch.cat([ref[1].int(), *ref[0]]))
                 ncase += 2
+    # K3 / K4: output bits (NaN payloads included) and count, at tails of a
+    # thread's run (4, 8 or 16 rows) and of a block (256 runs), at 2**24 + 3
+    # rows, with NaN and +-inf among the values, on sparse and dense masks,
+    # the mask and the values each aligned or viewed at a 1-element offset
+    # (the three value rows of one tensor, so their alignments differ too)
+    def score_bits(fn, mask, vals):
+        out, cnt = fn(mask, *vals)
+        return torch.cat([out.view(torch.int32), cnt.view(1)])
+    for n in (1, 3, 5, 7, 9, 15, 17, 4095, 4097, big):
+        vals = torch.rand((3, n + 1), generator=gen, device=dev)
+        pick = ints(0, 64, 3 * (n + 1)).view(3, n + 1)
+        for code, x in ((0, float("nan")), (1, float("inf")),
+                        (2, float("-inf"))):
+            vals = torch.where(pick == code, x, vals)
+        for share in (0.03, 0.5):
+            mask = torch.rand(n + 1, generator=gen, device=dev) < share
+            for mo, vo in ((0, 0), (1, 1), (1, 0), (0, 1)):
+                m = mask[mo:mo + n]
+                vs = tuple(vals[k, vo:vo + n] for k in range(3))
+                for name, args in (("score_count", vs[:1]),
+                                   ("score3_count", vs)):
+                    same(f"{name} n={n} share {share} mask at offset {mo}, "
+                         f"values at offset {vo}",
+                         lambda: score_bits(getattr(K, name), m, args),
+                         score_bits(getattr(K, name + "_plain"), m, args))
+                    ncase += 1
     # K5 and K7 at the band merges' shapes: survivor flags and insertion
     # histograms [6 capT] / [4 capT], band keys with their slot word
     # [6 B] / [4 B] (non-negative, tombstones INT32_MAX), 32 bits a word
@@ -2373,11 +2514,21 @@ def phase_stress(repeats: int = 5, band_shapes=None):
             same(f"radix_sort n={n} {nw} words (band keys)",
                  lambda: K.radix_sort(words), K.radix_sort_plain(words))
             ncase += 1
-    # both kernels on two streams at once, two calls each: every stream
-    # has its own tile counters, epochs and status words
+    # K3, K4, K5 and K7 on two streams at once, two calls each: every
+    # stream has its own tickets and partials, tile counters, epochs and
+    # status words
     x = ints(-9, 100, big).to(torch.int32)
     full = ints(-2 ** 31, 2 ** 31, big).to(torch.int32)
-    refs = (K.merge_prefix_plain(x), K.radix_sort_plain((full,)))
+    mask = torch.rand(big, generator=gen, device=dev) < 0.03
+    vs = tuple(torch.rand(big, generator=gen, device=dev) for _ in range(3))
+    names = ("merge_prefix", "radix_sort", "score_count", "score3_count")
+
+    def calls(suffix=""):
+        f = {n: getattr(K, n + suffix) for n in names}
+        return (f["merge_prefix"](x), f["radix_sort"]((full,)),
+                score_bits(f["score_count"], mask, vs[:1]),
+                score_bits(f["score3_count"], mask, vs))
+    refs = calls("_plain")
     streams = [torch.cuda.Stream(device=dev) for _ in range(2)]
     for r in range(repeats):
         torch.cuda.synchronize()
@@ -2385,60 +2536,147 @@ def phase_stress(repeats: int = 5, band_shapes=None):
         for _ in range(2):
             for s in streams:
                 with torch.cuda.stream(s):
-                    outs.append((K.merge_prefix(x), K.radix_sort((full,))))
+                    outs.append(calls())
         torch.cuda.synchronize()
         for got in outs:
-            for name, g, ref in zip(("merge_prefix", "radix_sort"), got,
-                                    refs):
+            for name, g, ref in zip(names, got, refs):
                 if not torch.equal(g, ref):
                     raise RuntimeError(
                         f"[stress] {name} n={big} on two streams at once: "
                         f"run {r + 1} differs from the plain version")
-    ncase += 2
-    print(f"[stress] {ncase} K5, K7 and K8 cases x {repeats} runs equal to "
-          f"the plain versions ({time.perf_counter() - t0:.1f} s)")
+    ncase += 4
+    print(f"[stress] {ncase} K3, K4, K5, K7 and K8 cases x {repeats} runs "
+          f"equal to the plain versions ({time.perf_counter() - t0:.1f} s)")
+
+
+def _device_events(prof):
+    """(device busy seconds, {name: [ms, count]}) of a finished profiler
+    run: the kernels, copies and sets on the device, read from its raw
+    events (no ``key_averages`` over every event)."""
+    from torch.autograd import DeviceType
+    busy, by = 0, {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", lambda: False)()):
+            continue
+        d = e.duration_ns()
+        busy += d
+        t = by.setdefault(e.name(), [0.0, 0])
+        t[0] += d / 1e6
+        t[1] += 1
+    return busy / 1e9, by
 
 
 def phase_profile(workdir: str, stem: str):
-    """A path once more under torch.profiler: device busy time against
-    wall time, and the ops that take the device time."""
+    """A path once more under torch.profiler recording the device's
+    activity only: device busy time against wall time and the kernels that
+    take it.  Then the path again with one auto cycle, halfway through the
+    run's, recorded with host and device activity: the ops that take its
+    device time, and its busy share both as the device's events give it
+    and as the sum of every event's self device time over ``key_averages``
+    (operators and kernels alike) gives it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from parmmg_tpu_torch import cli
+    from parmmg_tpu_torch.ops import active
     args = ["-in", os.path.join(workdir, f"{stem}.mesh"), "-sol",
             os.path.join(workdir, f"{stem}.sol"), "-out",
             os.path.join(workdir, f"{stem}.prof.mesh"), "-niter", "1",
             "-v", "0"]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    real = active.auto_cycle
+    cycles = []
+
+    def counted(*a, **k):
+        cycles.append(1)
+        return real(*a, **k)
+    active.auto_cycle = counted
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            if cli.main(args) != 0:
+                raise RuntimeError("profiled main path failed")
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        active.auto_cycle = real
+    busy, by = _device_events(prof)
+    print(f"[profile] {stem}: wall {wall:.3f} s (profiled, device activity "
+          f"only), device busy {busy:.3f} s = {100 * busy / wall:.1f}% of "
+          "wall")
+    for name, (ms, count) in sorted(by.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"[profile]   {ms:9.2f} ms  x{count:6d}  {name[:90]}")
+    # the tensor path's one library call outside any kernel: the
+    # eigendecomposition of the metric clamp (cuSOLVER)
+    lib = [(n, t) for n, t in by.items() if "syevj" in n]
+    if lib:
+        print("[profile]   library: " + "; ".join(
+            f"{n[:60]} {t[0]:.3f} ms x{t[1]}" for n, t in lib))
+    # one auto cycle halfway through, host and device activity
+    target, seen, window = max(1, len(cycles) // 2), [], {}
+
+    def sampled(*a, **k):
+        seen.append(1)
+        if len(seen) != target:
+            return real(*a, **k)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p = profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA])
+        p.start()
+        try:
+            out = real(*a, **k)
+            torch.cuda.synchronize()
+            window["wall"] = time.perf_counter() - t
+        finally:
+            p.stop()
+        window["prof"] = p
+        return out
+    active.auto_cycle = sampled
+    try:
         if cli.main(args) != 0:
             raise RuntimeError("profiled main path failed")
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    evs = prof.key_averages()
+    finally:
+        active.auto_cycle = real
+    p, w = window["prof"], window["wall"]
+    evs = p.key_averages()
 
     def dev(e):
         t = getattr(e, "self_device_time_total", None)
         return t if t is not None else getattr(e, "self_cuda_time_total", 0)
-    busy = sum(dev(e) for e in evs) / 1e6
-    top = sorted(evs, key=dev, reverse=True)[:12]
-    print(f"[profile] {stem}: wall {wall:.3f} s (profiled), device busy "
-          f"{busy:.3f} s = {100 * busy / wall:.1f}% of wall")
-    for e in top:
+    summed = sum(dev(e) for e in evs) / 1e6
+    wbusy = _device_events(p)[0]
+    print(f"[profile] {stem} window: auto cycle {target} of {len(cycles)}, "
+          f"wall {w:.3f} s (profiled, host and device activity), device "
+          f"busy {wbusy:.3f} s = {100 * wbusy / w:.1f}% of wall by the "
+          f"device's events, {summed:.3f} s = {100 * summed / w:.1f}% by "
+          "the sum over key_averages")
+    for e in sorted(evs, key=dev, reverse=True)[:12]:
         print(f"[profile]   {dev(e) / 1e3:9.2f} ms  x{e.count:6d}  "
               f"{e.key[:90]}")
-    # the library calls of the tensor path outside any kernel: the one
-    # eigendecomposition of the metric clamp (cuSOLVER)
-    lib = [e for e in evs if "syevj" in e.key or "linalg_eigh" in e.key]
-    if lib:
-        print("[profile]   library: " + "; ".join(
-            f"{e.key[:60]} {dev(e) / 1e3:.3f} ms x{e.count}" for e in lib))
+
+
+def _score_fixtures(mesh, et, lens):
+    """The K3 and K4 inputs of the kernel phase on an output mesh with its
+    unique-edge table ``et`` and edge lengths ``lens``: (the split wave's
+    cut: long edges, -lens; the edge-swap cut: edges of at most 3 shell
+    tets, their three shell qualities, +inf where a shell slot is empty),
+    as (cand, neg, c3, v0, v1, v2)."""
+    import torch
+    from parmmg_tpu_torch.ops import kernels as K
+    cand = (et.emask & (lens > 1.0)).contiguous()
+    neg = (-lens).contiguous()
+    q = K.tet_quality(mesh.vert, mesh.tet, mesh.tmask)
+    sh = et.shell3.clamp(0, mesh.capT - 1).long()
+    inf = torch.full((et.ev.shape[0],), float("inf"), device=lens.device)
+    v0, v1, v2 = (torch.where(et.shell3[:, k] >= 0, q[sh[:, k]], inf)
+                  .contiguous() for k in range(3))
+    c3 = (et.emask & (et.nshell <= 3)).contiguous()
+    return cand, neg, c3, v0, v1, v2
 
 
 def phase_kernels(launches, shapes, launches_ani, shapes_ani, workdir: str,
-                  band_samples=None):
+                  band_samples=None, score_samples=None):
     import torch
     from parmmg_tpu_torch.core.constants import INT32_MAX
     from parmmg_tpu_torch.core.mesh import tet_edge_vertices
@@ -2544,8 +2782,7 @@ def phase_kernels(launches, shapes, launches_ani, shapes_ani, workdir: str,
         "edge_length_ani", shape=f" [capE {capE_a}]", path=launches_ani))
 
     # K3 score + count: the split wave's cut (long edges, -lens)
-    cand = (et.emask & (got > 1.0)).contiguous()
-    neg = (-got).contiguous()
+    cand, neg, c3, v0, v1, v2 = _score_fixtures(mesh, et, got)
     g = K.score_count(cand, neg)
     r = K.score_count_plain(cand, neg)
     err = check("score_count", g, r, 0, 0, exact=True)
@@ -2559,14 +2796,9 @@ def phase_kernels(launches, shapes, launches_ani, shapes_ani, workdir: str,
         5 * capE + 4 + 4 * nsel, 2 * capE,
         lambda: K.score_count(cand, neg), "score_kernel",
         shape=f" [capE {capE}, {nsel} selected]"))
+    launches_per_call(rows[-1], 1, "score_count")
 
     # K4 score3 + count: the edge-swap cut over three shell qualities
-    q = K.tet_quality(mesh.vert, mesh.tet, mesh.tmask)
-    sh = et.shell3.clamp(0, capT - 1).long()
-    inf = torch.full((capE,), float("inf"), device=dev)
-    v0, v1, v2 = (torch.where(et.shell3[:, k] >= 0, q[sh[:, k]], inf)
-                  .contiguous() for k in range(3))
-    c3 = (et.emask & (et.nshell <= 3)).contiguous()
     g = K.score3_count(c3, v0, v1, v2)
     r = K.score3_count_plain(c3, v0, v1, v2)
     err = check("score3_count", g, r, 0, 0, exact=True)
@@ -2577,6 +2809,34 @@ def phase_kernels(launches, shapes, launches_ani, shapes_ani, workdir: str,
         5 * capE + 4 + 12 * nsel3, 4 * capE,
         lambda: K.score3_count(c3, v0, v1, v2), "score_kernel",
         shape=f" [capE {capE}, {nsel3} selected]"))
+    launches_per_call(rows[-1], 1, "score3_count")
+    # K3 and K4 on the densest call the iso and tensor paths gave them
+    # (phase_path's record, its inputs captured in the reruns)
+    for name in ("score_count", "score3_count"):
+        cands = [(sel / max(n, 1), n, stem, ins, sel)
+                 for stem, cap in (score_samples or {}).items()
+                 if name in cap
+                 for ins, n, sel in [cap[name]["densest"]]]
+        if not cands:
+            continue
+        share, n, stem, ins, sel = max(cands, key=lambda c: c[:2])
+        fn = getattr(K, name)
+        plain = getattr(K, name + "_plain")
+        g, ref = fn(*ins), plain(*ins)
+        if int(g[1]) != sel:
+            raise RuntimeError(f"{name}: the captured call counts {int(g[1])}"
+                               f", the path's {sel}")
+        err = check(name, g, ref, 0, 0, exact=True)
+        k4 = name == "score3_count"
+        d = row(name, "score_count.cu", 253 if k4 else 231, err,
+                _time_ms(lambda: fn(*ins)), _time_ms(lambda: plain(*ins)),
+                5 * n + 4 + (12 if k4 else 4) * sel, (4 if k4 else 2) * n,
+                lambda: fn(*ins), "score_kernel",
+                shape=f" [densest call of {stem}: {n} rows, {sel} selected, "
+                      f"share {share:.4f}]")
+        d["path"], d["rows"], d["selected"] = stem, n, sel
+        next(r for r in rows if r["name"] == name)["densest"] = sub(
+            d, "path", "rows", "selected")
 
     # K6 tet quality: iso (the main path's mode) and the tensor mode on
     # the aniso path's output and metric
@@ -2888,10 +3148,12 @@ def main(argv=()) -> int:
     try:
         timed("build", phase_build)
         launches, shapes = timed("main", phase_path, workdir, "cube16")
-        timed("repeat", phase_repeat, workdir)
+        score_samples = {"cube16": timed("repeat", phase_repeat, workdir,
+                                         shapes=shapes)}
         launches_ani, shapes_ani = timed("aniso", phase_path, workdir,
                                          "cube16ani")
-        timed("aniso_repeat", phase_aniso_repeat, workdir)
+        score_samples["cube16ani"] = timed(
+            "aniso_repeat", phase_aniso_repeat, workdir, shapes=shapes_ani)
         launches_field = timed("field", phase_field, workdir)
         launches_grouped, band_samples, band_shapes = timed(
             "grouped", phase_grouped, workdir)
@@ -2901,7 +3163,8 @@ def main(argv=()) -> int:
             base=os.path.join(workdir, "cube32.o.mesh"))
         launches_serve = timed("serve", phase_serve, workdir)
         rows = timed("kernels", phase_kernels, launches, shapes,
-                     launches_ani, shapes_ani, workdir, band_samples)
+                     launches_ani, shapes_ani, workdir, band_samples,
+                     score_samples)
         timed("stress", phase_stress, band_shapes=band_shapes)
         timed("profile", phase_profile, workdir, "cube16")
         timed("profile_ani", phase_profile, workdir, "cube16ani")

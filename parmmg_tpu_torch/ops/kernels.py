@@ -19,9 +19,10 @@ segment_flags      csrc/segment_flags.cu       segment_flags_pallas (K8)
 
 Every wrapper is one launch a call except ``radix_sort``: 1 + npass
 launches (a histogram of every digit pass, then one one-sweep pass per
-8-bit digit), and no K5 scan.  ``merge_prefix`` and ``radix_sort`` keep
-a few small buffers on the device between calls (tile counters, epochs,
-K5's status words), one set for each stream they are called on
+8-bit digit), and no K5 scan.  ``score_count``, ``score3_count``,
+``merge_prefix`` and ``radix_sort`` keep a few small buffers on the device
+between calls (K3/K4's count word, tile counters, epochs, K5's status
+words), one set for each stream they are called on
 (``_scratch``); K7 takes its row-sized buffers from PyTorch's allocator
 on every call.  ``segment_flags(words, order=perm)`` gathers the columns
 through a sort's permutation in the same launch and returns them with
@@ -58,9 +59,10 @@ _SIGS = {
                             [_P, _P, _P, _P, ctypes.c_int,
                              ctypes.c_longlong, _P]),
     "pm_score_count": ("score_count",
-                       [_P, _P, _P, _P, ctypes.c_longlong, _P]),
+                       [_P, _P, _P, _P, _P, ctypes.c_longlong, _P]),
     "pm_score3_count": ("score_count",
-                        [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P]),
+                        [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P]),
+    "pm_score_scratch_ints": ("score_count", []),
     "pm_tet_quality": ("tet_quality",
                        [_P, _P, _P, _P, _P, ctypes.c_int,
                         ctypes.c_longlong, _P]),
@@ -207,31 +209,32 @@ def _score_args(mask, vals):
     return n
 
 
+def _score(name, plain, mask, vals):
+    n = _score_args(mask, vals)
+    if not _on_card(mask, *vals):
+        return plain(mask, *vals)
+    dev = mask.device
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    cnt = torch.empty((), dtype=torch.int32, device=dev)
+    s = _stream(out)
+    # one 64-bit word, the blocks done and their count, left at 0
+    ctrl = _scratch(name, dev, s, {"ctrl": (
+        _tile("pm_score_scratch_ints"), torch.int32, True)})["ctrl"]
+    _launch(f"pm_{name}", mask.data_ptr(), *(v.data_ptr() for v in vals),
+            out.data_ptr(), cnt.data_ptr(), ctrl.data_ptr(), n, s)
+    LAUNCHES[name] += 1
+    return out, cnt
+
+
 def score_count(mask, val):
-    """(where(mask, -val, -inf) [N] float32, sum(mask) 0-d int32)."""
-    n = _score_args(mask, (val,))
-    if not _on_card(mask, val):
-        return score_count_plain(mask, val)
-    out = torch.empty(n, dtype=torch.float32, device=val.device)
-    cnt = torch.empty(1, dtype=torch.int32, device=val.device)
-    _launch("pm_score_count", mask.data_ptr(), val.data_ptr(),
-            out.data_ptr(), cnt.data_ptr(), n, _stream(val))
-    LAUNCHES["score_count"] += 1
-    return out, cnt[0]
+    """(where(mask, -val, -inf) [N] float32, sum(mask) 0-d int32).  One
+    launch a call, any alignment of ``mask`` and ``val``."""
+    return _score("score_count", score_count_plain, mask, (val,))
 
 
 def score3_count(mask, v0, v1, v2):
-    """``score_count`` of ``min(v0, min(v1, v2))``."""
-    n = _score_args(mask, (v0, v1, v2))
-    if not _on_card(mask, v0, v1, v2):
-        return score3_count_plain(mask, v0, v1, v2)
-    out = torch.empty(n, dtype=torch.float32, device=v0.device)
-    cnt = torch.empty(1, dtype=torch.int32, device=v0.device)
-    _launch("pm_score3_count", mask.data_ptr(), v0.data_ptr(),
-            v1.data_ptr(), v2.data_ptr(), out.data_ptr(), cnt.data_ptr(),
-            n, _stream(v0))
-    LAUNCHES["score3_count"] += 1
-    return out, cnt[0]
+    """``score_count`` of ``min(v0, min(v1, v2))`` (NaN propagating)."""
+    return _score("score3_count", score3_count_plain, mask, (v0, v1, v2))
 
 
 # ---------------------------------------------------------------------------
@@ -280,8 +283,8 @@ _TILES: dict = {}
 
 
 def _tile(sym) -> int:
-    """A tile size the CUDA source defines (elements per block), read
-    once."""
+    """A size the CUDA source defines (a tile's elements, a scratch's
+    ints), read once."""
     t = _TILES.get(sym)
     if t is None:
         t = _TILES[sym] = int(_fn(sym)())
@@ -292,9 +295,10 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-# (kernel, device, stream) -> {name: tensor}: the small state K5 and K7
-# keep on the card between calls (tile counters, epochs, status words),
-# one set a stream, so calls on different streams never share it
+# (kernel, device, stream) -> {name: tensor}: the small state K3, K4, K5
+# and K7 keep on the card between calls (count words, tile counters,
+# epochs, status words), one set a stream, so calls on different streams
+# never share it
 _SCRATCH: dict = {}
 
 

@@ -121,24 +121,59 @@ def test_tet_quality_edge_cases_match_pallas(aniso):
     np.testing.assert_allclose(got[keep], ref[keep], **tol)
 
 
-@pytest.mark.parametrize("n", [1, 127, 1000])
+def _same_scores(got, ref):
+    """Bit for bit, but for the payload of a NaN: a NaN row is NaN in both
+    (XLA's canonical NaN; PyTorch's CPU minimum gives all ones)."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    nan = np.isnan(ref)
+    return (got.shape == ref.shape and np.array_equal(np.isnan(got), nan)
+            and np.array_equal(got[~nan].view(np.uint32),
+                               ref[~nan].view(np.uint32)))
+
+
+def _specials(rng, n, v0, v2, mask):
+    """NaN and +-inf in v0 and v2, at selected and unselected rows."""
+    for v in (v0, v2):
+        for x in (np.nan, np.inf, -np.inf):
+            for want in (True, False):
+                rows = np.flatnonzero(mask == want)
+                if rows.size:
+                    v[rng.choice(rows, min(2, rows.size),
+                                 replace=False)] = x
+
+
+@pytest.mark.parametrize("n", [1, 15, 17, 127, 1000, 4099])
 def test_score_kernels_bit_identical(n):
+    """K3 / K4 against the Pallas kernels: a random, an all-false and an
+    all-true mask, each also with NaN and +-inf in v0 and v2 at selected
+    and unselected rows, and a mask viewed at offset 1 of a longer
+    tensor."""
     rng = _rng(n + 11)
     v0, v1, v2 = (rng.random(n).astype(np.float32) for _ in range(3))
     v1[::7] = np.inf
-    for mask in (rng.random(n) > 0.5, np.zeros(n, bool), np.ones(n, bool)):
+    longer = torch.from_numpy(rng.random(n + 1) > 0.5)
+    at1 = longer[1:]                     # a contiguous view at offset 1
+    assert at1.is_contiguous() and at1.storage_offset() == 1
+    masks = [torch.from_numpy(m) for m in (
+        rng.random(n) > 0.5, np.zeros(n, bool), np.ones(n, bool))]
+    for tmask, special in [(m, s) for m in masks for s in (False, True)] + [
+            (at1, True)]:
+        mask = tmask.numpy()
+        a0, a2 = v0.copy(), v2.copy()
+        if special:
+            _specials(rng, n, a0, a2, mask)
         neg, cnt = pk.score_count_pallas(jnp.asarray(mask, jnp.float32),
-                                         jnp.asarray(v0), interpret=True)
-        g, c = K.score_count(torch.from_numpy(mask), torch.from_numpy(v0))
-        assert np.array_equal(g.numpy(), np.asarray(neg))
+                                         jnp.asarray(a0), interpret=True)
+        g, c = K.score_count(tmask, torch.from_numpy(a0))
+        assert _same_scores(g.numpy(), neg)
         assert int(c) == int(cnt) == int(mask.sum())
         neg3, cnt3 = pk.score3_count_pallas(
-            jnp.asarray(mask, jnp.float32), jnp.asarray(v0),
-            jnp.asarray(v1), jnp.asarray(v2), interpret=True)
-        g3, c3 = K.score3_count(*(torch.from_numpy(a)
-                                  for a in (mask, v0, v1, v2)))
-        assert np.array_equal(g3.numpy(), np.asarray(neg3))
-        assert int(c3) == int(cnt3)
+            jnp.asarray(mask, jnp.float32), jnp.asarray(a0),
+            jnp.asarray(v1), jnp.asarray(a2), interpret=True)
+        g3, c3 = K.score3_count(tmask, *(torch.from_numpy(a)
+                                         for a in (a0, v1, a2)))
+        assert _same_scores(g3.numpy(), neg3)
+        assert int(c3) == int(cnt3) == int(mask.sum())
 
 
 def test_cpu_wrappers_run_plain_and_count_nothing():
@@ -214,6 +249,58 @@ def test_cuda_kernels_match_plain_versions():
                       K.score3_count_plain(mask, v, v.flip(0), v.roll(3)))):
         assert torch.equal(got[0], ref[0])
         assert int(got[1]) == int(ref[1])
+    # K3 / K4 bit for bit (NaN payloads included) and counts exact: tails,
+    # NaN and +-inf in v0 and v2 at selected and unselected rows, all-false
+    # and all-true masks, the mask and the values viewed at a 1-element
+    # offset; one launch a call; then calls on a second stream
+    rng = np.random.default_rng(3)
+
+    def bits(x):
+        return x.view(torch.int32)
+
+    def score_case(mask, v0, v1, v2):
+        before = (K.LAUNCHES["score_count"], K.LAUNCHES["score3_count"])
+        for got, ref in ((K.score_count(mask, v0),
+                          K.score_count_plain(mask, v0)),
+                         (K.score3_count(mask, v0, v1, v2),
+                          K.score3_count_plain(mask, v0, v1, v2))):
+            assert torch.equal(bits(got[0]), bits(ref[0]))
+            assert got[1].dim() == 0 and int(got[1]) == int(ref[1])
+        assert (K.LAUNCHES["score_count"], K.LAUNCHES["score3_count"]) == (
+            before[0] + 1, before[1] + 1)
+    for m in (1, 15, 17, 4099, 30001):
+        vs = [rng.random(m + 1).astype(np.float32) for _ in range(3)]
+        vs[1][::7] = np.inf
+        for kind in ("random", "false", "true"):
+            mk = {"random": rng.random(m + 1) > 0.5,
+                  "false": np.zeros(m + 1, bool),
+                  "true": np.ones(m + 1, bool)}[kind]
+            for special in (False, True):
+                a = [x.copy() for x in vs]
+                if special:
+                    _specials(rng, m, a[0][:m], a[2][:m], mk[:m])
+                    _specials(rng, m, a[0][1:], a[2][1:], mk[1:])
+                t = [torch.from_numpy(x).to(dev) for x in (mk, *a)]
+                score_case(*(x[:m] for x in t))
+                score_case(*(x[1:] for x in t))       # offset 1
+                score_case(t[0][1:], *(x[:m] for x in t[1:]))
+    side = torch.cuda.Stream(device=dev)
+    mk = torch.from_numpy(rng.random(300001) > 0.9).to(dev)
+    vs = [torch.from_numpy(rng.random(300001).astype(np.float32)).to(dev)
+          for _ in range(3)]
+    refs = (K.score_count_plain(mk, vs[0]), K.score3_count_plain(mk, *vs))
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(2):
+        for st in (torch.cuda.current_stream(dev), side):
+            with torch.cuda.stream(st):
+                outs.append((K.score_count(mk, vs[0]),
+                             K.score3_count(mk, *vs)))
+    torch.cuda.synchronize()
+    for pair in outs:
+        for got, ref in zip(pair, refs):
+            assert torch.equal(bits(got[0]), bits(ref[0]))
+            assert int(got[1]) == int(ref[1])
     # K7 / K5 / K8: exact, at sizes that span many tiles and a ragged tail
     n = 300001
     key = torch.randint(0, 1 << 20, (n,), generator=g, dtype=torch.int32)
