@@ -200,9 +200,18 @@ Phases (any failure exits non-zero without the final result line):
              the [grouped] run's first band merge (the survivor flags of
              a group's edge sort) and K7 on its first edge band (keys and
              slots, 2 words).  K3 and K4 also on the call with the largest
-             selected share that the iso and tensor paths gave them.
+             selected share that the iso and tensor paths gave them.  K2's
+             row also gives its head share (the rows whose clipped ids
+             differ from the row before: the ones it evaluates).
 9. stress  - K3, K4, K5, K7 and K8 against their plain versions, exactly,
              each case 5 times (look-back order changes from run to run).
+             K2 within 3e-5 / 3e-6 (NaN where the plain version is NaN)
+             and the same bits in every run, on 1, 3, 5, 7, 9, 255, 257,
+             4097 and 2**24 + 3 rows of each of ``_k2_cases``: sorted runs
+             with an INT32_MAX tail, the same viewed at a one-row offset,
+             ids out of range, a long INT32_MAX tail, unsorted ids, NaN
+             and +-inf in point and tensor rows, the tensors viewed at a
+             one-float offset.
              K3 / K4 (output bits and count): 1, 3, 5, 7, 9, 15, 17, 4095,
              4097 and 2**24 + 3 rows, NaN and +-inf among the values, masks
              of 3% and 50%, the mask and the values each aligned or at a
@@ -227,8 +236,8 @@ Phases (any failure exits non-zero without the final result line):
              its busy share by the device's events and by the sum over
              ``key_averages``.
 
-Phase 8 also prints the CUDA launches per K3-K8 call (the profiler's
-kernel count over 20 calls / 20) and fails unless K3-K6 and K8 (both
+Phase 8 also prints the CUDA launches per K2-K8 call (the profiler's
+kernel count over 20 calls / 20) and fails unless K2-K6 and K8 (both
 modes) are one launch a call and K7 1 + npass.
 
 The last two lines are one JSON object with the kernel table (each row's
@@ -2382,8 +2391,9 @@ def phase_serve(workdir: str, device: str = "cuda"):
 def phase_stress(repeats: int = 5, band_shapes=None):
     """K3, K4, K5, K7 and K8 exactly against their plain versions at the
     edges of their tiles and runs and at 2**24 + 3 rows, each case
-    ``repeats`` times; and K5 and K7 at the shapes the [grouped] run's band
-    merges gave them (``band_shapes``: kernel -> [(rows, words)])."""
+    ``repeats`` times; K2 within its tolerance on ``_k2_cases``; and K5
+    and K7 at the shapes the [grouped] run's band merges gave them
+    (``band_shapes``: kernel -> [(rows, words)])."""
     import torch
     from parmmg_tpu_torch.core.constants import INT32_MAX
     from parmmg_tpu_torch.ops import kernels as K
@@ -2545,8 +2555,26 @@ def phase_stress(repeats: int = 5, band_shapes=None):
                         f"[stress] {name} n={big} on two streams at once: "
                         f"run {r + 1} differs from the plain version")
     ncase += 4
-    print(f"[stress] {ncase} K3, K4, K5, K7 and K8 cases x {repeats} runs "
-          f"equal to the plain versions ({time.perf_counter() - t0:.1f} s)")
+    # K2: within its tolerance of the plain version (NaN rows NaN), the
+    # same bits in every run
+    for n in K2_SIZES:
+        for label, vert, met6, ev in _k2_cases(n, gen, dev):
+            ref = K.edge_lengths_ani_plain(vert, met6, ev)
+            first = K.edge_lengths_ani(vert, met6, ev)
+            if not torch.allclose(first, ref, rtol=3e-5, atol=3e-6,
+                                  equal_nan=True):
+                raise RuntimeError(f"[stress] edge_lengths_ani n={n} {label}"
+                                   ": differs from the plain version")
+            for r in range(1, repeats):
+                if not torch.equal(K.edge_lengths_ani(vert, met6, ev)
+                                   .view(torch.int32),
+                                   first.view(torch.int32)):
+                    raise RuntimeError(f"[stress] edge_lengths_ani n={n} "
+                                       f"{label}: run {r + 1} differs")
+            ncase += 1
+    print(f"[stress] {ncase} K2, K3, K4, K5, K7 and K8 cases x {repeats} "
+          f"runs equal to the plain versions "
+          f"({time.perf_counter() - t0:.1f} s)")
 
 
 def _device_events(prof):
@@ -2675,6 +2703,71 @@ def _score_fixtures(mesh, et, lens):
     return cand, neg, c3, v0, v1, v2
 
 
+def _k2_heads(ev, capP: int):
+    """0-d int64 tensor: the rows of ``ev`` [n, 2] whose ids, clipped to
+    [0, capP), differ from the row before (the first row counts): the rows
+    K2 evaluates."""
+    c = ev.clamp(0, capP - 1)
+    return (c[1:] != c[:-1]).any(dim=1).sum() + int(c.shape[0] > 0)
+
+
+K2_SIZES = (1, 3, 5, 7, 9, 255, 257, 4097, 2 ** 24 + 3)
+
+
+def _k2_cases(n: int, gen, dev, npts: int = 100_003):
+    """[(label, vert [P, 3], met6 [P, 6], ev [n, 2] int32)] of K2 inputs
+    with n rows over P = min(npts, 8 n + 16) points: sorted runs of equal
+    rows with an INT32_MAX tail (as ``unique_edges`` gives them), the same
+    viewed at a one-row offset (8-byte aligned), ids out of range, a long
+    INT32_MAX tail, unsorted ids, NaN and +-inf in point and tensor rows,
+    the tensors viewed at a one-float offset (4-byte aligned)."""
+    import torch
+    from parmmg_tpu_torch.core.constants import INT32_MAX
+    P = min(npts, 8 * n + 16)
+    vert = torch.rand((P, 3), generator=gen, device=dev)
+    r = torch.rand((P, 6), generator=gen, device=dev)
+    met6 = torch.stack([1 + r[:, 0], 0.1 * r[:, 1], -0.2 * r[:, 2],
+                        2 + r[:, 3], 0.05 * r[:, 4], 0.5 + r[:, 5]], dim=1)
+
+    def runs(m, dead):
+        """m rows: runs of ~5 equal pairs, sorted, the last ``dead`` rows
+        INT32_MAX"""
+        live = m - dead
+        key = torch.randint(0, max(live // 5, 1), (live,), generator=gen,
+                            device=dev).sort().values
+        ab = torch.stack([key * 7919 % P, (key * 104729 + 13) % P], dim=1)
+        tail = torch.full((dead, 2), INT32_MAX, device=dev)
+        return torch.cat([ab, tail]).to(torch.int32).contiguous()
+    sorted_ev = runs(n, 2 * n // 5)
+    out = [("sorted runs, INT32_MAX tail", vert, met6, sorted_ev)]
+    buf = runs(n + 1, 2 * (n + 1) // 5)
+    out.append(("sorted runs viewed at a one-row offset", vert, met6,
+                buf[1:]))
+    wild = sorted_ev.clone()
+    pick = torch.randint(0, 4, wild.shape, generator=gen, device=dev)
+    wild = torch.where(pick == 0, -7, torch.where(pick == 1, P + 5, wild))
+    out.append(("ids out of range", vert, met6,
+                wild.to(torch.int32).contiguous()))
+    out.append(("a long INT32_MAX tail", vert, met6, runs(n, n - n // 10)))
+    out.append(("unsorted ids", vert, met6, torch.randint(
+        -3, P + 3, (n, 2), generator=gen, device=dev, dtype=torch.int32)))
+    bad_v, bad_m = vert.clone(), met6.clone()
+    for k, x in enumerate((float("nan"), float("inf"), float("-inf"))):
+        rows = torch.randint(0, P, (max(P // 50, 1),), generator=gen,
+                             device=dev)
+        bad_v[rows, k] = x
+        rows = torch.randint(0, P, (max(P // 50, 1),), generator=gen,
+                             device=dev)
+        bad_m[rows, 2 * k] = x
+    out.append(("NaN and +-inf in point and tensor rows", bad_v, bad_m,
+                sorted_ev))
+    flat = torch.empty(6 * P + 1, device=dev)
+    flat[1:] = met6.reshape(-1)
+    out.append(("tensors viewed at a one-float offset", vert,
+                flat[1:].view(P, 6), sorted_ev))
+    return out
+
+
 def phase_kernels(launches, shapes, launches_ani, shapes_ani, workdir: str,
                   band_samples=None, score_samples=None):
     import torch
@@ -2772,14 +2865,20 @@ def phase_kernels(launches, shapes, launches_ani, shapes_ani, workdir: str,
     capE_a, capP_a = ev_a.shape[0], mesh_a.capP
     got_a = K.edge_lengths_ani(mesh_a.vert, met6, ev_a)
     ref_a = K.edge_lengths_ani_plain(mesh_a.vert, met6, ev_a)
-    err = check("edge_lengths_ani", got_a[et_a.emask], ref_a[et_a.emask],
-                3e-5, 3e-6)
+    err = check("edge_lengths_ani", got_a, ref_a, 3e-5, 3e-6)
+    heads = int(_k2_heads(ev_a, capP_a))
     rows.append(row("edge_lengths_ani", "edge_length_ani.cu", 176, err,
         _time_ms(lambda: K.edge_lengths_ani(mesh_a.vert, met6, ev_a)),
         _time_ms(lambda: K.edge_lengths_ani_plain(mesh_a.vert, met6, ev_a)),
         36 * capP_a + 12 * capE_a, 45 * capE_a,
         lambda: K.edge_lengths_ani(mesh_a.vert, met6, ev_a),
-        "edge_length_ani", shape=f" [capE {capE_a}]", path=launches_ani))
+        "edge_length_ani", path=launches_ani,
+        shape=f" [capE {capE_a}, {heads} heads, {int(et_a.emask.sum())} "
+        "unique edges]"))
+    rows[-1]["head_share"] = heads / max(capE_a, 1)
+    print(f"[kernel] edge_lengths_ani head share {rows[-1]['head_share']:.4f}"
+          f" (rows it evaluates)")
+    launches_per_call(rows[-1], 1, "edge_lengths_ani")
 
     # K3 score + count: the split wave's cut (long edges, -lens)
     cand, neg, c3, v0, v1, v2 = _score_fixtures(mesh, et, got)

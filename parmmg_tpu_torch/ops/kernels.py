@@ -184,7 +184,10 @@ def edge_lengths_iso(vert, met, ev):
 
 def edge_lengths_ani(vert, met6, ev):
     """[capE] metric length of edges ``ev`` [capE, 2] (ids clipped to
-    [0, capP)) under the packed tensor metric ``met6`` [capP, 6]."""
+    [0, capP)) under the packed tensor metric ``met6`` [capP, 6].  One
+    launch a call, any alignment of ``ev`` and ``met6`` (a view at an
+    element offset takes scalar loads); a NaN quadratic form gives NaN, as
+    in the plain version."""
     return _edge_lengths("edge_lengths_ani", edge_lengths_ani_plain, vert,
                          met6, ev, (6,))
 

@@ -5,7 +5,10 @@ Pieces: K2's wrapper (its plain version on the CPU) against
 ``edge_length_ani_pallas`` in interpret mode, rtol 3e-5 / atol 3e-6 (the
 JAX package's own tolerance for this kernel, tests/test_pallas.py: the
 CUDA kernel contracts multiply-adds into FMAs and sums the quadratic form
-in the Pallas kernel's order, not einsum's); ``edge_length_ani`` and
+in the Pallas kernel's order, not einsum's), on random ids, on the rows
+``unique_edges`` gives it (runs of equal edges, every row of a run with
+its head's bits, and an INT32_MAX tail) and on NaN / +-inf rows (NaN
+where the Pallas kernel gives NaN); ``edge_length_ani`` and
 ``tet_edge_lengths`` to rtol 3e-6 (torch's and XLA's einsum sum the
 quadratic form in another order: a few ulp), ``iso_to_tensor`` to 1e-6;
 the eigenvalue clamp of ``clamp_metric`` and of ``apply_local_params`` to
@@ -85,6 +88,69 @@ def test_edge_lengths_ani_matches_pallas(n):
     got = K.edge_lengths_ani(torch.from_numpy(vert), torch.from_numpy(met6),
                              torch.from_numpy(ev)).numpy()
     np.testing.assert_allclose(got, ref, rtol=3e-5, atol=3e-6)
+
+
+@pytest.mark.parametrize("dead", [0.0, 0.2, 0.6])
+def test_edge_lengths_ani_on_the_edge_table_matches_pallas(dead):
+    """K2 on the rows the path gives it: ``unique_edges(mesh,
+    shell_slots=0).ev`` of a cube_mesh(3) mesh with a share ``dead`` of its
+    tets dead and spare tet slots, so the rows hold runs of equal edges and
+    an INT32_MAX tail.  Every row against the Pallas kernel on the same
+    clipped endpoints, and every row of a run carries its head's bits: what
+    the CUDA kernel's one evaluation a run relies on."""
+    from parmmg_tpu_torch.core.constants import INT32_MAX
+    from parmmg_tpu_torch.core.mesh import make_mesh
+    from parmmg_tpu_torch.ops.edges import unique_edges
+    rng = np.random.default_rng(31)
+    vert, tet = cube_mesh(3)
+    mesh = make_mesh(vert, tet, capT=len(tet) + 40)
+    mesh.tmask[:len(tet)][torch.from_numpy(rng.random(len(tet)) < dead)] = \
+        False
+    capP = mesh.capP
+    met6 = _spd(rng, capP)
+    ev = unique_edges(mesh, shell_slots=0).ev
+    e = ev.numpy()
+    assert e.shape == (6 * mesh.capT, 2) and (e[-1] == INT32_MAX).all()
+    c = np.clip(e, 0, capP - 1)
+    head = np.ones(len(c), bool)
+    head[1:] = (c[1:] != c[:-1]).any(axis=1)
+    assert head.sum() < len(c) // 2          # runs, and a long tail
+    pv = mesh.vert.numpy()
+    ref = np.asarray(pk.edge_length_ani_pallas(
+        jnp.asarray(pv[c[:, 0]]), jnp.asarray(pv[c[:, 1]]),
+        jnp.asarray(met6[c[:, 0]]), jnp.asarray(met6[c[:, 1]]),
+        interpret=True))
+    got = K.edge_lengths_ani(mesh.vert, torch.from_numpy(met6), ev).numpy()
+    np.testing.assert_allclose(got, ref, rtol=3e-5, atol=3e-6)
+    src = np.maximum.accumulate(np.where(head, np.arange(len(c)), 0))
+    bits = got.view(np.int32)
+    assert (bits == bits[src]).all()
+
+
+def test_edge_lengths_ani_keeps_nan_forms_nan_as_pallas():
+    """A NaN or +-inf point or tensor row: the port's K2 (plain here, the
+    CUDA kernel held to it on the card) gives NaN where the Pallas kernel
+    does, since max(q, 0) keeps a NaN form NaN (CUDA's ``fmaxf(NaN, 0)``
+    is 0: the kernel before gave such an edge length 0)."""
+    rng = np.random.default_rng(5)
+    P, n = 60, 400
+    vert = rng.random((P, 3)).astype(np.float32)
+    met6 = _spd(rng, P)
+    vert[3, 0], vert[7, 1], vert[11, 2] = np.nan, np.inf, -np.inf
+    met6[5, 0], met6[9, 2], met6[13, 4] = np.nan, np.inf, -np.inf
+    ev = rng.integers(0, P, (n, 2)).astype(np.int32)
+    ev[:20] = [[3, 4], [4, 3], [5, 6], [6, 5], [7, 8], [9, 10], [11, 12],
+               [13, 14], [3, 3], [5, 5], [9, 9], [7, 7], [0, 3], [0, 5],
+               [0, 7], [0, 9], [0, 11], [0, 13], [1, 2], [2, 1]]
+    ref = np.asarray(pk.edge_length_ani_pallas(
+        jnp.asarray(vert[ev[:, 0]]), jnp.asarray(vert[ev[:, 1]]),
+        jnp.asarray(met6[ev[:, 0]]), jnp.asarray(met6[ev[:, 1]]),
+        interpret=True))
+    got = K.edge_lengths_ani(torch.from_numpy(vert), torch.from_numpy(met6),
+                             torch.from_numpy(ev)).numpy()
+    assert np.isnan(ref[:18]).sum() >= 10
+    np.testing.assert_allclose(got, ref, rtol=3e-5, atol=3e-6,
+                               equal_nan=True)
 
 
 def test_edge_length_ani_and_iso_to_tensor_match_jax():

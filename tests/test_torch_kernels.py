@@ -242,6 +242,37 @@ def test_cuda_kernels_match_plain_versions():
     torch.testing.assert_close(K.tet_quality(vert, tet, tm),
                                K.tet_quality_plain(vert, tet, tm),
                                rtol=3e-5, atol=3e-6)
+    # K2 on rows as the path gives them (sorted runs of equal edges, an
+    # INT32_MAX tail), at tails of a thread's and a warp's rows, the ids
+    # also viewed at a one-row offset (8-byte aligned), with NaN and +-inf
+    # point rows: NaN where the plain version is NaN, every row of a run
+    # its head's bits, one launch a call
+    rng = np.random.default_rng(3)
+    bad = vert.clone()
+    bad[::97, 0] = float("nan")
+    bad[1::89, 1] = float("inf")
+    bad[2::83, 2] = float("-inf")
+    for m in (1, 3, 5, 7, 9, 255, 257, 4097, 30001):
+        key = np.sort(rng.integers(0, max(m // 5, 1), m + 1))
+        rows = np.stack([key * 7919 % 5000, (key * 104729 + 13) % 5000],
+                        axis=1).astype(np.int32)
+        rows[m + 1 - 2 * (m + 1) // 5:] = 2147483647
+        rows = torch.from_numpy(rows).to(dev)
+        for pts in (vert, bad):
+            for e in (rows[:m], rows[1:]):
+                before = K.LAUNCHES["edge_lengths_ani"]
+                got = K.edge_lengths_ani(pts, met6, e)
+                assert K.LAUNCHES["edge_lengths_ani"] == before + 1
+                torch.testing.assert_close(
+                    got, K.edge_lengths_ani_plain(pts, met6, e), rtol=3e-5,
+                    atol=3e-6, equal_nan=True)
+                c = e.clamp(0, 4999)
+                head = torch.ones(m, dtype=torch.bool, device=dev)
+                head[1:] = (c[1:] != c[:-1]).any(dim=1)
+                pos = torch.arange(m, device=dev)
+                src = torch.where(head, pos, 0).cummax(dim=0).values
+                bits = got.view(torch.int32)
+                assert torch.equal(bits, bits[src])
     mask = (torch.rand(30000, generator=g) > 0.5).to(dev)
     v = torch.rand(30000, generator=g).to(dev)
     for got, ref in ((K.score_count(mask, v), K.score_count_plain(mask, v)),

@@ -288,13 +288,13 @@ def variants():
     return f"r{rows.group(1)}", out
 
 
-def build(srcs: dict) -> dict:
-    """variant -> loaded library; a variant that fails to build is printed
-    and left out."""
+def build(srcs: dict, out: str = OUT) -> dict:
+    """variant -> loaded library, each built under ``out``; a variant that
+    fails to build is printed and left out."""
     from parmmg_tpu_torch.ops import cuda_build
     procs = {}
     for name, text in srcs.items():
-        d = os.path.join(OUT, name)
+        d = os.path.join(out, name)
         os.makedirs(d, exist_ok=True)
         src, lib = os.path.join(d, "k.cu"), os.path.join(d, "lib.so")
         with open(src, "w") as f:
