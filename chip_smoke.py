@@ -110,26 +110,43 @@ Phases (any failure exits non-zero without the final result line):
              pipeline segment seconds, host reads a group-cycle, the band
              merges, their widths and the kernels' shapes there, and each
              run's wall.
-6c. dist   - the distributed pass (``parallel/dist.py``, ``comms.py``,
-             ``analysis_dev.py``): the CLI with ``-ndev 4 -niter 1`` on the
-             [grouped] input, four shards stacked on the card (the
-             split, the communicators and their coordinate + metric
-             echo, blocks of 9 cycles on every shard, the device analysis
-             refresh, one merge), then the polish and the run tail.  Launch
-             counts zeroed just before and read just after: K1 and K3-K8
-             must have launched, K2 must not.  Checked: a conforming output
-             with qmin > 0, its tet count within 2% of the JAX CLI's
-             (``tools/jax_cli_reference.py 32 --metric-n 16 --ndev 4
-             --niter 1 --block 9``: 253,749); the echo 0 mismatches before
-             the pass and on the adapted shards; a run before it under
-             PyTorch's sync debug mode (it counts the host reads) writes
-             the same bytes; a ``-distributed-output`` run writes 4 rank
-             files whose communicator sections, read back, pass
-             ``check_node_comms`` / ``check_face_comms``.  Prints the wall,
-             dist cycles, active shards a cycle, live tets a shard, the
-             ``dist.adapt`` / ``dist.refresh`` / ``dist.merge`` span
-             seconds, host reads a dist cycle, the band exchange bytes, one
-             shard's record extraction time and the launches.
+6c. dist   - the distributed path (``parallel/dist.py``, ``comms.py``,
+             ``analysis_dev.py``, ``migrate.py``, ``migrate_dev.py``): the
+             CLI with ``-ndev 4 -niter 2`` (the reference CI's) on the
+             [grouped] input, four shards stacked on the card (the split,
+             the communicators and their coordinate + metric echo, two
+             passes of blocks of 9 cycles on every shard with the device
+             analysis refresh, between them the repartitioning: flood
+             labels, their repair, the band migration, the weld,
+             ``rebuild_shards``, the echo; one merge), then the polish and
+             the run tail.  Launch counts zeroed just before and read just
+             after: K1 and K3-K8 must have launched, K2 must not, and K5,
+             K7 and K8 must have launched inside the migration step (read
+             between the ``dist.refresh`` and ``dist.migrate`` spans).
+             Checked: a conforming output with qmin > 0, its tet count
+             within 2% of the JAX CLI's (``tools/jax_cli_reference.py 32
+             --metric-n 16 --ndev 4 --niter 2 --block 9``: 235,452); the
+             echo 0 mismatches at the split, after the migration and on
+             the adapted shards; tets moved on the band path and no
+             full-view fallback; a run before it under PyTorch's sync
+             debug mode (it counts the host reads) writes the same bytes;
+             a ``-distributed-output`` run writes 4 rank files whose
+             communicator sections, read back, pass ``check_node_comms`` /
+             ``check_face_comms``; the one-pass run (``-niter 1``)
+             conforming, echo 0, K1 and K3-K8 launched and K2 not, its
+             tet count within 2% of the JAX CLI's (``--niter 1``:
+             253,749); a graph-mode run through ``ParMesh``
+             (``REPART_GRAPH``) at 4 shards and 2 passes on cube_mesh(16)
+             from the decomposition ``end_slabs_partition`` (as a
+             distributed input hands it to the run) is conforming with
+             qmin > 0, echo 0, tets moved and no full-view fallback.
+             Prints the wall, dist cycles, active shards a cycle, live
+             tets a shard, the ``dist.adapt`` / ``dist.refresh`` /
+             ``dist.migrate`` / ``dist.merge`` span seconds, the moved
+             tets, interface faces and shared vertices of the migration,
+             host reads a dist cycle and in the migration step, the band
+             exchange bytes, one shard's record extraction time, the
+             migration step's launches and the phase's.
 6b. chaos  - the resilience layer (``resilience/``, ``parallel/groups.py``,
              ``_polish_worker.py``), each drill held to the fault-free
              bytes.  The [grouped] input and flags at chunk 8: (1)
@@ -205,6 +222,10 @@ Phases (any failure exits non-zero without the final result line):
              differ from the row before: the ones it evaluates).
 9. stress  - K3, K4, K5, K7 and K8 against their plain versions, exactly,
              each case 5 times (look-back order changes from run to run).
+             K1 within 2e-5 / 2e-6 (NaN exactly where the plain version is
+             NaN) and the same bits in every run on the rows of
+             ``_k2_cases`` under an iso size map, with NaN and +-inf in
+             point rows, in sizes, and in both.
              K2 within 3e-5 / 3e-6 (NaN where the plain version is NaN)
              and the same bits in every run, on 1, 3, 5, 7, 9, 255, 257,
              4097 and 2**24 + 3 rows of each of ``_k2_cases``: sorted runs
@@ -1305,53 +1326,70 @@ def phase_grouped(workdir: str, device: str = "cuda"):
     return launches, samples, shapes
 
 
-# the [dist] phase: the [grouped] input through the distributed pass, four
-# shards stacked on the card, one pass; the JAX CLI's tet count on it
-# (tools/jax_cli_reference.py 32 --metric-n 16 --ndev 4 --niter 1 --block
-# 9, on the CPU: 253,749 tets, 10 dist cycles)
-DIST_FLAGS = ("-ndev", "4", "-niter", "1")
-JAX_CLI_NTETS["cube32dist"] = 253749
+# the [dist] phase: the [grouped] input through the distributed path, four
+# shards stacked on the card, two passes with the repartitioning between
+# them (the reference CI's -niter 2); the JAX CLI's tet count on it
+# (tools/jax_cli_reference.py 32 --metric-n 16 --ndev 4 --niter 2 --block
+# 9, on the CPU: 235,452 tets, 20 dist cycles, 612.8 s); then one
+# graph-mode run through ParMesh on cube_mesh(16) under the cube16 map
+DIST_FLAGS = ("-ndev", "4", "-niter", "2")
+JAX_CLI_NTETS["cube32dist"] = 235452
+# the one-pass run (tools/jax_cli_reference.py ... --niter 1 --block 9, on
+# the CPU: 253,749 tets, 10 dist cycles)
+DIST1_FLAGS = ("-ndev", "4", "-niter", "1")
+JAX_CLI_NTETS["cube32dist1"] = 253749
+DIST_GRAPH_N = 16
+# the kernels the migration step itself must launch (rebuild_shards'
+# face sorts and the analysis refresh's sorts)
+MIGRATE_KERNELS = ("merge_prefix", "radix_sort", "segment_flags")
 
 
 class _DistWatch:
-    """Watches the distributed pass of the CLI runs inside the scope: the
-    run's AdaptStats, the comm tables and input coordinates of the
-    interface echo (and its mismatch count), the stacked state after the
+    """Watches the distributed loop of the runs inside the scope: the
+    run's AdaptStats, every interface echo (its comm tables, input
+    coordinates and mismatch count), the stacked state after the last
     adapt cycles, the refresh's numbering, live tets a shard before the
-    merge, the ``dist.*`` span seconds and, with ``count_reads``, the
-    synchronizing calls inside ``distributed_adapt_multi`` (PyTorch's
-    sync debug mode)."""
+    merge, the ``dist.*`` span seconds, each band migration's moved tets,
+    interface faces and shared vertices, the kernel launches and (with
+    ``count_reads``) the synchronizing calls inside
+    ``distributed_adapt_multi`` (PyTorch's sync debug mode), both also
+    between the ``dist.refresh`` and ``dist.migrate`` spans: the
+    migration step."""
 
     def __init__(self, count_reads: bool = False):
         self.count_reads = count_reads
+        self.seen = []
         self.info = {"stats": None, "reads": 0, "spans": {}, "echo": [],
-                     "live_tets": None}
+                     "live_tets": None, "band": [], "migrate_reads": 0,
+                     "migrate_launches": {}}
 
     def __enter__(self):
         import warnings
         import torch
         from parmmg_tpu_torch.obs import trace as otrace
-        from parmmg_tpu_torch.parallel import dist, distribute
+        from parmmg_tpu_torch.ops import kernels
+        from parmmg_tpu_torch.parallel import dist, distribute, migrate_dev
         info = self.info
         self._real = (dist.distributed_adapt_multi,
                       dist.check_interface_echo, dist.run_adapt_cycles,
                       dist._refresh, distribute.merge_shards,
-                      otrace.emit_span)
-        multi, echo, cycles, refresh, merge, span = self._real
+                      otrace.emit_span, migrate_dev.band_migrate_iteration)
+        multi, echo, cycles, refresh, merge, span, band = self._real
+        mark = {}
 
         def w_multi(*a, **k):
             info["stats"] = k.get("stats")
             if not self.count_reads:
                 return multi(*a, **k)
             with warnings.catch_warnings(record=True) as seen:
+                self.seen = seen
                 warnings.simplefilter("always")
                 torch.cuda.set_sync_debug_mode("warn")
                 try:
                     return multi(*a, **k)
                 finally:
                     torch.cuda.set_sync_debug_mode("default")
-                    info["reads"] += sum("synchroniz" in str(w.message)
-                                         for w in seen)
+                    info["reads"] += self._reads()
 
         def w_echo(stacked, met_s, comms, vert_h):
             info["echo_args"] = (comms, vert_h)
@@ -1375,60 +1413,164 @@ class _DistWatch:
         def w_span(name, dur, *a, **k):
             if name.startswith("dist."):
                 info["spans"][name] = info["spans"].get(name, 0.0) + dur
+            if name == "dist.refresh":
+                mark["reads"] = self._reads()
+                mark["launches"] = dict(kernels.LAUNCHES)
+            elif name == "dist.migrate" and mark:
+                info["migrate_reads"] += self._reads() - mark["reads"]
+                ml = info["migrate_launches"]
+                for kk, v in kernels.LAUNCHES.items():
+                    ml[kk] = ml.get(kk, 0) + v - mark["launches"][kk]
             return span(name, dur, *a, **k)
+
+        def w_band(*a, **k):
+            res = band(*a, **k)
+            if res is not None and res[3] is not None:
+                info["band"].append((res[5], int(
+                    (res[3].face_idx >= 0).sum()) // 2, len(res[4])))
+            return res
         dist.distributed_adapt_multi = w_multi
         dist.check_interface_echo = w_echo
         dist.run_adapt_cycles = w_cycles
         dist._refresh = w_refresh
         distribute.merge_shards = w_merge
         otrace.emit_span = w_span
+        migrate_dev.band_migrate_iteration = w_band
         return self
+
+    def _reads(self) -> int:
+        return sum("synchroniz" in str(w.message) for w in self.seen)
 
     def __exit__(self, *exc):
         from parmmg_tpu_torch.obs import trace as otrace
-        from parmmg_tpu_torch.parallel import dist, distribute
+        from parmmg_tpu_torch.parallel import dist, distribute, migrate_dev
         (dist.distributed_adapt_multi, dist.check_interface_echo,
          dist.run_adapt_cycles, dist._refresh, distribute.merge_shards,
-         otrace.emit_span) = self._real
+         otrace.emit_span, migrate_dev.band_migrate_iteration) = self._real
         return False
 
 
 def _run_dist(workdir: str, out: str, device: str, count_reads=False,
               flags=DIST_FLAGS):
     """The [dist] CLI remesh once, written to ``out``; returns (launches,
-    record, wall, the watch's info, band exchange bytes)."""
+    record, wall, the watch's info, band exchange bytes, full-view
+    fallbacks)."""
     from parmmg_tpu_torch.obs.metrics import REGISTRY
     b0 = REGISTRY.counter("mh.band_exchange_bytes").value
+    f0 = REGISTRY.counter("dist.full_view_migrations").value
     with _DistWatch(count_reads) as w:
         launches, rec, wall = _run_main(workdir, "cube32", out, device,
                                         flags=flags)
     return (launches, rec, wall, w.info,
-            REGISTRY.counter("mh.band_exchange_bytes").value - b0)
+            REGISTRY.counter("mh.band_exchange_bytes").value - b0,
+            REGISTRY.counter("dist.full_view_migrations").value - f0)
+
+
+def _check_migrated(tag: str, info: dict, nfull: float,
+                    need_moves: bool = True):
+    """Raise unless the run's migration took the band path (tets moved
+    where ``need_moves``, no full-view fallback) and every echo, the last
+    on the adapted shards with the current comm tables, found 0
+    mismatches; returns the moved tets."""
+    from parmmg_tpu_torch.parallel import dist
+    comms, vert_h = info["echo_args"]
+    stacked, met_s = info["adapted"]
+    after = dist.check_interface_echo(stacked, met_s, comms, vert_h)
+    moved = sum(b[0] for b in info["band"])
+    print(f"{tag} interface echo mismatches {info['echo']} (split, then "
+          f"after each migration), {after} on the adapted shards; band "
+          f"migrations (moved tets, interface faces, shared vertices) "
+          f"{info['band']}; full-view fallbacks {int(nfull)}")
+    if len(info["echo"]) < 1 + bool(moved) or any(info["echo"]) or after:
+        raise RuntimeError(f"{tag} echo mismatches {info['echo']}, "
+                           f"{after}")
+    if (need_moves and not moved) or nfull:
+        raise RuntimeError(f"{tag} moved {moved} tets on the band path, "
+                           f"{int(nfull)} full-view fallbacks")
+    return moved
+
+
+def _graph_run(workdir: str, device: str):
+    """One graph-mode run (``repartitioningMode = REPART_GRAPH``) through
+    ParMesh at 4 shards and 2 passes on cube_mesh(DIST_GRAPH_N) under the
+    cube16 iso shock map, from the decomposition ``end_slabs_partition``
+    (the two end slabs in one shard beside two lighter ones), handed to
+    the run as the CLI hands a distributed input's: the cluster refinement
+    takes only moves of positive cut gain, and from the loop's own Morton
+    split none has one.  Checked conforming with qmin > 0, echo 0, tets
+    moved on the band path, no full-view fallback."""
+    import numpy as np
+    from parmmg_tpu_torch.api.params import IParam
+    from parmmg_tpu_torch.api.parmesh import ParMesh
+    from parmmg_tpu_torch.core import constants as C
+    from parmmg_tpu_torch.core.mesh import make_mesh
+    from parmmg_tpu_torch.obs.metrics import REGISTRY
+    from parmmg_tpu_torch.ops.adjacency import build_adjacency
+    from parmmg_tpu_torch.utils.fixtures import (analytic_iso_metric,
+                                                 cube_mesh,
+                                                 end_slabs_partition)
+    n = DIST_GRAPH_N
+    vert, tet = cube_mesh(n)
+    pm = ParMesh(device=device)
+    pm.set_mesh_size(np_=len(vert), ne=len(tet))
+    pm.set_vertices(vert)
+    pm.set_tetrahedra(tet + 1)
+    pm.set_met_size(1, len(vert))
+    pm.set_scalar_mets(analytic_iso_metric(vert, "shock", h=1.5 / 16))
+    pm.set_iparameter(IParam.niter, 2)
+    pm.set_iparameter(IParam.repartitioningMode, C.REPART_GRAPH)
+    pm.info.n_devices = 4
+    pm.info.imprim = 0
+    pm._in_part = end_slabs_partition(vert, tet)
+    f0 = REGISTRY.counter("dist.full_view_migrations").value
+    t0 = time.perf_counter()
+    with _DistWatch() as w:
+        ret = pm.run()
+    wall = time.perf_counter() - t0
+    if ret != C.PMMG_SUCCESS:
+        raise RuntimeError(f"[dist] graph mode: ParMesh.run returned {ret}")
+    v, _ = pm.get_vertices()
+    t, _ = pm.get_tetrahedra()
+    mesh = build_adjacency(make_mesh(v, np.asarray(t) - 1, device=device))
+    bad, qmin, qmean = _check_conforming("[dist] graph mode", mesh)
+    print(f"[dist] graph mode (ParMesh, REPART_GRAPH, end slabs) "
+          f"cube_mesh({n}) -ndev 4 -niter 2: {len(t)} tets, qmin "
+          f"{qmin:.6f} qmean {qmean:.6f}, wall {wall:.3f} s, dist.migrate "
+          f"{w.info['spans'].get('dist.migrate', 0.0):.3f} s")
+    moved = _check_migrated("[dist] graph mode", w.info, REGISTRY.counter(
+        "dist.full_view_migrations").value - f0)
+    print(f"[dist] graph mode moved {moved} tets")
 
 
 def phase_dist(workdir: str, device: str = "cuda"):
-    """The [dist] path: the port's CLI with ``-ndev 4 -niter 1`` on the
+    """The [dist] path: the port's CLI with ``-ndev 4 -niter 2`` on the
     [grouped] input (cube_mesh(32), 196,608 tets, the cube16 iso shock
     map): four shards stacked on the card, the communicators checked by
-    the coordinate + metric echo, blocks of 9 cycles on every shard, the
-    device analysis refresh, one merge, then the polish and the run tail.
-    Checked: K1 and K3-K8 launched and K2 not; a conforming output with
-    qmin > 0, its tet count within 2% of the JAX CLI's; the echo 0
-    mismatches before the pass and again on the adapted shards; a run
-    before it under PyTorch's sync debug mode (counting the host reads)
-    writes the same bytes; a ``-distributed-output`` run writes 4 rank
-    files whose communicator sections, read back, pass
-    ``check_node_comms`` / ``check_face_comms``.  Prints the wall, the
-    dist cycles and the active shards a block, live tets a shard, the
-    ``dist.*`` span seconds, host reads a dist cycle, the band exchange
-    bytes, one shard's record extraction (``extract_probe_seconds``) and
-    the phase's launches.  Returns the launches of the default run."""
+    the coordinate + metric echo, two passes of blocks of 9 cycles on
+    every shard with the device analysis refresh, and between them the
+    repartitioning (flood labels, band migration, weld, rebuild, echo),
+    one merge, then the polish and the run tail.  Checked: K1 and K3-K8
+    launched and K2 not, K5, K7 and K8 inside the migration step too; a
+    conforming output with qmin > 0, its tet count within 2% of the JAX
+    CLI's; the echo 0 mismatches at the split, after the migration and
+    on the adapted shards; tets moved on the band path and no full-view
+    fallback; a run before it under PyTorch's sync debug mode (counting
+    the host reads) writes the same bytes; a ``-distributed-output`` run
+    writes 4 rank files whose communicator sections, read back, pass
+    ``check_node_comms`` / ``check_face_comms``; the one-pass run
+    (``-niter 1``) held to its own JAX CLI count; a graph-mode run
+    (``_graph_run``).  Prints the wall, the dist cycles and the active
+    shards a block, live tets a shard, the ``dist.*`` span seconds, the
+    migration's moved tets, interface faces and shared vertices, host
+    reads a dist cycle and in the migration step, the band exchange
+    bytes, one shard's record extraction (``extract_probe_seconds``),
+    the migration step's launches and the phase's.  Returns the launches
+    of the default run."""
     import numpy as np
     import torch
     from parmmg_tpu_torch.io.distributed import (interface_comms_of,
                                                  load_distributed_mesh,
                                                  probe_distributed)
-    from parmmg_tpu_torch.parallel import dist
     from parmmg_tpu_torch.parallel.analysis_dev import extract_probe_seconds
     from parmmg_tpu_torch.parallel.comms import (check_face_comms,
                                                  check_node_comms)
@@ -1439,11 +1581,12 @@ def phase_dist(workdir: str, device: str = "cuda"):
     outr = os.path.join(workdir, f"{stem}.dist.reads.mesh")
     reads = None
     if device == "cuda":
-        _, _, wallr, infor, _ = _run_dist(workdir, outr, device,
-                                          count_reads=True)
-        reads = (infor["reads"], infor["stats"].cycles, wallr)
+        _, _, wallr, infor, _, _ = _run_dist(workdir, outr, device,
+                                             count_reads=True)
+        reads = (infor["reads"], infor["stats"].cycles, wallr,
+                 infor["migrate_reads"])
     out = os.path.join(workdir, f"{stem}.dist.mesh")
-    launches, rec, wall, info, band = _run_dist(workdir, out, device)
+    launches, rec, wall, info, band, nfull = _run_dist(workdir, out, device)
     st = info["stats"]
     mesh, _, _ = _read_output(out, device)
     bad, qmin, qmean = _check_conforming("[dist]", mesh)
@@ -1460,16 +1603,12 @@ def phase_dist(workdir: str, device: str = "cuda"):
           f"{info['live_tets']}")
     print("[dist] span seconds " + ", ".join(
         f"{k} {v:.3f}" for k, v in sorted(info["spans"].items())))
-    # the echo again, on the shards as the adapt cycles left them
-    comms, vert_h = info["echo_args"]
-    stacked, met_s = info["adapted"]
-    after = dist.check_interface_echo(stacked, met_s, comms, vert_h)
-    print(f"[dist] interface echo mismatches: {info['echo']} before the "
-          f"pass, {after} after it ({int((comms.node_idx >= 0).sum())} "
-          f"node items, {comms.nbr.shape[0]} shards)")
-    if info["echo"] != [0] or after != 0:
-        raise RuntimeError(f"[dist] echo mismatches {info['echo']}, "
-                           f"{after}")
+    _check_migrated("[dist]", info, nfull)
+    comms, _ = info["echo_args"]
+    stacked, _ = info["adapted"]
+    print(f"[dist] comm tables after the migration: "
+          f"{int((comms.node_idx >= 0).sum())} node items, "
+          f"{comms.nbr.shape[0]} shards")
     sec = extract_probe_seconds(stacked.slot(0), torch.as_tensor(
         info["glo"][0].astype(np.int32), device=stacked.device))
     print(f"[dist] band exchange bytes {int(band)}; one shard's record "
@@ -1478,9 +1617,12 @@ def phase_dist(workdir: str, device: str = "cuda"):
     if reads:
         _same_outputs(out, outr)
         print(f"[dist] host reads {reads[0]} in distributed_adapt_multi = "
-              f"{reads[0] / max(reads[1], 1):.1f} a dist cycle (a run "
-              f"before, under the sync debug mode: wall {reads[2]:.3f} s, "
+              f"{reads[0] / max(reads[1], 1):.1f} a dist cycle, "
+              f"{reads[3]} of them in the migration step (a run before, "
+              f"under the sync debug mode: wall {reads[2]:.3f} s, "
               "byte-identical .mesh and .sol)")
+    ml = info["migrate_launches"]
+    print(f"[dist] launches in the migration step {ml}")
     print(f"[dist] launches {launches}")
     must, must_not = PATH_KERNELS["cube32"]
     missing = sorted(k for k in must if launches[k] == 0)
@@ -1488,16 +1630,40 @@ def phase_dist(workdir: str, device: str = "cuda"):
         raise RuntimeError(f"[dist]: kernels never launched {missing}, "
                            f"{must_not} launched {launches[must_not]} "
                            f"times ({launches})")
+    if device == "cuda" and not all(ml.get(k) for k in MIGRATE_KERNELS):
+        raise RuntimeError(f"[dist]: the migration step did not launch "
+                           f"{MIGRATE_KERNELS} ({ml})")
     ref = JAX_CLI_NTETS["cube32dist"]
     if abs(rec["ntets"] - ref) > NTETS_BOUND * ref:
         raise RuntimeError(f"[dist] {rec['ntets']} tets: not within "
                            f"{NTETS_BOUND:.0%} of the JAX CLI's {ref} on "
                            "this input")
+    # the one-pass run, held to its own JAX CLI count
+    out1 = os.path.join(workdir, f"{stem}.dist1.mesh")
+    launches1, rec1, wall1, info1, _, nfull1 = _run_dist(
+        workdir, out1, device, flags=DIST1_FLAGS)
+    mesh1, _, _ = _read_output(out1, device)
+    bad1, _, _ = _check_conforming("[dist] -niter 1", mesh1)
+    print(f"[dist] {stem} {' '.join(DIST1_FLAGS)}: ntets {rec1['ntets']} "
+          f"qmin {rec1['qmin']:.6f} qmean {rec1['qmean']:.6f}, dist cycles "
+          f"{info1['stats'].cycles}, wall {wall1:.3f} s; re-read "
+          f"{int(mesh1.tmask.sum())} tets, adjacency {bad1}")
+    _check_migrated("[dist] -niter 1", info1, nfull1, need_moves=False)
+    missing1 = sorted(k for k in must if launches1[k] == 0)
+    if device == "cuda" and (missing1 or launches1[must_not]):
+        raise RuntimeError(f"[dist] -niter 1: kernels never launched "
+                           f"{missing1}, {must_not} launched "
+                           f"{launches1[must_not]} times ({launches1})")
+    ref1 = JAX_CLI_NTETS["cube32dist1"]
+    if abs(rec1["ntets"] - ref1) > NTETS_BOUND * ref1:
+        raise RuntimeError(f"[dist] -niter 1: {rec1['ntets']} tets: not "
+                           f"within {NTETS_BOUND:.0%} of the JAX CLI's "
+                           f"{ref1} on this input")
     # the distributed output: 4 rank files with their communicators
     outd = os.path.join(workdir, f"{stem}.distout.mesh")
-    _, recd, walld, _, _ = _run_dist(workdir, outd, device,
-                                     flags=DIST_FLAGS
-                                     + ("-distributed-output",))
+    _, recd, walld, _, _, _ = _run_dist(workdir, outd, device,
+                                        flags=DIST_FLAGS
+                                        + ("-distributed-output",))
     nranks = 0
     while probe_distributed(outd, nranks):
         nranks += 1
@@ -1516,6 +1682,7 @@ def phase_dist(workdir: str, device: str = "cuda"):
             not chk_f["items_checked"]:
         raise RuntimeError("[dist] the distributed output's rank files or "
                            "communicators do not check")
+    _graph_run(workdir, device)
     return launches
 
 
@@ -2391,9 +2558,10 @@ def phase_serve(workdir: str, device: str = "cuda"):
 def phase_stress(repeats: int = 5, band_shapes=None):
     """K3, K4, K5, K7 and K8 exactly against their plain versions at the
     edges of their tiles and runs and at 2**24 + 3 rows, each case
-    ``repeats`` times; K2 within its tolerance on ``_k2_cases``; and K5
-    and K7 at the shapes the [grouped] run's band merges gave them
-    (``band_shapes``: kernel -> [(rows, words)])."""
+    ``repeats`` times; K2 within its tolerance on ``_k2_cases``, and K1
+    on their rows under an iso size map with NaN and +-inf points and
+    sizes; and K5 and K7 at the shapes the [grouped] run's band merges
+    gave them (``band_shapes``: kernel -> [(rows, words)])."""
     import torch
     from parmmg_tpu_torch.core.constants import INT32_MAX
     from parmmg_tpu_torch.ops import kernels as K
@@ -2572,7 +2740,41 @@ def phase_stress(repeats: int = 5, band_shapes=None):
                     raise RuntimeError(f"[stress] edge_lengths_ani n={n} "
                                        f"{label}: run {r + 1} differs")
             ncase += 1
-    print(f"[stress] {ncase} K2, K3, K4, K5, K7 and K8 cases x {repeats} "
+    # K1 on the same rows under an iso size map, and with NaN and +-inf
+    # points and sizes: within its tolerance of the plain version (NaN
+    # where it is NaN), the same bits in every run
+    for n in K2_SIZES:
+        for label, vert, _, ev in _k2_cases(n, gen, dev):
+            P = vert.shape[0]
+            h = 0.05 + torch.rand(P, generator=gen, device=dev)
+            cases = [(label, vert, h)]
+            if label.startswith("NaN"):
+                bad_h = h.clone()
+                for x in (float("nan"), float("inf"), float("-inf")):
+                    rows = torch.randint(0, P, (max(P // 50, 1),),
+                                         generator=gen, device=dev)
+                    bad_h[rows] = x
+                cases += [(label + ", NaN and +-inf sizes", vert, bad_h),
+                          ("NaN and +-inf sizes",
+                           vert.nan_to_num(0.5, 0.5, 0.5), bad_h)]
+            for lab, v_, h_ in cases:
+                ref = K.edge_lengths_iso_plain(v_, h_, ev)
+                first = K.edge_lengths_iso(v_, h_, ev)
+                if not torch.allclose(first, ref, rtol=2e-5, atol=2e-6,
+                                      equal_nan=True) or not torch.equal(
+                                          first.isnan(), ref.isnan()):
+                    raise RuntimeError(f"[stress] edge_lengths_iso n={n} "
+                                       f"{lab}: differs from the plain "
+                                       "version")
+                for r in range(1, repeats):
+                    if not torch.equal(K.edge_lengths_iso(v_, h_, ev)
+                                       .view(torch.int32),
+                                       first.view(torch.int32)):
+                        raise RuntimeError(f"[stress] edge_lengths_iso "
+                                           f"n={n} {lab}: run {r + 1} "
+                                           "differs")
+                ncase += 1
+    print(f"[stress] {ncase} K1, K2, K3, K4, K5, K7 and K8 cases x {repeats} "
           f"runs equal to the plain versions "
           f"({time.perf_counter() - t0:.1f} s)")
 

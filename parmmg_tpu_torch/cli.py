@@ -20,9 +20,10 @@ groups of about N tets (``parallel/groups.py``) over ``-niter`` passes,
 displacing the group seams by ``-nlayers`` layers between passes; with
 ``PMTORCH_CKPT_DIR`` set, every pass is checkpointed there and
 ``-resume`` restarts a killed grouped run after its newest pass
-checkpoint, writing the bytes of an uninterrupted run.  Every flag of the
-JAX package's CLI is accepted; ``-ndev > 1`` is not yet ported and exits
-with an error saying so.  ``python -m parmmg_tpu_torch.api.knobs`` lists
+checkpoint, writing the bytes of an uninterrupted run.  ``-ndev N`` runs
+N shards stacked on the one device, repartitioned between ``-niter``
+passes unless ``-nobalance`` is set.  Every flag of the JAX package's CLI
+is accepted.  ``python -m parmmg_tpu_torch.api.knobs`` lists
 the ``PMTORCH_*`` environment knobs.
 """
 from __future__ import annotations

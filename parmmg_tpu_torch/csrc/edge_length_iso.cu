@@ -13,11 +13,20 @@
 // Least time = (12 * capE + 16 * capP) bytes / 3.35 TB/s.  Design: a plain
 // grid-stride loop, one thread per edge, no shared memory; the arithmetic
 // (one sqrt, two reciprocals, one log) is far below the memory time.
+//
+// Every clamp keeps NaN, as jnp.maximum / torch.clamp do: CUDA's
+// fmaxf(NaN, x) is x, which turned a NaN point into length 0 and a NaN
+// size into a finite length.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr float kEpsd = 1e-30f;
+
+// max(a, b) that is NaN when either is (jnp.maximum's rule)
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (a != a || b != b) ? a + b : fmaxf(a, b);
+}
 
 __global__ void edge_length_iso_kernel(const float* __restrict__ vert,
                                        const float* __restrict__ met,
@@ -32,17 +41,17 @@ __global__ void edge_length_iso_kernel(const float* __restrict__ vert,
     const float dx = vert[3 * i1] - vert[3 * i0];
     const float dy = vert[3 * i1 + 1] - vert[3 * i0 + 1];
     const float dz = vert[3 * i1 + 2] - vert[3 * i0 + 2];
-    const float d = sqrtf(fmaxf(dx * dx + dy * dy + dz * dz, 0.0f));
-    const float ha = fmaxf(met[i0], kEpsd);
-    const float hb = fmaxf(met[i1], kEpsd);
+    const float d = sqrtf(max_nan(dx * dx + dy * dy + dz * dz, 0.0f));
+    const float ha = max_nan(met[i0], kEpsd);
+    const float hb = max_nan(met[i1], kEpsd);
     const float r0 = 1.0f / ha;
     const float r1 = 1.0f / hb;
-    const bool close = fabsf(r0 - r1) < 1e-6f * fmaxf(r0, r1);
+    const bool close = fabsf(r0 - r1) < 1e-6f * max_nan(r0, r1);
     float lm;
     if (close) {
       lm = 0.5f * (r0 + r1);
     } else {
-      lm = (r1 - r0) / logf(fmaxf(ha / hb, kEpsd));
+      lm = (r1 - r0) / logf(max_nan(ha / hb, kEpsd));
     }
     out[i] = d * lm;
   }

@@ -20,10 +20,10 @@ the conforming input with status ``PMMG_LOWFAILURE`` (ladder rung
 ``PMTORCH_GROUP_CHUNK`` and ``PMTORCH_INCR_TOPO`` are read once here, as
 the defaults of ``adapt_mesh(cycle_block=)`` and
 ``grouped_adapt_pass(chunk=, incr=)`` (``PMTORCH_CYCLE_BLOCK`` also sets
-the distributed pass's block).  A distributed run that would repartition
-between passes (``-niter`` > 1 without ``-nobalance``) is not yet ported
-and raises before any work; a shard capacity that keeps overflowing
-degrades it to the merged conforming state with ``PMMG_LOWFAILURE``."""
+the distributed pass's block).  A distributed run repartitions between
+its passes unless ``-nobalance`` is set; a shard capacity that keeps
+overflowing degrades it to the merged conforming state with
+``PMMG_LOWFAILURE``."""
 from __future__ import annotations
 
 import time
@@ -135,15 +135,6 @@ def apply_local_params(mesh: Mesh, met, info):
     return torch.from_numpy(meth).to(met.device)
 
 
-def _check_slice(pm) -> None:
-    info = pm.info
-    if info.n_devices > 1 and max(1, info.niter) > 1 and \
-            not info.nobalancing:
-        raise NotYetPorted(
-            "repartitioning between passes (-ndev > 1 at -niter > 1 "
-            "without -nobalance) is not yet ported to parmmg_tpu_torch")
-
-
 def _group_target(info, ne0: int):
     """The group target size when ``-mesh-size`` splits a mesh of ``ne0``
     tets into two groups or more, else None."""
@@ -162,7 +153,6 @@ def parmmg_run(pm) -> tuple:
     info = pm.info
     check_input_data(info, met_is_aniso=(
         pm.met is not None and getattr(pm.met, "ndim", 1) == 2))
-    _check_slice(pm)
     otrace.new_run(pm.device)
     otrace.set_verbosity(info.imprim)
     adapt_kw, pass_kw = knob_defaults()

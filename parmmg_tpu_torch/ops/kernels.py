@@ -42,9 +42,9 @@ import ctypes
 
 import torch
 
-from ..core.constants import INT32_MAX
+from ..core.constants import EPSD, INT32_MAX
 from . import cuda_build
-from .quality import edge_length_ani, edge_length_iso, quality_from_points
+from .quality import edge_length_ani, quality_from_points
 
 LAUNCHES = {"edge_lengths_iso": 0, "edge_lengths_ani": 0, "score_count": 0,
             "score3_count": 0, "tet_quality": 0, "merge_prefix": 0,
@@ -150,7 +150,21 @@ def _endpoints(vert, met, ev):
 
 
 def edge_lengths_iso_plain(vert, met, ev):
-    return edge_length_iso(*_endpoints(vert, met, ev))
+    """K1's function in the Pallas kernel's form: the log ratio of the
+    two clamped sizes (``quality.edge_length_iso`` divides the unclamped
+    first size; the two differ only where a size is below EPSD, a -inf
+    size included).  Every clamp keeps NaN."""
+    p0, p1, h0, h1 = _endpoints(vert, met, ev)
+    d = torch.sqrt(torch.clamp(((p1 - p0) ** 2).sum(-1), min=0.0))
+    ha = torch.clamp(h0, min=EPSD)
+    hb = torch.clamp(h1, min=EPSD)
+    r0, r1 = 1.0 / ha, 1.0 / hb
+    close = (r0 - r1).abs() < 1e-6 * torch.maximum(r0, r1)
+    one = torch.ones_like(r0)
+    logr = torch.log(torch.clamp(torch.where(close, one, ha / hb), min=EPSD))
+    lm = torch.where(close, 0.5 * (r0 + r1),
+                     (r1 - r0) / torch.where(close, one, logr))
+    return d * lm
 
 
 def edge_lengths_ani_plain(vert, met6, ev):

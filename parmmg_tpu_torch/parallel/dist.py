@@ -1,5 +1,4 @@
-"""Distributed adaptation on a shard stack (port of ``parallel/dist.py``
-without the repartitioning between passes).
+"""Distributed adaptation on a shard stack (port of ``parallel/dist.py``).
 
 ParMmg runs one MPI rank per subdomain with frozen interfaces, Sendrecv
 exchanges and ``MPI_Allreduce`` phase agreement (libparmmg1.c:812-912);
@@ -16,19 +15,22 @@ neighbour's send row (``comms.py``).
 
 During shard-local adaptation the interfaces are frozen (MG_PARBDY tags
 set by ``distribute.split_to_shards``), so no exchange is needed inside
-the cycles.  A pass: split along a metric-weighted partition, build the
-communicators and check them by a coordinate + metric echo, the adapt
-cycles in blocks (:func:`run_adapt_cycles`: the swap cadence, the quiet
-levels a shard, the slot-stable regrow), the global numbering extended
-for the new vertices, the cross-shard analysis refresh on the device
-(``analysis_dev.py``; the host ``analysis_par`` path on a budget
-overflow), then one merge.  ``-nobalance`` runs ``niter`` such passes on
-the resident shards with no repartitioning between them.
+the cycles.  A run: split along a metric-weighted partition, build the
+communicators and check them by a coordinate + metric echo, then a pass
+an iteration: the adapt cycles in blocks (:func:`run_adapt_cycles`: the
+swap cadence, the quiet levels a shard, the slot-stable regrow), the
+global numbering extended for the new vertices, the cross-shard analysis
+refresh on the device (``analysis_dev.py``; the host ``analysis_par``
+path on a budget overflow), and between two passes the repartitioning:
+flood labels (or graph labels) -> band migration -> weld -> adjacency
+rebuild -> echo (``migrate.py`` / ``migrate_dev.py``, with the full-view
+path as the fallback of a blown band budget); then one merge.
+``-nobalance`` runs the passes on the resident shards with no
+repartitioning between them.
 
-The repartitioning between passes (flood labels, band migration, welds,
-the group handoff), the pass checkpoints of the distributed loop and
-placing the shards on several cards come with later slices: a run that
-needs the first raises ``NotYetPorted``.
+The pass checkpoints of the distributed loop, the group handoff between
+devices and placing the shards on several cards come with later slices:
+a run that needs the last raises ``NotYetPorted``.
 """
 from __future__ import annotations
 
@@ -505,33 +507,40 @@ def distributed_adapt_multi(mesh, met, n_shards: int, niter: int = 3,
     then a pass per iteration
 
         adapt cycles (device) -> numbering extended (device, band-sized
-        tables to the host mirror) -> analysis refresh (device)
+        tables to the host mirror) -> analysis refresh (device) ->
+        [between passes, unless ``nobalancing``] flood labels (``mode``
+        "ifc", ``ifc_layers`` waves) or graph labels (``mode`` "graph")
+        -> band migration -> weld -> adjacency rebuild -> echo
 
-    and ONE merge at the end.  Returns (merged mesh, met, part_of_merged).
+    and ONE merge at the end (no whole-mesh merge between passes).
+    Returns (merged mesh, met, part_of_merged).
 
     Every logical shard lives on the mesh's device (``n_devices`` None or
-    1).  ``niter`` > 1 without ``nobalancing`` repartitions between
-    passes (``mode`` "ifc" or "graph", ``ifc_layers``), which is not yet
-    ported: it raises ``NotYetPorted`` before any work.  ``block`` sets
-    the cycles a block (default: the device's)."""
+    1).  A blown band budget first grows the shards (slot-stable, up to
+    three times, the numbering, labels and depths grown in lockstep),
+    then falls back to the full-view path, which logs itself and counts
+    on ``dist.full_view_migrations``.  ``block`` sets the cycles a block
+    (default: the device's)."""
     from ..core.constants import ANGEDG
     from ..core.mesh import mesh_to_host
     from ..driver import NotYetPorted
-    from .distribute import merge_shards
-    from .migrate import (apply_fresh_ids, extend_global_ids_from_vmask,
-                          kill_glo_rows)
-    from .migrate_dev import dead_glo_rows, extend_ids_device, \
-        session_ids_fit
+    from ..obs.metrics import REGISTRY
+    from .distribute import grow_shards, merge_shards
+    from .migrate import (apply_fresh_ids, enforce_ne_min,
+                          extend_global_ids_from_vmask, flood_labels,
+                          graph_repartition_labels, kill_glo_rows,
+                          migrate_shards, pull_views, rebuild_shards,
+                          weld_shard_bands)
+    from .migrate_dev import (band_migrate_iteration, band_weld,
+                              dead_glo_rows, extend_ids_device,
+                              graph_repartition_labels_band,
+                              repair_flood_labels, session_ids_fit)
     from .pod import gather_band
 
     if n_devices not in (None, 1):
         raise NotYetPorted(
             f"placing the shards of a distributed run on {n_devices} "
             "cards (every logical shard runs on one card)")
-    if max(1, niter) > 1 and not nobalancing:
-        raise NotYetPorted(
-            "repartitioning between passes (-ndev > 1 at -niter > 1 "
-            "without -nobalance)")
     if mode not in ("ifc", "graph"):
         raise ValueError(f"unknown repartitioning mode {mode!r}")
     dev = mesh.device
@@ -566,6 +575,8 @@ def distributed_adapt_multi(mesh, met, n_shards: int, niter: int = 3,
 
     use_band = True
     glo_d = device_glo()
+    # initially-shared gids: the interface vertices of the initial comms
+    shared_prev = _shared_gids(comms, glo, n_shards)
     regrow_state = [0]
     ana_cache: dict = {}
     for it in range(max(1, niter)):
@@ -598,7 +609,7 @@ def distributed_adapt_multi(mesh, met, n_shards: int, niter: int = 3,
             glo_d = glo_d2
             top = int(top_d)
             f_rows, f_gids, d_rows, d_cnt = gather_band(
-                f_rows, f_gids, d_rows, d_cnt)
+                f_rows, f_gids, d_rows, d_cnt, what="extend")
             apply_fresh_ids(glo, f_rows, f_gids)
             kill_glo_rows(glo, d_rows, d_cnt)
         else:
@@ -609,13 +620,128 @@ def distributed_adapt_multi(mesh, met, n_shards: int, niter: int = 3,
                     # the int32 device copy can no longer hold the ids:
                     # the host mirror (int64) carries them on
                     use_band = False
+                    glo_d = None
                 else:
                     glo_d = device_glo()
         stacked = _refresh(stacked, comms, n_shards, ang, glo,
                            cache=ana_cache)
         otrace.emit_span("dist.refresh", time.perf_counter() - t_seg)
-        # (the repartitioning between passes, it + 1 < niter without
-        # nobalancing, was refused at entry)
+        t_seg = time.perf_counter()
+        if it + 1 < max(1, niter) and not nobalancing:
+            nmoved = 0
+            band_done = False
+            if use_band:
+                if mode == "graph":
+                    # the cluster-graph rebalance from device tables;
+                    # depth 0 everywhere (the donor floor still bounds
+                    # the departures, and cluster moves have no order)
+                    labels_d = graph_repartition_labels_band(
+                        stacked, comms, n_shards, verbose=verbose)
+                    depth_d = torch.zeros_like(stacked.tet[..., 0])
+                    if labels_d is None:
+                        labels_d = torch.arange(
+                            n_shards, dtype=torch.int32,
+                            device=dev)[:, None].expand(
+                                stacked.tmask.shape).contiguous()
+                else:
+                    sizes = stacked.tmask.sum(dim=1, dtype=torch.int32)
+                    labels_d, depth_d = flood_labels(
+                        stacked, comms.node_idx, comms.nbr, sizes,
+                        n_shards, nlayers=ifc_layers)
+                    # contiguity / reachability repair of the displaced
+                    # partition (moveinterfaces_pmmg.c:475-720)
+                    labels_d, _ = repair_flood_labels(
+                        stacked, labels_d, depth_d, n_shards,
+                        verbose=verbose)
+                res = band_migrate_iteration(
+                    stacked, met_s, glo_d, glo, labels_d, depth_d,
+                    shared_prev, n_shards, verbose=verbose)
+                # a blown budget: the slot-stable grow raises the free
+                # slots AND the capacity-scaled band budgets; bounded
+                # retries before the full-view fallback
+                for _retry in range(3):
+                    if res is not None:
+                        break
+                    capP_o, capT_o = stacked.capP, stacked.capT
+                    stacked, met_s = grow_shards(stacked, met_s,
+                                                 2 * capP_o, 2 * capT_o)
+                    grow_glo(capP_o)
+                    glo_d = device_glo()
+                    me_col = torch.arange(n_shards, dtype=labels_d.dtype,
+                                          device=dev)[:, None]
+                    labels_d = torch.cat(
+                        [labels_d, me_col.expand(n_shards, capT_o)], dim=1)
+                    depth_d = torch.cat(
+                        [depth_d, torch.zeros_like(depth_d)], dim=1)
+                    res = band_migrate_iteration(
+                        stacked, met_s, glo_d, glo, labels_d, depth_d,
+                        shared_prev, n_shards, verbose=verbose)
+                if res is not None:
+                    (stacked, met_s, glo_d, comms2, shared_prev, nmoved,
+                     arr_slots) = res
+                    band_done = True
+                    if nmoved:
+                        comms = comms2
+                        # weld the arrival neighbourhoods
+                        stacked, glo_d, nweld = band_weld(
+                            stacked, met_s, glo_d, glo, arr_slots,
+                            n_shards, verbose=verbose)
+                        if nweld < 0:      # region budget blown: full weld
+                            views_w = pull_views(stacked, met_s)
+                            stacked, _ = weld_shard_bands(
+                                stacked, views_w, glo, n_shards,
+                                verbose=verbose)
+                            # the full weld freed host rows; the device
+                            # copy drops them too
+                            glo_d = device_glo()
+                        stacked = rebuild_shards(stacked)
+                        check_interface_echo(stacked, met_s, comms, vert_h)
+                else:
+                    otrace.log(1, f"  it {it}: band budgets exceeded — "
+                                  "falling back to the full-view path",
+                               verbose=verbose)
+            if not band_done:
+                REGISTRY.counter("dist.full_view_migrations").inc()
+                otrace.event("dist.full_view_migration", it=it,
+                             band_path=use_band)
+                views = pull_views(stacked, met_s)
+                if mode == "graph":
+                    labels = graph_repartition_labels(views, glo, n_shards)
+                    labels = enforce_ne_min(labels, views.tmask, n_shards)
+                else:
+                    sizes = torch.as_tensor(
+                        views.tmask.sum(axis=1).astype(np.int32),
+                        device=dev)
+                    labels_d, depth_d = flood_labels(
+                        stacked, comms.node_idx, comms.nbr, sizes,
+                        n_shards, nlayers=ifc_layers)
+                    labels_d, _ = repair_flood_labels(
+                        stacked, labels_d, depth_d, n_shards,
+                        verbose=verbose)
+                    labels = enforce_ne_min(
+                        labels_d.cpu().numpy(), views.tmask, n_shards,
+                        depth=depth_d.cpu().numpy())
+                touched = sorted({int(r) for s_ in range(n_shards)
+                                  for r in np.unique(
+                                      labels[s_][views.tmask[s_]])
+                                  if int(r) != s_})
+                stacked, met_s, comms2, nmoved = migrate_shards(
+                    stacked, met_s, views, glo, labels, n_shards,
+                    verbose=verbose)
+                if nmoved:
+                    comms = comms2
+                    stacked, _ = weld_shard_bands(
+                        stacked, views, glo, n_shards, touched=touched,
+                        verbose=verbose)
+                    stacked = rebuild_shards(stacked)
+                    check_interface_echo(stacked, met_s, comms, vert_h)
+                if use_band:    # resync the device numbering copy
+                    glo_d = device_glo()
+                    shared_prev = _shared_gids(comms, glo, n_shards)
+            if nmoved:
+                otrace.log(2, f"  it {it}: migrated {nmoved} "
+                              "interface-band tets", verbose=verbose)
+        otrace.emit_span("dist.migrate", time.perf_counter() - t_seg)
         otrace.profile_pass_end(it)
     otrace.set_context(**{"pass": None})
     t_seg = time.perf_counter()
@@ -624,3 +750,13 @@ def distributed_adapt_multi(mesh, met, n_shards: int, niter: int = 3,
     otrace.emit_span("dist.merge", time.perf_counter() - t_seg)
     return merged, met_m, part_new
 
+
+def _shared_gids(comms, glo, n_shards: int) -> np.ndarray:
+    """Interface-vertex gids from the comm tables (the band path's
+    shared-vertex candidate seed)."""
+    sh0 = []
+    for s_ in range(n_shards):
+        rows = np.unique(comms.node_idx[s_][comms.node_idx[s_] >= 0])
+        sh0.append(glo[s_][rows])
+    return np.unique(np.concatenate(sh0)) if sh0 else \
+        np.zeros(0, np.int64)

@@ -157,3 +157,41 @@ def linear_fields(vert: np.ndarray):
     temp = 1.0 + 2.0 * x - 3.0 * y + 0.5 * z
     vel = np.stack([x + y, 2.0 * y - z + 1.0, 3.0 * z - x], axis=1)
     return temp, vel
+
+
+def end_slabs_partition(vert: np.ndarray, tet: np.ndarray,
+                        core: float = 0.05) -> np.ndarray:
+    """[ne] int32: a 4-part decomposition of the unit cube in x slabs for
+    the ``shock`` map (refined around x = 0.5): part 0 holds the two end
+    slabs x < 0.1 and x >= 0.9, part 2 the shock's core |x - 0.5| <
+    ``core``, parts 1 and 3 the slabs between (by tet centroid).  After a
+    pass the end slabs' clusters have more faces to parts 1 and 3 than to
+    each other, and parts 1 and 3 have room, so graph-mode
+    repartitioning moves some of them."""
+    x = vert[tet].mean(axis=1)[:, 0]
+    cuts = [0.1, 0.5 - core, 0.5 + core, 0.9]
+    return np.array([0, 1, 2, 3, 0], np.int32)[np.searchsorted(cuts, x)]
+
+
+def steady_state_migration_scenario(niter: int = 4, cycles: int = 2,
+                                    n_shards: int = 2, device="cuda",
+                                    return_all: bool = False):
+    """``niter`` distributed passes with the migration between them over
+    a small cube whose interface sizes drift every pass: cube_mesh(2) at
+    6x capacity under a uniform size 0.4, ``n_shards`` shards stacked on
+    ``device`` (the card unless the caller asks for the CPU).  Returns
+    the adapted merged mesh, or (mesh, met, part) with ``return_all``."""
+    import torch
+    from ..api.parmesh import resolve_device
+    from ..core.mesh import make_mesh
+    from ..ops.analysis import analyze_mesh
+    from ..parallel import dist
+
+    vert, tet = cube_mesh(2)
+    m = make_mesh(vert, tet, capP=6 * len(vert), capT=6 * len(tet),
+                  device=resolve_device(device))
+    m = analyze_mesh(m).mesh
+    met = torch.full((m.capP,), 0.4, dtype=m.vert.dtype, device=m.device)
+    out, met_m, part = dist.distributed_adapt_multi(
+        m, met, n_shards, niter=niter, cycles=cycles)
+    return (out, met_m, part) if return_all else out

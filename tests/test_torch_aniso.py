@@ -153,6 +153,34 @@ def test_edge_lengths_ani_keeps_nan_forms_nan_as_pallas():
                                equal_nan=True)
 
 
+def test_edge_lengths_iso_keeps_nan_as_pallas():
+    """K1 on NaN and +-inf point and size rows: the port's wrapper (plain
+    here, the CUDA kernel held to it on the card) gives NaN where the
+    Pallas kernel does and its value elsewhere (every clamp keeps NaN, as
+    ``jnp.maximum`` does; CUDA's ``fmaxf(NaN, x)`` is x, and the kernel
+    before gave a NaN point length 0 and a NaN size a finite length).  A
+    -inf size clamps to EPSD before the ratio, as in the Pallas kernel."""
+    rng = np.random.default_rng(5)
+    P, n = 60, 400
+    vert = rng.random((P, 3)).astype(np.float32)
+    met = (rng.random(P) + 0.05).astype(np.float32)
+    vert[3, 0], vert[7, 1], vert[11, 2] = np.nan, np.inf, -np.inf
+    met[5], met[9], met[13] = np.nan, np.inf, -np.inf
+    ev = rng.integers(0, P, (n, 2)).astype(np.int32)
+    ev[:20] = [[3, 4], [4, 3], [5, 6], [6, 5], [7, 8], [9, 10], [11, 12],
+               [13, 14], [3, 3], [5, 5], [9, 9], [7, 7], [0, 3], [0, 5],
+               [0, 7], [0, 9], [0, 11], [0, 13], [1, 2], [2, 1]]
+    ref = np.asarray(pk.edge_length_iso_pallas(
+        jnp.asarray(vert[ev[:, 0]]), jnp.asarray(vert[ev[:, 1]]),
+        jnp.asarray(met[ev[:, 0]]), jnp.asarray(met[ev[:, 1]]),
+        interpret=True))
+    got = K.edge_lengths_iso(torch.from_numpy(vert), torch.from_numpy(met),
+                             torch.from_numpy(ev)).numpy()
+    assert np.isnan(ref[:20]).sum() >= 10 and np.isinf(ref[:20]).any()
+    np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-6,
+                               equal_nan=True)
+
+
 def test_edge_length_ani_and_iso_to_tensor_match_jax():
     rng = np.random.default_rng(3)
     n = 400

@@ -1,9 +1,12 @@
 """The port's distributed pass held against the JAX package:
 ``parallel/analysis_par.py``, ``parallel/analysis_dev.py``,
 ``parallel/migrate.py`` and ``parallel/migrate_dev.py`` (the numbering),
-``parallel/dist.py`` (one pass, ``-nobalance`` passes), and the
-surfaces: the CLI's ``-ndev``, ``-distributed-output`` of a distributed
-run, ``io/distributed.py``'s writers, ``ParMesh``'s communicator API.
+``parallel/dist.py`` (one pass, ``-nobalance`` passes, the two-pass
+rules), and the surfaces: the CLI's ``-ndev`` (``-ndev 2 -niter 2``
+against the JAX CLI; the repartitioning itself is held to the JAX package
+in ``tests/test_torch_migrate.py``), ``-distributed-output`` of a
+distributed run, ``io/distributed.py``'s writers, ``ParMesh``'s
+communicator API.
 
 Exact: ``analyze_shards`` / ``extend_numbering`` on the cases of
 ``tests/test_analysis_par.py`` (cube_mesh(3) in 4 Morton parts,
@@ -34,6 +37,7 @@ thread, about 2 minutes), exact but for one-ulp ``vert`` rows.
 import contextlib
 import dataclasses
 import io
+import json
 import threading
 from concurrent.futures import Future
 
@@ -209,9 +213,11 @@ def _shard_arrays(vert, tet, part, nparts):
 
 
 @pytest.mark.parametrize("case", ["morton", "slabs"])
-def test_analyze_shards_exact(jax_passes, jax_eager_shards, case):
-    """(``jax_passes`` and ``jax_eager_shards`` start the JAX package's
-    runs here, so that they go on while the module's other tests run.)"""
+def test_analyze_shards_exact(jax_passes, jax_eager_shards,
+                              jax_cli_two_passes, case):
+    """(``jax_passes``, ``jax_eager_shards`` and ``jax_cli_two_passes``
+    start the JAX package's runs here, so that they go on while the
+    module's other tests run.)"""
     if case == "morton":
         vert, tet = cube_mesh(3)
         part = fix_contiguity(tet, morton_partition(vert[tet].mean(axis=1),
@@ -548,10 +554,13 @@ def test_distributed_pass_matches_jax(jax_passes, n):
 def test_distributed_pass_rules():
     """Port-only: one outer pass (``distributed_adapt``) writes the
     resident loop's mesh; ``-nobalance`` passes run on the resident
-    shards; a repartitioning request refuses before any work; a shard
-    capacity that keeps overflowing raises ShardOverflowError with the
-    merged conforming state."""
+    shards; two passes repartition between them (tets move on the band
+    path, one merge); placing the shards on 2 cards refuses before any
+    work; a shard capacity that keeps overflowing raises
+    ShardOverflowError with the merged conforming state."""
     from parmmg_tpu_torch.driver import NotYetPorted
+    from parmmg_tpu_torch.obs.metrics import REGISTRY
+    from parmmg_tpu_torch.parallel import distribute as TDs
     m, met = _shock_state()
     a = TDi.distributed_adapt_multi(m, met, 2, niter=1, cycles=2)
     b = TDi.distributed_adapt(m, met, 2, cycles=2)
@@ -562,8 +571,25 @@ def test_distributed_pass_rules():
     two = TDi.distributed_adapt_multi(m, met, 2, niter=2, cycles=2,
                                       nobalancing=True, stats=st)
     assert st.cycles == 4 and int(two[0].tmask.sum()) > 0
-    with pytest.raises(NotYetPorted, match="repartitioning"):
-        TDi.distributed_adapt_multi(m, met, 2, niter=2, cycles=2)
+    merges = []
+    real_merge = TDs.merge_shards
+
+    def counting(*a, **k):
+        merges.append(1)
+        return real_merge(*a, **k)
+    moved = REGISTRY.counter("mh.band_exchange_bytes.migrate_glo").value
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TDs, "merge_shards", counting)
+        st2 = AdaptStats()
+        rep = TDi.distributed_adapt_multi(m, met, 2, niter=2, cycles=2,
+                                          stats=st2)
+    assert len(merges) == 1 and st2.cycles > 2
+    assert REGISTRY.counter("mh.band_exchange_bytes.migrate_glo").value > \
+        moved
+    bad = check_adjacency(build_adjacency(rep[0]))
+    assert not bad["asymmetric"] and not bad["face_mismatch"]
+    assert not torch.equal(rep[0].tmask, two[0].tmask) or \
+        not torch.equal(rep[0].tet, two[0].tet)
     with pytest.raises(NotYetPorted, match="cards"):
         TDi.distributed_adapt_multi(m, met, 2, niter=1, n_devices=2)
     real = TDi.dist_adapt_block
@@ -632,8 +658,46 @@ def test_cli_ndev(cube_file):
     assert rc == 0, err
     assert _conforming(d / "nb.mesh")[0]
     rc, _, err = _cli(base + ["-niter", "2", "-out", str(d / "x.mesh")])
-    assert rc == 1 and "repartitioning between passes" in err
-    assert "not yet ported" in err and not (d / "x.mesh").exists()
+    assert rc == 0, err
+    assert "not yet ported" not in err and _conforming(d / "x.mesh")[0]
+
+
+_TWO_PASSES = ["-hsiz", "0.3", "-ndev", "2", "-niter", "2"]
+
+
+@pytest.fixture(scope="module")
+def jax_cli_two_passes(cube_file):
+    """The JAX CLI at ``-ndev 2 -niter 2`` on ``cube_file``, in a
+    subprocess started with the module's first test."""
+    from torch_parity import start_jax_cli
+    proc = start_jax_cli(["-in", str(cube_file / "cube.mesh")] + _TWO_PASSES
+                         + ["-out", str(cube_file / "j2.mesh"), "-v", "0",
+                            "-bench-json"])
+    yield proc
+    if proc.poll() is None:
+        proc.kill()
+    proc.communicate()
+
+
+def test_cli_ndev_two_passes_matches_jax_cli(cube_file, jax_cli_two_passes):
+    """``-ndev 2 -niter 2`` (the repartitioning between the passes) on
+    cube_mesh(3) at -hsiz 0.3 through the port's CLI and the JAX CLI (in
+    a subprocess; the JAX CLI runs its 2 shards on 2 forced host devices,
+    the port stacks them on one): both conforming, the tet counts within
+    10% and qmean within 0.03 of each other (ROADMAP C1: the two compile
+    the pass differently and part ways after pass 0)."""
+    from torch_parity import jax_cli_records
+    d = cube_file
+    args = ["-in", str(d / "cube.mesh")] + _TWO_PASSES
+    rc, out, err = _cli(args + ["-out", str(d / "t2.mesh"), "-bench-json"])
+    assert rc == 0, err
+    ok, nt = _conforming(d / "t2.mesh")
+    tre = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    (rec,) = jax_cli_records(jax_cli_two_passes)
+    jok, jnt = _conforming(d / "j2.mesh")
+    assert ok and jok and jnt == rec["ntets"] and nt == tre[0]["ntets"]
+    assert abs(nt - jnt) <= 0.1 * jnt, (nt, jnt)
+    assert abs(tre[0]["qmean"] - rec["qmean"]) <= 0.03, (tre, rec)
 
 
 def test_cli_distributed_output(cube_file):

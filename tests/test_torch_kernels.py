@@ -233,6 +233,22 @@ def test_cuda_kernels_match_plain_versions():
     torch.testing.assert_close(K.edge_lengths_iso(vert, met, ev),
                                K.edge_lengths_iso_plain(vert, met, ev),
                                rtol=2e-5, atol=2e-6)
+    # K1 with NaN and +-inf point and size rows: NaN where the plain
+    # version is NaN (every clamp keeps NaN), its value elsewhere
+    pts = vert.clone()
+    pts[::97, 0] = float("nan")
+    pts[1::89, 1] = float("inf")
+    pts[2::83, 2] = float("-inf")
+    hs = met.clone()
+    hs[3::101] = float("nan")
+    hs[4::103] = float("inf")
+    hs[5::107] = float("-inf")
+    for p_, h_ in ((pts, met), (vert, hs), (pts, hs)):
+        got = K.edge_lengths_iso(p_, h_, ev)
+        ref = K.edge_lengths_iso_plain(p_, h_, ev)
+        assert bool(ref.isnan().any())
+        torch.testing.assert_close(got, ref, rtol=2e-5, atol=2e-6,
+                                   equal_nan=True)
     w = 1.0 / met ** 2
     met6 = torch.stack([w, 0.1 * w, -0.2 * w, 2.0 * w, 0.05 * w, 0.5 * w],
                        dim=1).contiguous()
