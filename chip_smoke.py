@@ -6,6 +6,7 @@
     python3 chip_smoke.py --serve
     python3 chip_smoke.py --chaos
     python3 chip_smoke.py --dist
+    python3 chip_smoke.py --multihost
 
 With ``--pairs N`` it builds the kernels and runs only N alternating
 pairs of each cube16 path (phases 2 and 4) at ``cycle_block=1`` and at
@@ -13,7 +14,8 @@ the default, blocks of 9, after one unmeasured pair, and prints the walls,
 the output sizes and qualities and the paired wall differences as one
 JSON line before the last.  With ``--serve`` it runs phases 1 and 7
 alone, with ``--chaos`` phases 1 and 6b (making the [grouped] output it
-compares with), with ``--dist`` phases 1 and 6c.  Without arguments:
+compares with), with ``--dist`` phases 1 and 6c, with ``--multihost``
+phases 1 and 6d.  Without arguments:
 
 Phases (any failure exits non-zero without the final result line):
 
@@ -147,6 +149,30 @@ Phases (any failure exits non-zero without the final result line):
              host reads a dist cycle and in the migration step, the band
              exchange bytes, one shard's record extraction time, the
              migration step's launches and the phase's.
+6d. multihost - several processes (``parallel/multihost.py``, ``pod.py``,
+             the pod runner ``parallel/multihost_run.py``): the kernels
+             built here first, the runner runs [dist]'s input
+             (cube_mesh(32), 196,608 tets, the cube16 iso shock map) through
+             ``distributed_adapt_multi`` at 4 shards, 2 passes of 10 cycles
+             in blocks of 9: a one-process reference, then 2 ranks x 2
+             shards on the one card over gloo (collectives staged through
+             the host).  Each rank zeroes its launch counts just before the
+             run and reads them just after.  Checked: every rank's merged
+             mesh and metric hash equal the reference's;
+             ``mh.hot_allgather_bytes`` 0 and ``mh.band_exchange_bytes``
+             above 0 on every rank; K1 and K3-K8 launched in each rank and
+             K2 not; no ``nvcc`` build inside a rank; rank 0's merged mesh
+             conforming with qmin > 0.  Then the drills on cube_mesh(12)
+             under the cube8 map (2 passes of 4 cycles, checkpoints on),
+             both packs at once (each over a file store of its own, so
+             they never race for a port): rank 1 killed at its pass-1 exchange,
+             the pack relaunched with resume; rank 1 wedged there, the
+             heartbeat lease kills the pack (rc 9) and the same resume;
+             each must end with the bytes of a one-process run.  Prints
+             tets, qmin, qmean, the ranks' walls beside the one-process
+             wall, band bytes beside the hot collective bytes (every
+             collective inside ``hot_path``), allgather and collective
+             bytes, and the drills' return codes.
 6b. chaos  - the resilience layer (``resilience/``, ``parallel/groups.py``,
              ``_polish_worker.py``), each drill held to the fault-free
              bytes.  The [grouped] input and flags at chunk 8: (1)
@@ -272,6 +298,7 @@ import contextlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1684,6 +1711,145 @@ def phase_dist(workdir: str, device: str = "cuda"):
                            "communicators do not check")
     _graph_run(workdir, device)
     return launches
+
+
+# the [multihost] phase: the runner on [dist]'s input (cube_mesh(32), the
+# cube16 map, 4 shards, 2 passes of 10 cycles: the CLI's default cycles)
+# on 2 ranks, and the drills on cube_mesh(12) under the cube8 map
+MH_ARGS = ("--shards", "4", "--n", "32", "--h", repr(1.5 / 16), "--niter",
+           "2", "--cycles", "10")
+MH_DRILL_ARGS = ("--shards", "4", "--n", "12", "--h", repr(1.5 / 8),
+                 "--niter", "2", "--cycles", "4")
+MH_LEASE_S = 20
+
+
+def _mh_start(workdir: str, tag: str, args, device: str, env=None,
+              timeout: float = 600.0):
+    """Start the pod runner in a subprocess, every rank's merged state
+    dumped under ``workdir/mh.<tag>``; :func:`_mh_wait` reads it."""
+    out_dir = os.path.join(workdir, f"mh.{tag}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    cmd = [sys.executable, "-m", "parmmg_tpu_torch.parallel.multihost_run",
+           "--np", "2", "--device", device, "--dump", out_dir,
+           "--store", os.path.join(out_dir, "store"),
+           "--timeout", str(timeout - 60), "--coll-timeout", "300",
+           "--verbose", *args]
+    e = dict(os.environ, PYTHONPATH=HERE, PMTORCH_RETRY_BASE_S="0",
+             **(env or {}))
+    return (tag, timeout, time.perf_counter(), subprocess.Popen(
+        cmd, cwd=HERE, env=e, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True))
+
+
+def _mh_wait(started):
+    """(artifact extra, wall s) of a runner :func:`_mh_start` started;
+    raises on a non-zero exit, killing it past its timeout."""
+    tag, timeout, t0, proc = started
+    try:
+        out, err = proc.communicate(
+            timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"[multihost] {tag}: runner exit "
+                           f"{proc.returncode}\n{err[-6000:]}")
+    return json.loads(out.strip().splitlines()[-1])["extra"], wall
+
+
+def phase_multihost(workdir: str, device: str = "cuda"):
+    """The [multihost] path (module docstring, 6d).  Returns each kernel's
+    launches in each rank: {kernel: [rank 0, rank 1]}."""
+    import numpy as np
+    import torch
+    from parmmg_tpu_torch.core.mesh import MESH_FIELDS, mesh_from_numpy
+    ex, wall = _mh_wait(_mh_start(workdir, "main", MH_ARGS + ("--parity",),
+                                  device, timeout=900))
+    ref, ws = ex["ref"], ex["workers"]
+    print(f"[multihost] cube_mesh(32) 4 shards -niter 2 (cycles 10): "
+          f"one-process reference {ref['ntets']} tets, qmin "
+          f"{ref['qmin']:.6f} qmean {ref['qmean']:.6f}, run "
+          f"{ref['seconds']:.3f} s ({ex['ref_wall_s']:.3f} s with its "
+          "process)")
+    for w in ws:
+        print(f"[multihost] rank {w['rank']}/2 on {w['device']}: "
+              f"{w['ntets']} tets, qmin {w['qmin']:.6f} qmean "
+              f"{w['qmean']:.6f}, run {w['seconds']:.3f} s, hash "
+              f"{w['hash']} (reference {ref['hash']}), band exchange bytes "
+              f"{int(w['mh.band_exchange_bytes'])} of "
+              f"{int(w['mh.hot_collective_bytes'])} hot collective bytes, "
+              f"allgather bytes "
+              f"{int(w['mh.allgather_bytes'])} (hot "
+              f"{int(w['mh.hot_allgather_bytes'])}), collectives "
+              f"{int(w['mh.collectives'])} moving "
+              f"{int(w['mh.collective_bytes'])} bytes, nvcc builds "
+              f"{w['nvcc_builds']}")
+        print(f"[multihost] rank {w['rank']} launches {w['launches']}")
+    print(f"[multihost] 2-rank pack wall {ex['wall_s']:.3f} s (processes "
+          f"included); parity_ok {ex['parity_ok']}")
+    must, must_not = PATH_KERNELS["cube32"]
+    for w in ws:
+        if w["hash"] != ref["hash"]:
+            raise RuntimeError(f"[multihost] rank {w['rank']} hash "
+                               f"{w['hash']} != reference {ref['hash']}")
+        if w["mh.hot_allgather_bytes"] or not w["mh.band_exchange_bytes"]:
+            raise RuntimeError(f"[multihost] rank {w['rank']}: hot "
+                               f"allgather {w['mh.hot_allgather_bytes']}, "
+                               f"band {w['mh.band_exchange_bytes']}")
+        if w["nvcc_builds"] or w["jax_loaded"]:
+            raise RuntimeError(f"[multihost] rank {w['rank']} built "
+                               f"{w['nvcc_builds']} / imported jax "
+                               f"{w['jax_loaded']}")
+        missing = sorted(k for k in must if w["launches"][k] == 0)
+        if device == "cuda" and (missing or w["launches"][must_not]):
+            raise RuntimeError(f"[multihost] rank {w['rank']}: kernels "
+                               f"never launched {missing}, {must_not} "
+                               f"{w['launches'][must_not]}")
+    with np.load(os.path.join(workdir, "mh.main", "timed.r0.npz")) as z:
+        mesh = mesh_from_numpy({f: z[f] for f in MESH_FIELDS}, device)
+        met = torch.from_numpy(np.array(z["met"])).to(device)
+    bad, qmin, qmean = _check_conforming("[multihost]", mesh, met)
+    print(f"[multihost] rank 0's merged mesh re-read: "
+          f"{int(mesh.tmask.sum())} tets, adjacency {bad}, qmin {qmin:.6f}")
+    # the drills, both packs at once: a crash and a wedge of rank 1 at
+    # its pass-1 extend exchange (after the pass-0 checkpoint), each
+    # resumed
+    ck = os.path.join(workdir, "mh.ckpt")
+    for d in (ck + "1", ck + "2"):
+        shutil.rmtree(d, ignore_errors=True)
+    crash = _mh_start(
+        workdir, "crash", MH_DRILL_ARGS + (
+            "--parity", "--ckpt", ck + "1", "--fault",
+            "1:multihost.exchange:key=extend;nth-2"),
+        device, env={"PMTORCH_RETRY_MAX": "0"})
+    wedge = _mh_start(
+        workdir, "wedge", MH_DRILL_ARGS + (
+            "--ckpt", ck + "2", "--lease", str(MH_LEASE_S), "--fault",
+            "1:multihost.exchange:key=extend;nth-2;hang=600"),
+        device, env={"PMTORCH_RETRY_MAX": "0", "PMTORCH_HEARTBEAT_S": "1"})
+    try:
+        exc, wc = _mh_wait(crash)
+    finally:
+        exw, ww = _mh_wait(wedge)
+    base = exc["ref"]["hash"]
+    print(f"[multihost] drills on cube_mesh(12): one-process "
+          f"{exc['ref']['ntets']} tets, hash {base}; crash: rc "
+          f"{exc.get('crashed_rc')}, resumed {exc.get('resumed')}, hashes "
+          f"{[w['hash'] for w in exc['workers']]}, {wc:.3f} s with the "
+          f"reference; wedge: rc {exw.get('crashed_rc')}, stale "
+          f"{exw.get('stale_heartbeat')}, resumed {exw.get('resumed')}, "
+          f"hashes {[w['hash'] for w in exw['workers']]}, {ww:.3f} s "
+          f"(lease {MH_LEASE_S} s)")
+    for d in (ck + "1", ck + "2"):
+        shutil.rmtree(d, ignore_errors=True)
+    if not exc.get("crashed_rc") or not exc.get("resumed") or \
+            exw.get("crashed_rc") != 9 or not exw.get("resumed") or \
+            any(w["hash"] != base for w in exc["workers"] + exw["workers"]):
+        raise RuntimeError("[multihost] a drill did not resume to the "
+                           "one-process bytes")
+    return {k: [w["launches"][k] for w in ws] for k in ws[0]["launches"]}
 
 
 # the [chaos] phase: the [grouped] input at chunk 8 (checks 1-4), and
@@ -3408,9 +3574,11 @@ def main(argv=()) -> int:
         return 2
     workdir = os.path.join(HERE, "build", "smoke")
     os.makedirs(workdir, exist_ok=True)
-    if list(argv) in (["--serve"], ["--chaos"], ["--dist"]):
+    if list(argv) in (["--serve"], ["--chaos"], ["--dist"],
+                      ["--multihost"]):
         phase = {"--serve": phase_serve, "--chaos": phase_chaos,
-                 "--dist": phase_dist}[argv[0]]
+                 "--dist": phase_dist,
+                 "--multihost": phase_multihost}[argv[0]]
         try:
             phase_build()
             launches = phase(workdir)
@@ -3459,6 +3627,7 @@ def main(argv=()) -> int:
         launches_grouped, band_samples, band_shapes = timed(
             "grouped", phase_grouped, workdir)
         launches_dist = timed("dist", phase_dist, workdir)
+        launches_mh = timed("multihost", phase_multihost, workdir)
         launches_chaos = timed(
             "chaos", phase_chaos, workdir,
             base=os.path.join(workdir, "cube32.o.mesh"))
@@ -3479,6 +3648,7 @@ def main(argv=()) -> int:
         r["serve_launches"] = int(launches_serve[r["name"]])
         r["chaos_launches"] = int(launches_chaos[r["name"]])
         r["dist_launches"] = int(launches_dist[r["name"]])
+        r["multihost_launches"] = [int(v) for v in launches_mh[r["name"]]]
     print(f"[walls] seconds a phase {walls}, "
           f"{sum(walls.values()):.3f} in all")
     print(json.dumps({"kernels": rows}))

@@ -27,10 +27,16 @@ from __future__ import annotations
 import dataclasses
 import os
 
-__all__ = ["KNOBS", "Knob", "PREFIX", "environment", "get",
-           "knob_table_md", "registered"]
+__all__ = ["KNOBS", "Knob", "LAUNCHER_VARS", "PREFIX", "environment",
+           "get", "knob_table_md", "launcher", "registered"]
 
 PREFIX = "PMTORCH_"
+
+# the variables a process launcher (``torchrun``, the pod runner) sets for
+# each rank of a several-process run: torch.distributed's own names, read
+# through :func:`launcher`, never a knob
+LAUNCHER_VARS = ("LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT", "RANK",
+                 "WORLD_SIZE")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,11 +85,31 @@ KNOBS: dict[str, Knob] = {
         "groups per dispatch on the grouped path (grouped_adapt_pass's "
         "chunk argument, read once at the driver's entry; 0 = every group "
         "in one dispatch; empty = the memory rule of groups.group_chunk)"),
+    "PMTORCH_HEARTBEAT_S": Knob(
+        "float", "2",
+        "least seconds between two touches of a rank's heartbeat file "
+        "(resilience/watchdog.beat)"),
     "PMTORCH_INCR_TOPO": Knob(
         "flag", "",
         "incremental topology maintenance on the grouped path "
         "(grouped_adapt_pass's incr argument, read once at the driver's "
         "entry; ops/topo_incr.py); 0/unset = full rebuilds"),
+    "PMTORCH_MH_HANDOFF": Knob(
+        "flag", "",
+        "1 = the group handoff between passes: whole shards move between "
+        "ranks when the ranks' loads skew (parallel/pod.maybe_handoff)"),
+    "PMTORCH_MH_HEARTBEAT_DIR": Knob(
+        "path", "",
+        "per-rank heartbeat directory (hb.N files), set by the pod runner "
+        "for its workers under --lease; never set by hand"),
+    "PMTORCH_MH_IMBALANCE": Knob(
+        "float", "0.25",
+        "rank load skew (max / mean - 1) above which the group handoff "
+        "plans a new placement"),
+    "PMTORCH_MH_STRICT": Knob(
+        "flag", "",
+        "1 = raise on a metered pull_host allgather inside a hot path "
+        "instead of only counting it on mh.hot_allgather_bytes"),
     "PMTORCH_POLISH_SUBPROC": Knob(
         "flag", "",
         "grouped polish (-group-polish) of a chunked pass in a "
@@ -141,6 +167,15 @@ def get(name: str, default: str | None = None) -> str:
                        "parmmg_tpu_torch/api/knobs.py")
     return os.environ.get(
         name, KNOBS[name].default if default is None else default)
+
+
+def launcher(name: str) -> str:
+    """One of :data:`LAUNCHER_VARS` from the environment ("" when unset);
+    raises ``KeyError`` on any other name."""
+    if name not in LAUNCHER_VARS:
+        raise KeyError(f"{name!r} is not a launcher variable "
+                       f"{LAUNCHER_VARS}")
+    return os.environ.get(name, "")
 
 
 def environment() -> dict:

@@ -38,7 +38,6 @@ import numpy as np
 
 from .api.parmesh import ParMesh
 from .core import constants as C
-from .driver import NotYetPorted
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -259,11 +258,7 @@ def main(argv=None) -> int:
         for entry in parsed:
             pm.set_local_parameter(*entry)
 
-    try:
-        ret = pm.run()
-    except NotYetPorted as e:
-        print(str(e), file=sys.stderr)
-        return 1
+    ret = pm.run()
     dt = time.perf_counter() - t0
     if ret == C.PMMG_LOWFAILURE:
         print("adaptation INCOMPLETE (low failure): saving the last "

@@ -39,10 +39,6 @@ from .ops.adapt import AdaptStats, adapt_mesh
 from .ops.metric import clamp_metric, gradation, metric_hsiz, metric_optim
 
 
-class NotYetPorted(NotImplementedError):
-    """A feature of the JAX package that later slices of the port add."""
-
-
 def _log(level: int, msg: str, imprim: int) -> None:
     otrace.log(level, msg, verbose=imprim)
 

@@ -15,9 +15,10 @@ refresh of the distributed pass, on the shard stack:
   PMMG_setdhd / MG_NOM rules);
 - potentially-shared records (both endpoints interface) are compacted
   into a fixed [KS] buffer per shard and gathered from every shard (the
-  JAX package's ``all_gather``; here the packs of the stack are already
-  on the one device): one global grouping classifies them and each shard
-  reads back the verdicts of its own records;
+  JAX package's ``all_gather``: one collective across the ranks of a
+  several-process run, none at one process): one global grouping of the
+  packs of every shard classifies them and each shard reads back the
+  verdicts of its own records;
 - vertex singularity classification (corner = 1 or >2 incident special
   edges, ridge point = 2; PMMG_singul:1679) needs GLOBAL incident counts:
   each special edge contributes +1 at its endpoints exactly once (the
@@ -309,11 +310,15 @@ def _etag_rewrite(mesh: Mesh, rec: _Records, bits_rec):
 
 def _analysis_stack(stacked, glo_s, node_idx_s, nbr_s, angedg: float,
                     KS: int, exchange):
-    """The refresh over every shard of ``stacked`` (a MeshStack): local
-    verdicts and shared packs a shard, one global grouping of every
-    pack, the per-shard tails, ``exchange(payload, node_idx, nbr)`` (a
-    halo exchange of the stack) and the vertex classification.
-    Returns (vtag [L, capP], etag [L, capT, 6], overflow bool)."""
+    """The refresh over every shard of ``stacked`` (a MeshStack, the L
+    shards this rank holds): local verdicts and shared packs a shard, one
+    global grouping of the packs of every shard of the run (gathered
+    across the ranks, in global shard order), the per-shard tails,
+    ``exchange(payload, node_idx, nbr)`` (a halo exchange; the comm
+    tables of every shard) and the vertex classification.
+    Returns (vtag [L, capP], etag [L, capT, 6], overflow bool of this
+    rank's shards)."""
+    from . import multihost, pod
     L = stacked.ngroups
     capP = stacked.capP
     dev = stacked.device
@@ -328,8 +333,11 @@ def _analysis_stack(stacked, glo_s, node_idx_s, nbr_s, angedg: float,
         packs.append(pack)
         ovf.append(o)
     # the gather: every logical shard's pack, logical order
-    gath = {k: torch.stack([p[k] for p in packs]) for k in packs[0]}
-    logical_of = torch.arange(L, device=dev).repeat_interleave(KS)
+    keys = list(packs[0])
+    gath = dict(zip(keys, multihost.all_gather_rows(
+        *(torch.stack([p[k] for p in packs]) for k in keys))))
+    S = gath["valid"].shape[0]           # shards of the run
+    logical_of = torch.arange(S, device=dev).repeat_interleave(KS)
     gv = gath["valid"].reshape(-1)
     order_g, first_g = _sort2(gath["glo"].reshape(-1),
                               gath["ghi"].reshape(-1), gv)
@@ -337,13 +345,15 @@ def _analysis_stack(stacked, glo_s, node_idx_s, nbr_s, angedg: float,
         first_g, gv[order_g], gath["nu"].reshape(-1, 3)[order_g],
         gath["fref"].reshape(-1)[order_g], angedg)
     mine = gv[order_g]
-    g_tgt = torch.where(mine, logical_of[order_g], L)
+    g_tgt = torch.where(mine, logical_of[order_g], S)
     j_tgt = torch.where(mine, order_g % KS, 0)
-    zi = torch.zeros((L + 1) * KS, dtype=torch.int32, device=dev)
+    zi = torch.zeros((S + 1) * KS, dtype=torch.int32, device=dev)
     flat = g_tgt * KS + j_tgt
-    sh_bits = reduce_drop(zi, flat, bits_g, "amax")[:L * KS].view(L, KS)
+    r0 = pod.row0()
+    sh_bits = reduce_drop(zi, flat, bits_g, "amax")[:S * KS].view(
+        S, KS)[r0:r0 + L]
     sh_head = reduce_drop(zi, flat, (head_g & mine).to(torch.int32),
-                          "amax")[:L * KS].view(L, KS) > 0
+                          "amax")[:S * KS].view(S, KS)[r0:r0 + L] > 0
     etags, payloads = [], []
     for g in range(L):
         row = packs[g]["row"]
@@ -355,10 +365,10 @@ def _analysis_stack(stacked, glo_s, node_idx_s, nbr_s, angedg: float,
         etags.append(_etag_rewrite(stacked.slot(g), recs[g], b))
     payload = torch.stack(payloads)                       # [L, capP, 4]
     recv = exchange(payload, node_idx_s, nbr_s)           # [L, K, I, 4]
-    K, I = node_idx_s.shape[1:]
     acc = []
     for g in range(L):
-        fl = torch.where(node_idx_s[g] >= 0, node_idx_s[g], capP)
+        ni = node_idx_s[r0 + g]
+        fl = torch.where(ni >= 0, ni, capP)
         acc.append(reduce_drop(
             torch.zeros((capP + 1, 4), dtype=torch.float32, device=dev),
             fl.reshape(-1), recv[g].reshape(-1, 4), "sum")[:capP])

@@ -20,11 +20,12 @@ chkcomm_pmmg.c; global numbering libparmmg.c:464-1105):
 - the chkcomm "coordinate echo" oracle is :func:`check_node_comms`.
 
 The host half (table construction, numbering, the checks) is the JAX
-package's numpy, copied.  The device half works on a shard stack: every
-logical shard of a run lives on one device, as the leading axis of its
-tensors, so the JAX package's ``all_to_all`` (and its dense and packed
+package's numpy, copied; every rank holds the tables of every shard.  The
+device half works on the shard stack a rank holds (every shard at one
+process): the JAX package's ``all_to_all`` (and its dense and packed
 layouts of G logical shards a device, which only shape the bytes that
-cross devices) is one gather of each neighbour's send row.
+cross devices) is a gather of each neighbour's send row, through one
+collective of the ranks' packed send rows across processes.
 """
 from __future__ import annotations
 
@@ -306,30 +307,48 @@ def _global_face_to_local(gface: np.ndarray, part: np.ndarray, s: int)\
 # halo exchange over a shard stack
 # ---------------------------------------------------------------------------
 def halo_exchange(vals, send_idx, nbr):
-    """Exchange per-interface-item values between the shards of a stack
+    """Exchange per-interface-item values between the shards of a run
     (the JAX package's ``halo_exchange`` and its grouped dense and packed
     layouts: every one of them delivers the same values).
 
-    vals:      [L, P, ...] per-local-entity values of every shard
-    send_idx:  [L, K, I] local entity ids (-1 pad); item order matches the
+    vals:      [L, P, ...] per-local-entity values of the L shards this
+               rank holds (every shard at one process)
+    send_idx:  [S, K, I] local entity ids (-1 pad) of EVERY shard (the
+               comm tables, global shard ids); item order matches the
                neighbor's table for the same pair (ordering contract)
-    nbr:       [L, K] neighbor shard ids (-1 pad)
+    nbr:       [S, K] neighbor shard ids (-1 pad)
     Returns ``recv[L, K, I, ...]``: each neighbor's values for each item
     (zeros on pads).  The caller merges with its own gather + owner rule.
 
-    Every shard of the stack lives on one device, so the ``all_to_all``
-    is one gather: ``recv[l, k, i] = vals[b, send_idx[b, k', i]]`` with
-    ``b = nbr[l, k]`` and ``k'`` the slot of ``l`` in ``b``'s table."""
-    L, K, I = send_idx.shape
+    At one process every shard is on this stack, so shard ``l`` reads
+    ``recv[l, k, i] = vals[b, send_idx[b, k', i]]`` with ``b = nbr[l,
+    k]`` and ``k'`` the slot of ``l`` in ``b``'s table.  Across processes
+    each shard packs its send rows ``send[l, k, i] = vals[l, send_idx[l,
+    k, i]]``, the packs of every rank are gathered in one collective, and
+    shard ``l`` reads ``send[b, k', i]``."""
+    from . import multihost, pod
+    L = vals.shape[0]
+    S, K, I = send_idx.shape
     dev = vals.device
-    b = nbr.clamp(0, L - 1).long()                       # [L,K]
-    me = torch.arange(L, dtype=nbr.dtype, device=dev).view(L, 1, 1)
+    r0 = pod.row0()
+    nbr_l = nbr[r0:r0 + L]
+    b = nbr_l.clamp(0, S - 1).long()                     # [L,K]
+    me = pod.shard_ids(L, dev).to(nbr.dtype).view(L, 1, 1)
     back = nbr[b] == me                                  # [L,K,K]
     kp = back.to(torch.int8).argmax(dim=-1)              # slot of l in b
     src = send_idx[b, kp]                                # [L,K,I]
-    ok = ((nbr >= 0) & back.any(dim=-1))[..., None] & (src >= 0)
-    recv = vals[b[..., None].expand(L, K, I),
-                src.clamp(0, vals.shape[1] - 1).long()]  # [L,K,I,...]
+    ok = ((nbr_l >= 0) & back.any(dim=-1))[..., None] & (src >= 0)
+    if multihost.is_multiprocess():
+        lix = torch.arange(L, device=dev).view(L, 1, 1).expand(L, K, I)
+        send = vals[lix, send_idx[r0:r0 + L].clamp(
+            0, vals.shape[1] - 1).long()]
+        (send,) = multihost.all_gather_rows(send)        # [S,K,I,...]
+        recv = send[b[..., None].expand(L, K, I),
+                    kp[..., None].expand(L, K, I),
+                    torch.arange(I, device=dev).expand(L, K, I)]
+    else:
+        recv = vals[b[..., None].expand(L, K, I),
+                    src.clamp(0, vals.shape[1] - 1).long()]  # [L,K,I,...]
     ok = ok.view(L, K, I, *([1] * (recv.dim() - 3)))
     return torch.where(ok, recv, torch.zeros((), dtype=recv.dtype,
                                              device=dev))

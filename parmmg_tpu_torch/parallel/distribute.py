@@ -18,8 +18,8 @@ group-local adapt operator (ops/adapt.py) leaves the interface untouched.
 Tags are int32 tensors in the port; the host arithmetic below works on
 their uint32 views, so every mask keeps the JAX package's bits.
 
-``permute_shards`` (the multi-device group handoff) comes with the
-repartitioning between distributed passes.
+``permute_shards`` is the group handoff's move of whole shards between
+the ranks of a several-process run (``parallel/pod.py``).
 """
 from __future__ import annotations
 
@@ -47,13 +47,16 @@ def _i32(a: np.ndarray, device) -> torch.Tensor:
 
 
 def split_to_shards(mesh, met, part: np.ndarray, nparts: int,
-                    cap_mult: float = 3.0, return_l2g: bool = False):
+                    cap_mult: float = 3.0, return_l2g: bool = False,
+                    rows=None):
     """Split a Mesh into ``nparts`` group meshes, stacked on the mesh's
     device.
 
     Returns (MeshStack [nparts, ...], met stacked [nparts, capP(, 6)]),
-    plus the per-part local->global vertex maps when ``return_l2g`` (the
-    input of ``comms.build_interface_comms``).
+    plus the per-part local->global vertex maps of EVERY part when
+    ``return_l2g`` (the input of ``comms.build_interface_comms``).
+    ``rows`` (part ids, ascending) builds only those parts' meshes (a
+    rank's shards of a several-process run); the capacity is the same.
     All groups share one capacity (``cap_mult`` x the largest group,
     rounded up the geometric bucket ladder from 64)."""
     dev = mesh.device
@@ -109,7 +112,7 @@ def split_to_shards(mesh, met, part: np.ndarray, nparts: int,
 
     shards_m = []
     shards_met = []
-    for p in range(nparts):
+    for p in (range(nparts) if rows is None else rows):
         gids, ltet_g, tsel = locals_[p]
         g2l = np.full(len(vert), -1, np.int64)
         g2l[gids] = np.arange(len(gids))
@@ -307,6 +310,58 @@ def grow_shards(shards: MeshStack, mets: torch.Tensor, new_capP: int,
         ftag=pad(shards.ftag, dT), fref=pad(shards.fref, dT),
         etag=pad(shards.etag, dT))
     return out, pad(mets, dP)
+
+
+def permute_shards(shards: MeshStack, mets, glo_d, perm):
+    """Reorder the logical shards: new row ``i`` = old row ``perm[i]`` (a
+    bijection; G rows a rank kept by the caller's plan).  Row contents,
+    slot ids and so the comm tables' local indices, are untouched.  On a
+    several-process run each shard that changes rank travels as one
+    send / recv pair of its bytes (mesh rows, metric, ``glo_d`` row);
+    the others are copied in place.  Returns (shards', mets', glo_d' or
+    None)."""
+    from ..core.mesh import MESH_FIELDS
+    from . import multihost, pod
+    perm = np.asarray(perm, np.int64)
+    leaves = [getattr(shards, f) for f in MESH_FIELDS] + [mets]
+    if glo_d is not None:
+        leaves.append(glo_d)
+    ctx = pod.current()
+    if ctx is None or not ctx.multi():
+        p = torch.as_tensor(perm, device=shards.device)
+        out = [x[p] for x in leaves]
+    else:
+        G, r0, me = ctx.G, ctx.row0, ctx.pid
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(len(perm))
+
+        def row(j):
+            return torch.cat([multihost._as_bytes(x[j - r0])
+                              for x in leaves])
+        like = row(r0)
+        kept, sends, recvs = {}, [], []
+        for j in ctx.rows():
+            i = int(inv[j])
+            if i // G == me:
+                kept[i] = row(j)
+            else:
+                sends.append((i // G, i, row(j)))
+        for i in ctx.rows():
+            if int(perm[i]) // G != me:
+                recvs.append((int(perm[i]) // G, i, like))
+        got = multihost.send_recv(sends, recvs)
+        kept.update({i: b for (_, i, _), b in zip(recvs, got)})
+        out = []
+        off = 0
+        for x in leaves:
+            n = x[0].numel() * x.element_size()
+            out.append(torch.stack([
+                kept[i][off:off + n].clone().view(x.dtype).reshape(
+                    x.shape[1:]) for i in ctx.rows()]).to(x.device))
+            off += n
+    nf = len(MESH_FIELDS)
+    moved = MeshStack(**dict(zip(MESH_FIELDS, out[:nf])))
+    return moved, out[nf], (out[nf + 1] if glo_d is not None else None)
 
 
 def merge_shards(shards: MeshStack, mets=None, return_part: bool = False,

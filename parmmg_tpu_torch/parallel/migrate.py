@@ -75,46 +75,51 @@ def _scatter_max(dst, idx, vals):
 @governed("migrate.flood_labels", budget=2)
 def flood_labels(stacked, node_idx, nbr, sizes, n_shards: int,
                  nlayers: int = 2):
-    """([S, capT] int32 target shard of every tet, [S, capT] int32 flood
-    depth: the wave at which the tet flipped, 0 = kept).  Garbage on dead
-    slots.
+    """([L, capT] int32 target shard of every tet, [L, capT] int32 flood
+    depth: the wave at which the tet flipped, 0 = kept) of the L shards
+    this rank holds.  Garbage on dead slots.  ``node_idx`` / ``nbr`` are
+    the comm tables of every shard, ``sizes`` [S] the live tets of every
+    shard: a wave's scatter-max runs on the rank's own shards, and what
+    it knows of the other shards is their sizes and the comm tables.
 
     Priority of colour c = (tet count of shard c, c) lexicographic,
     packed into one int32 (sizes clamped at 2^22: beyond that 'bigger' is
     a tie and the id breaks it).  A tet flips to the strongest colour at
     its corners when that colour beats its own; flipped tets push their
     colour to their corners, one tet-ball layer a wave."""
+    from . import pod
     S = n_shards
+    L = stacked.ngroups                  # the shards this rank holds
     dev = stacked.device
     capP, capT = stacked.capP, stacked.capT
-    node_idx = torch.as_tensor(node_idx, device=dev)
-    nbr = torch.as_tensor(nbr, device=dev)
+    node_idx = torch.as_tensor(pod.local(node_idx), device=dev)
+    nbr = torch.as_tensor(pod.local(nbr), device=dev)
     sizes = torch.as_tensor(sizes, device=dev).to(torch.int32)
 
     def pri_of(c):
         return torch.clamp(sizes[c.clamp(0, S - 1).long()],
                            max=_SIZE_CLAMP) * S + c
 
-    me = torch.arange(S, dtype=torch.int32, device=dev)
-    neg = torch.full((S, 1), -1, dtype=torch.int32, device=dev)
+    me = pod.shard_ids(L, dev)
+    neg = torch.full((L, 1), -1, dtype=torch.int32, device=dev)
     vpri = torch.cat([torch.where(stacked.vmask, pri_of(me)[:, None],
                                   torch.full_like(stacked.vtag, -1)), neg],
-                     dim=1)                                  # [S, capP+1]
+                     dim=1)                                  # [L, capP+1]
     # seed: every interface vertex sees the priorities of the OTHER
     # shards that share it (static knowledge of the node comm tables)
     I = node_idx.shape[2]
-    idx = node_idx.reshape(S, -1)
+    idx = node_idx.reshape(L, -1)
     nb_pri = torch.where(nbr >= 0, pri_of(nbr), -1).to(torch.int32)
     nb_pri = nb_pri.repeat_interleave(I, dim=1)
     safe = torch.where((idx >= 0) & (nb_pri >= 0), idx, capP)
     vpri = _scatter_max(vpri, safe, nb_pri)
-    label = me[:, None].expand(S, capT).clone()
-    depth = torch.zeros((S, capT), dtype=torch.int32, device=dev)
+    label = me[:, None].expand(L, capT).clone()
+    depth = torch.zeros((L, capT), dtype=torch.int32, device=dev)
     tm = stacked.tmask
-    tc = stacked.tet.clamp(0, capP - 1).long().reshape(S, -1)
-    tgt = torch.where(tm[..., None], stacked.tet, capP).reshape(S, -1)
+    tc = stacked.tet.clamp(0, capP - 1).long().reshape(L, -1)
+    tgt = torch.where(tm[..., None], stacked.tet, capP).reshape(L, -1)
     for w in range(nlayers):
-        corner = torch.gather(vpri, 1, tc).reshape(S, capT, 4)
+        corner = torch.gather(vpri, 1, tc).reshape(L, capT, 4)
         tp = corner.max(dim=2).values
         better = tm & (tp > pri_of(label))
         label = torch.where(better, tp % S, label).to(torch.int32)

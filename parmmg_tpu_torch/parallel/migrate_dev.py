@@ -51,6 +51,7 @@ from ..core.constants import (FACE_EDGES, IARE, IDIR, INT32_MAX, MG_BDY,
 from ..obs import trace as otrace
 from ..ops import kernels
 from ..utils.compilecache import bucket, governed
+from . import multihost, pod
 
 _I32 = torch.int32
 
@@ -126,24 +127,30 @@ def _take(x, idx):
 def device_migrate(stacked, met_s, glo_d, labels, depth, KB: int, KV: int):
     """Apply the displaced partition on the device.
 
+    ``stacked`` holds the S shards of this rank (every shard at one
+    process; ``pod.current``), labels in global shard ids.
     ``glo_d``: [S, capP] int32 global vertex ids (-1 dead).
     ``labels``/``depth``: flood output [S, capT].
     ``KB``: max moved tets per shard (and max arrivals per shard);
     ``KV``: max new vertex rows per shard.
 
     Returns (stacked', met', glo_d', info) with info a dict of
-      ok          0-d bool: every budget respected; when False the
-                  outputs are UNDEFINED and the caller must fall back
-      nmoved      0-d total moved tets
+      ok          0-d bool: every budget respected on every shard of the
+                  run; when False the outputs are UNDEFINED and the
+                  caller must fall back
+      nmoved      0-d total moved tets of the run
       arr_rows/arr_gids [S, KV] newly allocated vertex rows (-1 pad)
       dep_slots   [S, KB] departed tet slots (capT pad)
       arr_slots   [S, KB] arrival tet slots (capT pad)
       labels, dead_rows [S, KV] (capP pad), dead_cnt [S], ok_parts [6].
-    The inputs are not written."""
+    The departing rows of every rank form one pool in global shard order
+    (each rank's [S*KB] pack, gathered in rank order), so every recipient
+    reads the pool of the one-process run.  The inputs are not written."""
     S, capT = stacked.tmask.shape
     capP = stacked.capP
     dev = stacked.device
-    me = torch.arange(S, dtype=_I32, device=dev)[:, None]
+    n_all = pod.n_global(S)              # shards of the run
+    me = pod.shard_ids(S, dev)[:, None]
     live = stacked.tmask
     nlive = live.sum(dim=1)
 
@@ -160,7 +167,7 @@ def device_migrate(stacked, met_s, glo_d, labels, depth, KB: int, KV: int):
     labels = torch.where(revert, me, labels).to(_I32)
     moved = moved0 & ~revert
     nmove = moved.sum(dim=1)
-    nmoved = nmove.sum()
+    nmoved = multihost.all_reduce(nmove.sum())
     ok_kb = (nmove <= KB).all()
 
     # ---- band compaction + cross-shard pool -----------------------------
@@ -168,7 +175,7 @@ def device_migrate(stacked, met_s, glo_d, labels, depth, KB: int, KV: int):
     mvalid = midx < capT
     mslot = midx.clamp(max=capT - 1)
     src2 = torch.arange(S, device=dev)[:, None].expand(S, KB)
-    mdst = torch.where(mvalid, labels[src2, mslot], S).to(_I32)
+    mdst = torch.where(mvalid, labels[src2, mslot], n_all).to(_I32)
     P = S * KB
     p_src = src2.reshape(P)
     p_slot = mslot.reshape(P)
@@ -186,10 +193,15 @@ def device_migrate(stacked, met_s, glo_d, labels, depth, KB: int, KV: int):
     p_vtag = stacked.vtag[ps4, ptc]
     p_vref = stacked.vref[ps4, ptc]
     p_met = met_s[ps4, ptc]
+    # the pool of every rank, in global shard order
+    (p_dst, p_gt, p_tref, p_ftag, p_fref, p_etag, p_vert, p_vtag, p_vref,
+     p_met) = multihost.all_gather_rows(
+        p_dst, p_gt, p_tref, p_ftag, p_fref, p_etag, p_vert, p_vtag, p_vref,
+        p_met)
 
     # sort the pool by destination -> contiguous per-recipient segments
     sdst, ordp = torch.sort(p_dst, stable=True)
-    ar = torch.arange(S, dtype=sdst.dtype, device=dev)
+    ar = me[:, 0].to(sdst.dtype)
     seg_start = torch.searchsorted(sdst, ar)
     seg_cnt = torch.searchsorted(sdst, ar, right=True) - seg_start
     ok_arr = (seg_cnt <= KB).all()
@@ -308,8 +320,8 @@ def device_migrate(stacked, met_s, glo_d, labels, depth, KB: int, KV: int):
     n_dead = newly_dead.sum(dim=1)
     ok_dead = (n_dead <= KV).all()
     dead_rows = _compact(newly_dead, KV, capP).to(_I32)
-    ok_parts = torch.stack([ok_kb, ok_arr, ok_kv, ok_free, ok_slots,
-                            ok_dead])
+    ok_parts = multihost.all_reduce(torch.stack(
+        [ok_kb, ok_arr, ok_kv, ok_free, ok_slots, ok_dead]), "min")
     info = dict(ok=ok_parts.all(), nmoved=nmoved, arr_rows=arr_rows,
                 arr_gids=arr_gids, dep_slots=midx.to(_I32),
                 arr_slots=arr_slot.to(_I32), labels=labels,
@@ -359,7 +371,7 @@ def exposed_face_probe(stacked, glo_d, KF: int):
         1, selc[..., None].expand(S, KF, 3))
     keys = torch.where(hit[..., None], keys, -1).to(_I32)
     slots = torch.where(hit, order.gather(1, selc), n).to(_I32)
-    return keys, slots, cnt, (cnt <= KF).all()
+    return keys, slots, cnt, multihost.all_reduce((cnt <= KF).all(), "min")
 
 
 # ---------------------------------------------------------------------------
@@ -484,7 +496,8 @@ def band_region_probe(stacked, glo_d, seed_tets, KW: int, KWp: int):
     vin = vm2 & stacked.vmask
     tcnt = touch2.sum(dim=1, dtype=_I32)
     vcnt = vin.sum(dim=1, dtype=_I32)
-    ok = (tcnt <= KW).all() & (vcnt <= KWp).all()
+    ok = multihost.all_reduce((tcnt <= KW).all() & (vcnt <= KWp).all(),
+                              "min")
     trow = _compact(touch2, KW, capT).to(_I32)
     vrow = _compact(vin, KWp, capP).to(_I32)
     # vertices with an incident tet outside the region stay frozen for
@@ -511,9 +524,13 @@ def extend_ids_device(glo_d, vmask, top: int, KN: int):
     dev = glo_d.device
     fresh = vmask & (glo_d < 0)
     nf = fresh.sum(dim=1)
-    ok = (nf <= KN).all()
+    ok = multihost.all_reduce((nf <= KN).all(), "min")
+    # the id blocks follow the global shard order: the fresh counts of
+    # every shard of the run
+    (nf_all,) = multihost.all_gather_rows(nf)
     base = top + torch.cat([torch.zeros(1, dtype=nf.dtype, device=dev),
-                            torch.cumsum(nf, 0)[:-1]])
+                            torch.cumsum(nf_all, 0)[:-1]])
+    base = base[pod.row0():pod.row0() + S]
     rows = _compact(fresh, KN, capP)
     gids = (base[:, None] + torch.arange(KN, device=dev)).to(_I32)
     valid = rows < capP
@@ -521,7 +538,7 @@ def extend_ids_device(glo_d, vmask, top: int, KN: int):
     # dead rows lose their id
     glo2 = torch.where(vmask, glo2, torch.full_like(glo2, -1))
     minus = torch.full_like(gids, -1)
-    return (glo2, top + nf.sum(),
+    return (glo2, top + nf_all.sum(),
             torch.where(valid, rows, -1).to(_I32),
             torch.where(valid, gids, minus), ok)
 
@@ -534,7 +551,8 @@ def dead_glo_rows(glo_d, vmask, KD: int):
     capP = glo_d.shape[1]
     dead = (glo_d >= 0) & ~vmask
     cnt = dead.sum(dim=1, dtype=_I32)
-    return _compact(dead, KD, capP).to(_I32), cnt, (cnt <= KD).all()
+    return (_compact(dead, KD, capP).to(_I32), cnt,
+            multihost.all_reduce((cnt <= KD).all(), "min"))
 
 
 def session_ids_fit(top: int, n_shards: int, KN: int) -> bool:
@@ -703,8 +721,8 @@ def band_migrate_iteration(stacked, met_s, glo_d, glo: list[np.ndarray],
         slots_d[s, :len(ifc_face_slots[s])] = ifc_face_slots[s]
         vrows_d[s, :len(ifc_vert_rows[s])] = ifc_vert_rows[s]
     stacked2 = retag_device(stacked2, glo_d2,
-                            torch.as_tensor(slots_d, device=dev),
-                            torch.as_tensor(vrows_d, device=dev))
+                            torch.as_tensor(pod.local(slots_d), device=dev),
+                            torch.as_tensor(pod.local(vrows_d), device=dev))
     otrace.log(2, f"  band migration: moved {nmoved} tets, "
                   f"{len(iA)} interface faces, "
                   f"{int(shared.sum())} shared vertices "
@@ -731,7 +749,8 @@ def band_weld(stacked, met_s, glo_d, glo: list[np.ndarray],
     dev = stacked.device
     KW = max(512, capT // 2)
     KWp = max(512, capP // 2)
-    seed = torch.as_tensor(np.ascontiguousarray(arr_slots), device=dev)
+    seed = torch.as_tensor(np.ascontiguousarray(pod.local(arr_slots)),
+                           device=dev)
     while True:
         trow, vrow, tcnt, vcnt, v_open, ok = band_region_probe(
             stacked, glo_d, seed, KW=KW, KWp=KWp)
@@ -757,6 +776,7 @@ def band_weld(stacked, met_s, glo_d, glo: list[np.ndarray],
     tet_d = tmask_d = vmask_d = None
     glo_d_out = glo_d
     ntot = 0
+    r0, L = pod.row0(), stacked.ngroups
     for s in range(S):
         nt, nv = int(tcnt[s]), int(vcnt[s])
         if nt == 0 or nv == 0:
@@ -776,6 +796,11 @@ def band_weld(stacked, met_s, glo_d, glo: list[np.ndarray],
         if vkeep.all() and tkeep.all() and np.array_equal(tet2, tloc):
             continue
         ntot += int((~vkeep).sum())
+        dead_v = vr_s[np.where(~vkeep)[0]]
+        glo[s][dead_v] = -1          # the host mirror of every shard
+        if not r0 <= s < r0 + L:
+            continue                 # another rank's shard
+        ls = s - r0
         if tet_d is None:
             tet_d = stacked.tet.clone()
             tmask_d = stacked.tmask.clone()
@@ -784,25 +809,25 @@ def band_weld(stacked, met_s, glo_d, glo: list[np.ndarray],
         chg = np.where(np.any(tet2 != tloc, axis=1) | ~tkeep)[0]
         rows_g = torch.as_tensor(trow[s][chg].astype(np.int64), device=dev)
         tet_g = vr_s[np.clip(tet2[chg], 0, nv - 1)].astype(np.int32)
-        tet_d[s, rows_g] = torch.as_tensor(tet_g, device=dev)
+        tet_d[ls, rows_g] = torch.as_tensor(tet_g, device=dev)
         dead_t = trow[s][np.where(~tkeep)[0]]
         if len(dead_t):
-            tmask_d[s, torch.as_tensor(dead_t.astype(np.int64),
-                                       device=dev)] = False
-        dead_v = vr_s[np.where(~vkeep)[0]]
+            tmask_d[ls, torch.as_tensor(dead_t.astype(np.int64),
+                                        device=dev)] = False
         if len(dead_v):
             dv = torch.as_tensor(dead_v.astype(np.int64), device=dev)
-            vmask_d[s, dv] = False
-            glo[s][dead_v] = -1
+            vmask_d[ls, dv] = False
             # the DEVICE numbering drops the welded gids too: the next
             # adapt cycles run before extend_ids_device and can reuse
             # these slots, and a stale gid there would resurrect under
             # the old identity
-            glo_d_out[s, dv] = -1
+            glo_d_out[ls, dv] = -1
     if ntot == 0:
         return stacked, glo_d_out, 0
     otrace.log(2, f"  band weld: {ntot} near-duplicate pairs "
                   "contracted", verbose=verbose)
+    if tet_d is None:                # every weld on another rank's shards
+        return stacked, glo_d_out, ntot
     out = dataclasses.replace(stacked, tet=tet_d, tmask=tmask_d,
                               vmask=vmask_d)
     return out, glo_d_out, ntot
@@ -824,7 +849,7 @@ def _band_of(stacked, labels):
     """(moving, band) [S, capT]: the tets leaving their shard, and those
     plus their retained face neighbours."""
     S, capT = stacked.tmask.shape
-    me = torch.arange(S, dtype=_I32, device=stacked.device)[:, None]
+    me = pod.shard_ids(S, stacked.device)[:, None]
     tm = stacked.tmask
     moving = tm & (labels != me)
     nbrc = (stacked.adja >> 2).clamp(0, capT - 1).long().reshape(S, -1)
@@ -978,9 +1003,9 @@ def repair_flood_labels(stacked, labels_d, depth_d, n_shards: int,
     otrace.log(2, f"  flood repair: relabeled {nfixed} band tets "
                   "(contiguity/reachability)", verbose=verbose)
     dev = labels_d.device
-    labels_d = _apply_label_fixes(labels_d, torch.as_tensor(rows,
-                                                            device=dev),
-                                  torch.as_tensor(new_lab, device=dev))
+    labels_d = _apply_label_fixes(
+        labels_d, torch.as_tensor(pod.local(rows), device=dev),
+        torch.as_tensor(pod.local(new_lab), device=dev))
     return labels_d, nfixed
 
 
@@ -1003,7 +1028,7 @@ def graph_probe(stacked, face_idx, n_shards: int, G: int):
     dev = stacked.device
     face_idx = torch.as_tensor(face_idx, device=dev)
     out = []
-    for s in range(n_shards):
+    for s in range(stacked.ngroups):
         tm = stacked.tmask[s]
         tet = stacked.tet[s]
         adja = stacked.adja[s]
@@ -1045,7 +1070,7 @@ def _labels_from_parts(clus, tmask, new_part, n_shards: int):
     """[S, capT] int32: the new shard of every live tet's cluster (its
     own shard on dead slots)."""
     G = new_part.shape[0] // n_shards
-    me = torch.arange(n_shards, dtype=_I32, device=clus.device)[:, None]
+    me = pod.shard_ids(clus.shape[0], clus.device)[:, None]
     lab = new_part[(me * G + clus).long()]
     return torch.where(tmask, lab, me).to(_I32)
 
@@ -1071,7 +1096,7 @@ def graph_repartition_labels_band(stacked, comms, n_shards: int,
         fi2[:, :fi.shape[1], :fi.shape[2]] = fi
         fi = fi2
     clus, nlive, cw, pcnt, cif = graph_probe(
-        stacked, np.ascontiguousarray(fi), S, G)
+        stacked, np.ascontiguousarray(pod.local(fi)), S, G)
     cw, pcnt, cif = gather_band(cw, pcnt, cif, what="graph")
     nclu = S * G
     pi, pj, w = [], [], []

@@ -20,6 +20,16 @@ of ``resilience/checkpoint.py``, its single-device half).
   metric float32, then the loop's arguments), so each resumes the
   other's checkpoints.
 
+The distributed loop (``parallel/dist.distributed_adapt_multi`` with a
+checkpoint tag) writes ``<tag>.dpass<k>.npz`` after each pass: the
+stacked shards of every rank (replicated under ``multihost.cold_io``;
+rank 0 writes), the metric, the host numbering mirror and its session
+counter, the comm tables and the shared-gid / regrow scalars, under the
+JAX package's keys (:func:`save_dist_checkpoint`,
+:func:`latest_dist_checkpoint`, :func:`load_dist_checkpoint`): the
+restart unit of a several-process run, which the pod runner relaunches
+with ``resume`` after a crashed or wedged rank.
+
 Checkpoint IO never kills the run it protects: every write is atomic
 (tmp + ``os.replace``, so a kill mid-write leaves only a ``.tmp`` that is
 never taken for a checkpoint) and every failure, the injected
@@ -40,12 +50,14 @@ from ..api import knobs
 from .faults import faultpoint
 
 __all__ = [
-    "ckpt_config", "ckpt_due", "crash_loop", "latest_pass_checkpoint",
+    "ckpt_config", "ckpt_due", "crash_loop", "latest_dist_checkpoint",
+    "latest_pass_checkpoint", "load_dist_checkpoint",
     "load_pass_checkpoint", "resume_max", "run_fingerprint",
-    "save_pass_checkpoint", "snapshot_stacked",
+    "save_dist_checkpoint", "save_pass_checkpoint", "snapshot_stacked",
 ]
 
 _CKPT_RE = re.compile(r"\.pass(\d+)\.npz$")
+_DCKPT_RE = re.compile(r"\.dpass(\d+)\.npz$")
 
 
 def _host(a) -> np.ndarray:
@@ -263,3 +275,125 @@ def load_pass_checkpoint(path: str, device="cpu"):
         part = z["part"]
         it = int(z["it"])
     return mesh, met, (part if part.size else None), it
+
+
+# ---------------------------------------------------------------------------
+# the distributed loop's pass checkpoints
+# ---------------------------------------------------------------------------
+def save_dist_checkpoint(tag: str, it: int, stacked_host: dict, met_s,
+                         glo: list, top: int, comms, shared_prev,
+                         regrow: int, fingerprint: str | None = None,
+                         write: bool = True) -> str | None:
+    """Atomically write pass ``it``'s dist checkpoint: ``stacked_host``
+    {field: [S, ...] host array} of every shard (tags int32 here, written
+    as uint32 as the JAX package stores them), the metric, the numbering
+    mirror ``glo`` and its counter ``top``, the comm tables (with every
+    shard's owner row), the shared gids and the regrow count.  Only the
+    rank with ``write`` touches the file; the path (or None: disabled,
+    not due, or failed — counted and traced, never raised)."""
+    from ..core.mesh import _TAG_FIELDS
+    from ..obs import trace as otrace
+    from ..obs.metrics import REGISTRY
+    if not ckpt_due(it):
+        return None
+    d, _ = ckpt_config()
+    path = os.path.join(d, f"{tag}.dpass{it}.npz")
+    if not write:
+        return path
+    try:
+        faultpoint("io.checkpoint")
+        os.makedirs(d, exist_ok=True)
+        tmp = path + ".tmp"
+        payload = {}
+        for k, v in stacked_host.items():
+            a = _host(v)
+            payload[f"m_{k}"] = a.view(np.uint32) if k in _TAG_FIELDS \
+                else a
+        payload.update(
+            it=np.asarray(it, np.int64),
+            fp=np.asarray(fingerprint or ""),
+            met=_host(met_s),
+            glo=np.stack([np.asarray(g) for g in glo]),
+            top=np.asarray(int(top), np.int64),
+            nbr=comms.nbr, node_idx=comms.node_idx,
+            node_cnt=comms.node_cnt, face_idx=comms.face_idx,
+            face_cnt=comms.face_cnt,
+            shared_prev=np.asarray(shared_prev),
+            regrow=np.asarray(int(regrow), np.int64))
+        for s, ow in enumerate(comms.owner):
+            payload[f"owner_{s}"] = np.asarray(ow)
+        with open(tmp, "wb") as fh:
+            np.savez(fh, **payload)
+        os.replace(tmp, path)
+    except Exception as e:
+        try:
+            os.unlink(path + ".tmp")
+        except OSError:
+            pass
+        REGISTRY.counter("resilience.checkpoint_failures").inc()
+        otrace.event("ckpt.failed", tag=tag, it=it, detail=repr(e)[:300])
+        otrace.log(1, f"  ## Warning: dist pass checkpoint failed "
+                      f"({e!r}); run continues unprotected.", err=True)
+        return None
+    REGISTRY.counter("resilience.checkpoints").inc()
+    otrace.event("ckpt.saved", tag=tag, it=it, path=path)
+    return path
+
+
+def latest_dist_checkpoint(tag: str, fingerprint: str | None = None
+                           ) -> tuple[str, int] | None:
+    """Newest complete dist checkpoint (path, pass index) for ``tag``,
+    under the rules of :func:`latest_pass_checkpoint`."""
+    from ..obs import trace as otrace
+    d, _ = ckpt_config()
+    if not d or not os.path.isdir(d):
+        return None
+    found = []
+    for name in os.listdir(d):
+        if not name.startswith(tag + ".dpass"):
+            continue
+        m = _DCKPT_RE.search(name)
+        if m:
+            found.append((int(m.group(1)), os.path.join(d, name)))
+    for it, path in sorted(found, reverse=True):
+        try:
+            with np.load(path) as z:
+                if "m_vert" not in z.files or int(z["it"]) != it:
+                    continue
+                if fingerprint is not None:
+                    stored = str(z["fp"]) if "fp" in z.files else ""
+                    if stored != fingerprint:
+                        otrace.log(1, f"  ## Warning: checkpoint "
+                                      f"{path} belongs to a different "
+                                      "run (input fingerprint "
+                                      "mismatch); skipped.", err=True)
+                        continue
+                return path, it
+        except Exception:
+            continue
+    return None
+
+
+def load_dist_checkpoint(path: str) -> dict:
+    """Dist checkpoint -> {stacked: {field: array of every shard, tags
+    int32}, met, glo (list), top, comms: InterfaceComms, shared_prev,
+    regrow, it}."""
+    from ..core.mesh import _TAG_FIELDS
+    from ..parallel.comms import InterfaceComms
+    with np.load(path) as z:
+        stacked = {}
+        for k in z.files:
+            if k.startswith("m_"):
+                a = np.array(z[k])
+                stacked[k[2:]] = a.view(np.int32) if k[2:] in _TAG_FIELDS \
+                    else a
+        S = z["glo"].shape[0]
+        owner = [np.array(z[f"owner_{s}"]) for s in range(S)]
+        comms = InterfaceComms(np.array(z["nbr"]), np.array(z["node_idx"]),
+                               np.array(z["node_cnt"]),
+                               np.array(z["face_idx"]),
+                               np.array(z["face_cnt"]), owner)
+        return dict(stacked=stacked, met=np.array(z["met"]),
+                    glo=[g.copy() for g in z["glo"]], top=int(z["top"]),
+                    comms=comms, shared_prev=np.array(z["shared_prev"]),
+                    regrow=int(z["regrow"]), it=int(z["it"]))

@@ -1,6 +1,5 @@
 """Deadline watchdogs: make the wedge an exception (the port's copy of
-``resilience/watchdog.py``; its heartbeat leases serve the multi-host
-supervisor, which the port does not have yet).
+``resilience/watchdog.py``).
 
 - :class:`Deadline` — a nestable, polled deadline for code that can
   check cooperatively (``dl.check()`` raises :class:`WatchdogTimeout` once
@@ -25,9 +24,18 @@ supervisor, which the port does not have yet).
 Every expiry bumps ``resilience.watchdog_timeouts`` and emits a
 ``watchdog.timeout`` trace event.  Deadlines are off unless armed: a
 ``PMTORCH_DEADLINE_*`` knob unset or 0, ``seconds <= 0``, means off.
+
+- **heartbeat leases** for a several-process run: each rank touches its
+  ``hb.<rank>`` file under ``PMTORCH_MH_HEARTBEAT_DIR`` (:func:`beat`, at
+  most every ``PMTORCH_HEARTBEAT_S``, inside ``multihost.hot_path`` and
+  ``pod.gather_band``), and the pod runner
+  (``parallel/multihost_run.py --lease``) kills the pack when
+  :func:`stale_ranks` finds a rank silent past its lease: a wedged rank
+  is a crashed rank that did not exit.
 """
 from __future__ import annotations
 
+import os
 import threading
 import time
 
@@ -38,8 +46,9 @@ from ..api import knobs
 GRACE_S = 300.0
 
 __all__ = [
-    "Abandoned", "GRACE_S", "Deadline", "WatchdogTimeout", "deadline_knob",
-    "first_use_grace", "progress", "record_timeout", "run_with_deadline",
+    "Abandoned", "GRACE_S", "Deadline", "WatchdogTimeout", "beat",
+    "deadline_knob", "first_use_grace", "heartbeat_config", "progress",
+    "record_timeout", "run_with_deadline", "stale_ranks",
 ]
 
 
@@ -224,3 +233,72 @@ def run_with_deadline(fn, seconds: float, site: str,
     if "error" in box:
         raise box["error"]
     return box.get("value")
+
+
+# ---------------------------------------------------------------------------
+# heartbeat leases (rank side: beat; runner side: stale_ranks)
+# ---------------------------------------------------------------------------
+_HB = {"last": 0.0}
+
+
+def heartbeat_config() -> tuple[str, float]:
+    """(heartbeat dir, least seconds between beats); dir "" = off.
+    ``PMTORCH_MH_HEARTBEAT_DIR`` is set by the pod runner, never by
+    hand."""
+    d = knobs.get("PMTORCH_MH_HEARTBEAT_DIR")
+    try:
+        iv = float(knobs.get("PMTORCH_HEARTBEAT_S") or 2)
+    except ValueError:
+        iv = 2.0
+    return d, max(0.05, iv)
+
+
+def _hb_path(d: str, rank: int) -> str:
+    return os.path.join(d, f"hb.{rank}")
+
+
+def beat(rank: int | None = None) -> str | None:
+    """Touch this rank's heartbeat file, at most once an interval; the
+    path, or None when off, throttled or failed (a heartbeat never kills
+    the work it reports on).  ``rank`` defaults to the launcher's
+    ``RANK``."""
+    d, iv = heartbeat_config()
+    if not d:
+        return None
+    now = time.monotonic()
+    if now - _HB["last"] < iv:
+        return None
+    if rank is None:
+        rank = int(knobs.launcher("RANK") or 0)
+    path = _hb_path(d, rank)
+    try:
+        os.makedirs(d, exist_ok=True)
+        with open(path, "a"):
+            pass
+        os.utime(path, None)
+    except OSError:
+        return None
+    _HB["last"] = now
+    from ..obs.metrics import REGISTRY
+    REGISTRY.counter("resilience.heartbeats").inc()
+    return path
+
+
+def stale_ranks(d: str, lease_s: float, ranks,
+                now: float | None = None) -> list[int]:
+    """The ranks whose lease expired: a heartbeat file that exists and is
+    older than ``lease_s``.  A rank that never beat is never stale (its
+    start-up is the runner's timeout's to bound); ``lease_s <= 0`` turns
+    the rule off."""
+    out: list[int] = []
+    if lease_s <= 0:
+        return out
+    t = time.time() if now is None else now
+    for r in ranks:
+        try:
+            m = os.stat(_hb_path(d, int(r))).st_mtime
+        except OSError:
+            continue
+        if t - m > lease_s:
+            out.append(int(r))
+    return out

@@ -15,7 +15,8 @@ hand-built 4-shard table of ``tests/test_grouped_analysis.py`` (a
 same-device pair, a cross-device pair, pad items, an idle slot): the
 one exchange against ``halo_exchange`` on 4 devices and against the
 dense and packed grouped exchanges at G = 2 on 2 devices and G = 4 on
-one; ``merge_owner_max``.
+one; the several-process arm of ``halo_exchange`` (packed send rows)
+against its one direct gather; ``merge_owner_max``.
 """
 import numpy as np
 import jax
@@ -211,6 +212,28 @@ def test_grouped_exchanges_exact(tables, G):
     assert np.array_equal(got, packed_j)
     if tables == "hand" and G == 2:
         assert (got[0, 1] == 0).all() and (got[0, 0] != 0).any()
+
+
+@pytest.mark.parametrize("tables", ["mesh", "hand"])
+def test_halo_exchange_pack_path_exact(tables, monkeypatch):
+    """The several-process arm of ``halo_exchange`` (each shard packs its
+    send rows, the packs are gathered, a shard reads its neighbour's
+    pack) delivers the one direct gather's values, here with every shard
+    on one rank and the gather the identity."""
+    from parmmg_tpu_torch.parallel import multihost
+    vals, sidx, nbr = _mesh_tables() if tables == "mesh" else \
+        _hand_tables()
+    want = TC.halo_exchange(_t(vals), _t(sidx), _t(nbr)).numpy()
+    gathered = []
+
+    def gather(*ts):
+        gathered.append(ts[0].shape)
+        return ts
+    monkeypatch.setattr(multihost, "is_multiprocess", lambda: True)
+    monkeypatch.setattr(multihost, "all_gather_rows", gather)
+    got = TC.halo_exchange(_t(vals), _t(sidx), _t(nbr)).numpy()
+    assert gathered == [tuple(sidx.shape) + tuple(vals.shape[2:])]
+    assert got.dtype == want.dtype and np.array_equal(got, want)
 
 
 def test_merge_owner_max_exact():

@@ -555,10 +555,9 @@ def test_distributed_pass_rules():
     """Port-only: one outer pass (``distributed_adapt``) writes the
     resident loop's mesh; ``-nobalance`` passes run on the resident
     shards; two passes repartition between them (tets move on the band
-    path, one merge); placing the shards on 2 cards refuses before any
-    work; a shard capacity that keeps overflowing raises
+    path, one merge); asking for 2 ranks (``n_devices=2``) outside a
+    process group of 2 refuses before any work; a shard capacity that keeps overflowing raises
     ShardOverflowError with the merged conforming state."""
-    from parmmg_tpu_torch.driver import NotYetPorted
     from parmmg_tpu_torch.obs.metrics import REGISTRY
     from parmmg_tpu_torch.parallel import distribute as TDs
     m, met = _shock_state()
@@ -590,7 +589,7 @@ def test_distributed_pass_rules():
     assert not bad["asymmetric"] and not bad["face_mismatch"]
     assert not torch.equal(rep[0].tmask, two[0].tmask) or \
         not torch.equal(rep[0].tet, two[0].tet)
-    with pytest.raises(NotYetPorted, match="cards"):
+    with pytest.raises(ValueError, match="rank"):
         TDi.distributed_adapt_multi(m, met, 2, niter=1, n_devices=2)
     real = TDi.dist_adapt_block
 
