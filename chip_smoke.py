@@ -7,6 +7,7 @@
     python3 chip_smoke.py --chaos
     python3 chip_smoke.py --dist
     python3 chip_smoke.py --multihost
+    python3 chip_smoke.py --multicard
 
 With ``--pairs N`` it builds the kernels and runs only N alternating
 pairs of each cube16 path (phases 2 and 4) at ``cycle_block=1`` and at
@@ -15,7 +16,8 @@ the output sizes and qualities and the paired wall differences as one
 JSON line before the last.  With ``--serve`` it runs phases 1 and 7
 alone, with ``--chaos`` phases 1 and 6b (making the [grouped] output it
 compares with), with ``--dist`` phases 1 and 6c, with ``--multihost``
-phases 1 and 6d.  Without arguments:
+phases 1 and 6d, with ``--multicard`` (on a machine with two or more
+cards; with fewer it exits 2) phases 1 and 6e.  Without arguments:
 
 Phases (any failure exits non-zero without the final result line):
 
@@ -155,13 +157,14 @@ Phases (any failure exits non-zero without the final result line):
              (cube_mesh(32), 196,608 tets, the cube16 iso shock map) through
              ``distributed_adapt_multi`` at 4 shards, 2 passes of 10 cycles
              in blocks of 9: a one-process reference, then 2 ranks x 2
-             shards on the one card over gloo (collectives staged through
-             the host).  Each rank zeroes its launch counts just before the
+             shards sharing the first card, so over gloo (collectives
+             staged through the host, ``mh.staged_bytes`` above 0).  Each rank zeroes its launch counts just before the
              run and reads them just after.  Checked: every rank's merged
              mesh and metric hash equal the reference's;
              ``mh.hot_allgather_bytes`` 0 and ``mh.band_exchange_bytes``
-             above 0 on every rank; K1 and K3-K8 launched in each rank and
-             K2 not; no ``nvcc`` build inside a rank; rank 0's merged mesh
+             above 0 on every rank; K1, K3-K5, K7 and K8 launched in each
+             rank's run and K2 not (a rank computes no quality on its
+             path: K6 0); no ``nvcc`` build inside a rank; rank 0's merged mesh
              conforming with qmin > 0.  Then the drills on cube_mesh(12)
              under the cube8 map (2 passes of 4 cycles, checkpoints on),
              both packs at once (each over a file store of its own, so
@@ -172,7 +175,25 @@ Phases (any failure exits non-zero without the final result line):
              tets, qmin, qmean, the ranks' walls beside the one-process
              wall, band bytes beside the hot collective bytes (every
              collective inside ``hot_path``), allgather and collective
-             bytes, and the drills' return codes.
+             bytes, staged and halo bytes (beside the all_gather arm's),
+             and the drills' return codes.
+6e. multicard (``--multicard`` only) - [multihost]'s input on P ranks
+             each on a card of its own (P = 4, or 2 on two cards): (a)
+             over NCCL with a one-process reference; (b) the same pack
+             over gloo (``--isolate-cards``: each rank sees only its
+             card), in turns NCCL, gloo, gloo, NCCL, the second pair
+             under the profiler (device busy and NCCL kernel seconds);
+             (c) 2 ranks x 2 shards on 2 cards over NCCL (the grouped
+             halo layouts; the layout of each rebuild printed); (d) both
+             drills under NCCL, two cards each, at once.  Checked in
+             every rank of every pack: the backend, the reference's
+             hash, its band bytes, hot allgather 0, staged bytes 0 under
+             NCCL, halo bytes at most the all_gather arm's, K1, K3-K5, K7
+             and K8 launched and K2 not, no ``nvcc`` and no ``jax``; the drills
+             resumed to the one-process hash over NCCL.  Prints each
+             rank's seconds to join the group, run seconds, collectives
+             and their host seconds (in all, by kind, and the first of
+             each kind), bytes by kind, staged and halo bytes.
 6b. chaos  - the resilience layer (``resilience/``, ``parallel/groups.py``,
              ``_polish_worker.py``), each drill held to the fault-free
              bytes.  The [grouped] input and flags at chunk 8: (1)
@@ -335,6 +356,10 @@ PATH_KERNELS = {
                   "segment_flags"}, "edge_lengths_ani"),
 }
 PATH_KERNELS["cube32"] = PATH_KERNELS["cube16"]
+# a rank of the pod runner on cube32: no quality on its path (K6 runs only
+# in the report after the run, which the rank's counts leave out)
+MH_KERNELS = (PATH_KERNELS["cube32"][0] - {"tet_quality"},
+              "edge_lengths_ani")
 # the [serve] tenants: four classes of two, (class, cube_mesh(n), size
 # map, h); the second tenant of a class has the first's sizes x 1.1
 SERVE_CLASSES = (("iso12", 12, "iso", 1.5 / 12),
@@ -1418,9 +1443,9 @@ class _DistWatch:
                     torch.cuda.set_sync_debug_mode("default")
                     info["reads"] += self._reads()
 
-        def w_echo(stacked, met_s, comms, vert_h):
+        def w_echo(stacked, met_s, comms, vert_h, *a, **k):
             info["echo_args"] = (comms, vert_h)
-            n = echo(stacked, met_s, comms, vert_h)
+            n = echo(stacked, met_s, comms, vert_h, *a, **k)
             info["echo"].append(n)
             return n
 
@@ -1724,14 +1749,15 @@ MH_LEASE_S = 20
 
 
 def _mh_start(workdir: str, tag: str, args, device: str, env=None,
-              timeout: float = 600.0):
-    """Start the pod runner in a subprocess, every rank's merged state
-    dumped under ``workdir/mh.<tag>``; :func:`_mh_wait` reads it."""
+              timeout: float = 600.0, nproc: int = 2):
+    """Start the pod runner with ``nproc`` ranks in a subprocess, every
+    rank's merged state dumped under ``workdir/mh.<tag>``;
+    :func:`_mh_wait` reads it."""
     out_dir = os.path.join(workdir, f"mh.{tag}")
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
     cmd = [sys.executable, "-m", "parmmg_tpu_torch.parallel.multihost_run",
-           "--np", "2", "--device", device, "--dump", out_dir,
+           "--np", str(nproc), "--device", device, "--dump", out_dir,
            "--store", os.path.join(out_dir, "store"),
            "--timeout", str(timeout - 60), "--coll-timeout", "300",
            "--verbose", *args]
@@ -1759,14 +1785,24 @@ def _mh_wait(started):
     return json.loads(out.strip().splitlines()[-1])["extra"], wall
 
 
+def _first_card(device: str) -> dict:
+    """The environment that shows a pack only the first visible card (on
+    the card; nothing on the CPU)."""
+    if device != "cuda":
+        return {}
+    from parmmg_tpu_torch.parallel.multihost_run import visible_cards
+    return {"CUDA_VISIBLE_DEVICES": visible_cards()[0]}
+
+
 def phase_multihost(workdir: str, device: str = "cuda"):
     """The [multihost] path (module docstring, 6d).  Returns each kernel's
     launches in each rank: {kernel: [rank 0, rank 1]}."""
     import numpy as np
     import torch
     from parmmg_tpu_torch.core.mesh import MESH_FIELDS, mesh_from_numpy
+    one = _first_card(device)
     ex, wall = _mh_wait(_mh_start(workdir, "main", MH_ARGS + ("--parity",),
-                                  device, timeout=900))
+                                  device, env=one, timeout=900))
     ref, ws = ex["ref"], ex["workers"]
     print(f"[multihost] cube_mesh(32) 4 shards -niter 2 (cycles 10): "
           f"one-process reference {ref['ntets']} tets, qmin "
@@ -1774,7 +1810,8 @@ def phase_multihost(workdir: str, device: str = "cuda"):
           f"{ref['seconds']:.3f} s ({ex['ref_wall_s']:.3f} s with its "
           "process)")
     for w in ws:
-        print(f"[multihost] rank {w['rank']}/2 on {w['device']}: "
+        print(f"[multihost] rank {w['rank']}/2 on {w['device']} over "
+              f"{w['backend']} (the ranks share the card): "
               f"{w['ntets']} tets, qmin {w['qmin']:.6f} qmean "
               f"{w['qmean']:.6f}, run {w['seconds']:.3f} s, hash "
               f"{w['hash']} (reference {ref['hash']}), band exchange bytes "
@@ -1784,16 +1821,24 @@ def phase_multihost(workdir: str, device: str = "cuda"):
               f"{int(w['mh.allgather_bytes'])} (hot "
               f"{int(w['mh.hot_allgather_bytes'])}), collectives "
               f"{int(w['mh.collectives'])} moving "
-              f"{int(w['mh.collective_bytes'])} bytes, nvcc builds "
+              f"{int(w['mh.collective_bytes'])} bytes, staged bytes "
+              f"{int(w['mh.staged_bytes'])}, halo bytes "
+              f"{int(w['mh.halo_bytes'])} (all_gather arm "
+              f"{int(w['mh.halo_allgather_bytes'])}), nvcc builds "
               f"{w['nvcc_builds']}")
         print(f"[multihost] rank {w['rank']} launches {w['launches']}")
     print(f"[multihost] 2-rank pack wall {ex['wall_s']:.3f} s (processes "
           f"included); parity_ok {ex['parity_ok']}")
-    must, must_not = PATH_KERNELS["cube32"]
+    must, must_not = MH_KERNELS
     for w in ws:
         if w["hash"] != ref["hash"]:
             raise RuntimeError(f"[multihost] rank {w['rank']} hash "
                                f"{w['hash']} != reference {ref['hash']}")
+        if w["backend"] != "gloo" or \
+                bool(w["mh.staged_bytes"]) != (device == "cuda"):
+            raise RuntimeError(f"[multihost] rank {w['rank']}: backend "
+                               f"{w['backend']}, staged bytes "
+                               f"{w['mh.staged_bytes']} on a shared card")
         if w["mh.hot_allgather_bytes"] or not w["mh.band_exchange_bytes"]:
             raise RuntimeError(f"[multihost] rank {w['rank']}: hot "
                                f"allgather {w['mh.hot_allgather_bytes']}, "
@@ -1813,26 +1858,8 @@ def phase_multihost(workdir: str, device: str = "cuda"):
     bad, qmin, qmean = _check_conforming("[multihost]", mesh, met)
     print(f"[multihost] rank 0's merged mesh re-read: "
           f"{int(mesh.tmask.sum())} tets, adjacency {bad}, qmin {qmin:.6f}")
-    # the drills, both packs at once: a crash and a wedge of rank 1 at
-    # its pass-1 extend exchange (after the pass-0 checkpoint), each
-    # resumed
-    ck = os.path.join(workdir, "mh.ckpt")
-    for d in (ck + "1", ck + "2"):
-        shutil.rmtree(d, ignore_errors=True)
-    crash = _mh_start(
-        workdir, "crash", MH_DRILL_ARGS + (
-            "--parity", "--ckpt", ck + "1", "--fault",
-            "1:multihost.exchange:key=extend;nth-2"),
-        device, env={"PMTORCH_RETRY_MAX": "0"})
-    wedge = _mh_start(
-        workdir, "wedge", MH_DRILL_ARGS + (
-            "--ckpt", ck + "2", "--lease", str(MH_LEASE_S), "--fault",
-            "1:multihost.exchange:key=extend;nth-2;hang=600"),
-        device, env={"PMTORCH_RETRY_MAX": "0", "PMTORCH_HEARTBEAT_S": "1"})
-    try:
-        exc, wc = _mh_wait(crash)
-    finally:
-        exw, ww = _mh_wait(wedge)
+    (exc, wc), (exw, ww) = _drills(workdir, os.path.join(
+        workdir, "mh.ckpt"), device, one, one)
     base = exc["ref"]["hash"]
     print(f"[multihost] drills on cube_mesh(12): one-process "
           f"{exc['ref']['ntets']} tets, hash {base}; crash: rc "
@@ -1842,13 +1869,184 @@ def phase_multihost(workdir: str, device: str = "cuda"):
           f"{exw.get('stale_heartbeat')}, resumed {exw.get('resumed')}, "
           f"hashes {[w['hash'] for w in exw['workers']]}, {ww:.3f} s "
           f"(lease {MH_LEASE_S} s)")
+    _check_drills(exc, exw, "[multihost]")
+    return {k: [w["launches"][k] for w in ws] for k in ws[0]["launches"]}
+
+
+def _drills(workdir: str, ck: str, device: str, env_crash: dict,
+            env_wedge: dict, tag: str = ""):
+    """Both drills at once on MH_DRILL_ARGS (each pack over a file store
+    of its own, on the cards its environment shows): a crash and a wedge
+    of rank 1 at its pass-1 extend exchange (after the pass-0
+    checkpoint), each resumed.  Returns ((extra, wall) of the crash,
+    (extra, wall) of the wedge)."""
     for d in (ck + "1", ck + "2"):
         shutil.rmtree(d, ignore_errors=True)
+    crash = _mh_start(
+        workdir, tag + "crash", MH_DRILL_ARGS + (
+            "--parity", "--ckpt", ck + "1", "--fault",
+            "1:multihost.exchange:key=extend;nth-2"),
+        device, env={"PMTORCH_RETRY_MAX": "0", **env_crash})
+    wedge = _mh_start(
+        workdir, tag + "wedge", MH_DRILL_ARGS + (
+            "--ckpt", ck + "2", "--lease", str(MH_LEASE_S), "--fault",
+            "1:multihost.exchange:key=extend;nth-2;hang=600"),
+        device, env={"PMTORCH_RETRY_MAX": "0", "PMTORCH_HEARTBEAT_S": "1",
+                     **env_wedge})
+    try:
+        got_crash = _mh_wait(crash)
+    finally:
+        got_wedge = _mh_wait(wedge)
+    for d in (ck + "1", ck + "2"):
+        shutil.rmtree(d, ignore_errors=True)
+    return got_crash, got_wedge
+
+
+def _check_drills(exc: dict, exw: dict, what: str) -> None:
+    base = exc["ref"]["hash"]
     if not exc.get("crashed_rc") or not exc.get("resumed") or \
             exw.get("crashed_rc") != 9 or not exw.get("resumed") or \
             any(w["hash"] != base for w in exc["workers"] + exw["workers"]):
-        raise RuntimeError("[multihost] a drill did not resume to the "
+        raise RuntimeError(f"{what} a drill did not resume to the "
                            "one-process bytes")
+
+
+# the [multicard] phase (--multicard): [multihost]'s input on P ranks,
+# each on a card of its own (P = 4, or 2 on a two-card machine); the
+# bytes of a rank by kind (multihost._count's kinds)
+MC_KINDS = ("band", "halo", "packs", "handoff", "agree", "pull")
+
+
+def _mc_line(tag: str, w: dict) -> str:
+    by = {k: int(w.get(f"mh.collective_bytes.{k}", 0)) for k in MC_KINDS}
+    prof = ""
+    if "nccl_device_s" in w:
+        prof = (f", device busy {w['device_busy_s']:.6f} s of which NCCL "
+                f"kernels {w['nccl_device_s']:.6f} s "
+                f"({w['nccl_kernels']} kernels)")
+
+    def of(prefix, f=lambda v: round(v, 4)):
+        return {k: f(w[prefix + k]) for k in MC_KINDS if prefix + k in w}
+    prof += (f"; collectives by kind {of('mh.collectives.', int)}, host s "
+             f"by kind {of('mh.collective_s.')}, first of each kind s "
+             f"{of('mh.first_collective_s.')}")
+    return (f"[multicard] {tag} rank {w['rank']}/{w['processes']} "
+            f"{w['backend']} on {w['device']}: {w['ntets']} tets, hash "
+            f"{w['hash']}, group joined in {w['init_s']:.3f} s, run "
+            f"{w['seconds']:.3f} s, collectives "
+            f"{int(w['mh.collectives'])} ({w['mh.collective_s']:.3f} host "
+            f"s inside them), bytes by kind {by}, staged "
+            f"{int(w['mh.staged_bytes'])}, hot allgather "
+            f"{int(w['mh.hot_allgather_bytes'])}, halo "
+            f"{int(w['mh.halo_bytes'])} (all_gather arm "
+            f"{int(w['mh.halo_allgather_bytes'])}){prof}")
+
+
+def phase_multicard(workdir: str, device: str = "cuda"):
+    """The [multicard] path (module docstring, 6e).  Returns each
+    kernel's launches in each rank of the first NCCL pack."""
+    from parmmg_tpu_torch.parallel.multihost_run import visible_cards
+    cards = visible_cards() if device == "cuda" else ["0", "1", "2", "3"]
+    if len(cards) < 2:
+        raise RuntimeError(f"[multicard] needs at least 2 cards, found "
+                           f"{len(cards)}")
+    P = 4 if len(cards) >= 4 else 2
+    want = "nccl" if device == "cuda" else "gloo"
+    must, must_not = MH_KERNELS
+
+    def env(n):
+        return {"CUDA_VISIBLE_DEVICES": ",".join(cards[:n])}
+
+    def run(tag, extra, nproc=P, timeout=300):
+        ex, _ = _mh_wait(_mh_start(workdir, tag, MH_ARGS + extra, device,
+                                   env=env(nproc), timeout=timeout,
+                                   nproc=nproc))
+        return ex
+
+    def check(tag, ex, backend, ref):
+        for w in ex["workers"]:
+            bad = []
+            if w["backend"] != backend:
+                bad.append(f"backend {w['backend']}")
+            if w["hash"] != ref["hash"]:
+                bad.append(f"hash {w['hash']} != {ref['hash']}")
+            if w["mh.band_exchange_bytes"] != ref["mh.band_exchange_bytes"]:
+                bad.append(f"band bytes {w['mh.band_exchange_bytes']}")
+            if w["mh.hot_allgather_bytes"]:
+                bad.append("hot allgather bytes")
+            if backend == "nccl" and w["mh.staged_bytes"]:
+                bad.append(f"staged bytes {w['mh.staged_bytes']}")
+            if w["mh.halo_bytes"] > w["mh.halo_allgather_bytes"]:
+                bad.append("halo bytes above the all_gather arm's")
+            if w["nvcc_builds"] or w["jax_loaded"]:
+                bad.append(f"nvcc {w['nvcc_builds']} jax {w['jax_loaded']}")
+            missing = sorted(k for k in must if w["launches"][k] == 0)
+            if device == "cuda" and (missing or w["launches"][must_not]):
+                bad.append(f"kernels never launched {missing}, {must_not} "
+                           f"{w['launches'][must_not]}")
+            if bad:
+                raise RuntimeError(f"[multicard] {tag} rank {w['rank']}: "
+                                   + "; ".join(bad))
+
+    print(f"[multicard] {len(cards)} cards visible, {P} ranks a pack "
+          f"(cards {cards[:P]})")
+    # (a) P ranks on P cards over NCCL, against the one-process reference
+    t0 = time.perf_counter()
+    ex_a = run("mc.nccl1", ("--parity",))
+    ref = ex_a["ref"]
+    print(f"[multicard] cube_mesh(32) 4 shards -niter 2 (cycles 10): "
+          f"one-process reference {ref['ntets']} tets, hash {ref['hash']}, "
+          f"band exchange bytes {int(ref['mh.band_exchange_bytes'])}, run "
+          f"{ref['seconds']:.3f} s")
+    # (b) the same pack over gloo (each rank sees only its card), in
+    # turns NCCL, gloo, gloo, NCCL; the second pair under the profiler
+    ex_g1 = run("mc.gloo1", ("--isolate-cards",))
+    ex_g2 = run("mc.gloo2", ("--isolate-cards", "--profile"))
+    ex_n2 = run("mc.nccl2", ("--profile",))
+    packs = (("nccl1", ex_a, want), ("gloo1", ex_g1, "gloo"),
+             ("gloo2", ex_g2, "gloo"), ("nccl2", ex_n2, want))
+    for tag, ex, backend in packs:
+        for w in ex["workers"]:
+            print(_mc_line(tag, w))
+        same = all(w["hash"] == ref["hash"] for w in ex["workers"])
+        print(f"[multicard] {tag}: slowest rank "
+              f"{max(w['seconds'] for w in ex['workers']):.3f} s, pack wall "
+              f"{ex['wall_s']:.3f} s, every rank on the reference's hash "
+              f"{same}")
+        check(tag, ex, backend, ref)
+    slow = [max(w["seconds"] for w in ex["workers"]) for _, ex, _ in packs]
+    print(f"[multicard] interleaved slowest-rank seconds NCCL {slow[0]:.3f}"
+          f" / gloo {slow[1]:.3f} (unprofiled pair), gloo {slow[2]:.3f} / "
+          f"NCCL {slow[3]:.3f} (profiled pair); gloo - NCCL "
+          f"{slow[1] - slow[0]:+.3f} and {slow[2] - slow[3]:+.3f} s")
+    # (c) 2 ranks of G = 2 shards on 2 cards: the grouped layouts
+    ex_c = run("mc.g2", (), nproc=2)
+    for w in ex_c["workers"]:
+        print(_mc_line("g2", w))
+        print(f"[multicard] g2 rank {w['rank']} halo layout at each "
+              f"rebuild (site, layout, M): {w['halo_layouts']}")
+    check("g2", ex_c, want, ref)
+    # (d) both drills on 2 cards each (the crash on the first two, the
+    # wedge on the next two where there are four)
+    ck = os.path.join(workdir, "mc.ckpt")
+    wedge_cards = cards[2:4] if len(cards) >= 4 else cards[:2]
+    (exc, wc), (exw, ww) = _drills(
+        workdir, ck, device, env(2),
+        {"CUDA_VISIBLE_DEVICES": ",".join(wedge_cards)}, tag="mc.")
+    def ranks(ex):
+        return [(w["backend"], w["hash"]) for w in ex["workers"]]
+    print(f"[multicard] drills on cube_mesh(12), 2 ranks: one-process hash "
+          f"{exc['ref']['hash']}; crash: rc {exc.get('crashed_rc')}, resumed "
+          f"{exc.get('resumed')}, {ranks(exc)}, {wc:.3f} s with the "
+          f"reference; wedge: rc {exw.get('crashed_rc')}, stale "
+          f"{exw.get('stale_heartbeat')}, resumed {exw.get('resumed')}, "
+          f"{ranks(exw)}, {ww:.3f} s (lease {MH_LEASE_S} s)")
+    _check_drills(exc, exw, "[multicard]")
+    if any(w["backend"] != want for w in exc["workers"] + exw["workers"]):
+        raise RuntimeError("[multicard] a drill's resumed pack did not run "
+                           f"over {want}")
+    print(f"[multicard] phase {time.perf_counter() - t0:.3f} s")
+    ws = ex_a["workers"]
     return {k: [w["launches"][k] for w in ws] for k in ws[0]["launches"]}
 
 
@@ -3587,6 +3785,23 @@ def main(argv=()) -> int:
             print("chip_smoke: FAILED", file=sys.stderr)
             return 1
         print(json.dumps({f"{argv[0][2:]}_launches": launches}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if list(argv) == ["--multicard"]:
+        if torch.cuda.device_count() < 2:
+            print(f"chip_smoke: --multicard needs at least 2 cards, found "
+                  f"{torch.cuda.device_count()}", file=sys.stderr)
+            return 2
+        try:
+            phase_build()
+            launches = phase_multicard(workdir)
+        except Exception:
+            traceback.print_exc()
+            print("chip_smoke: FAILED", file=sys.stderr)
+            return 1
+        print(json.dumps({"multicard_launches": launches}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))

@@ -33,10 +33,10 @@ __all__ = ["KNOBS", "Knob", "LAUNCHER_VARS", "PREFIX", "environment",
 PREFIX = "PMTORCH_"
 
 # the variables a process launcher (``torchrun``, the pod runner) sets for
-# each rank of a several-process run: torch.distributed's own names, read
-# through :func:`launcher`, never a knob
-LAUNCHER_VARS = ("LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT", "RANK",
-                 "WORLD_SIZE")
+# each rank of a several-process run: torch.distributed's own names and
+# CUDA's card list, read through :func:`launcher`, never a knob
+LAUNCHER_VARS = ("CUDA_VISIBLE_DEVICES", "LOCAL_RANK", "MASTER_ADDR",
+                 "MASTER_PORT", "RANK", "WORLD_SIZE")
 
 
 @dataclasses.dataclass(frozen=True)

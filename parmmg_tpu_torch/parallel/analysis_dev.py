@@ -378,15 +378,19 @@ def _analysis_stack(stacked, glo_s, node_idx_s, nbr_s, angedg: float,
 
 
 def shard_analysis_body(stacked, glo_s, node_idx_s, nbr_s, angedg: float,
-                        KS: int):
+                        KS: int, packed_M: int | None = None):
     """The refresh of every logical shard of the stack (the JAX package's
-    ``shard_analysis_body`` and its grouped layouts: on one device they
-    differ only in how the vertex reduction's exchange is laid out), the
-    vertex reduction through :func:`comms.halo_exchange`.  Returns
-    (vtag [L, capP], etag [L, capT, 6], overflow bool)."""
+    ``shard_analysis_body`` and its grouped layouts, which differ only in
+    how the vertex reduction's exchange is laid out), the vertex
+    reduction through :func:`comms.halo_exchange` (``packed_M``: its
+    packed layout across processes).  Returns (vtag [L, capP], etag
+    [L, capT, 6], overflow bool)."""
     from .comms import halo_exchange
+
+    def exchange(vals, send_idx, nbr):
+        return halo_exchange(vals, send_idx, nbr, packed_M=packed_M)
     return _analysis_stack(stacked, glo_s, node_idx_s, nbr_s, angedg, KS,
-                           halo_exchange)
+                           exchange)
 
 
 def extract_probe_seconds(mesh_g: Mesh, glo_g, repeats: int = 3) -> float:
@@ -418,8 +422,8 @@ def extract_probe_seconds(mesh_g: Mesh, glo_g, repeats: int = 3) -> float:
 
 def dist_analysis(angedg: float, KS: int):
     """The refresh program: fn(stacked, glo_s [L, capP] int32,
-    node_idx_s, nbr_s) -> (vtag, etag, overflow)."""
-    def fn(stacked, glo_s, node_idx_s, nbr_s):
+    node_idx_s, nbr_s, packed_M=None) -> (vtag, etag, overflow)."""
+    def fn(stacked, glo_s, node_idx_s, nbr_s, packed_M=None):
         return shard_analysis_body(stacked, glo_s, node_idx_s, nbr_s,
-                                   angedg, KS)
+                                   angedg, KS, packed_M=packed_M)
     return fn

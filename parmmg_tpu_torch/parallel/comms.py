@@ -22,10 +22,12 @@ chkcomm_pmmg.c; global numbering libparmmg.c:464-1105):
 The host half (table construction, numbering, the checks) is the JAX
 package's numpy, copied; every rank holds the tables of every shard.  The
 device half works on the shard stack a rank holds (every shard at one
-process): the JAX package's ``all_to_all`` (and its dense and packed
-layouts of G logical shards a device, which only shape the bytes that
-cross devices) is a gather of each neighbour's send row, through one
-collective of the ranks' packed send rows across processes.
+process, where the exchange is a gather of each neighbour's send row).
+Across processes it is the JAX package's ``all_to_all`` in its layouts
+of G logical shards a rank (the [P, I] matrix at G = 1, the dense
+[P, G, G, I] tile, the packed rows with their headers, chosen by
+:func:`packed_halo_rows`): each rank receives only the rows addressed to
+it.
 """
 from __future__ import annotations
 
@@ -306,10 +308,156 @@ def _global_face_to_local(gface: np.ndarray, part: np.ndarray, s: int)\
 # ---------------------------------------------------------------------------
 # halo exchange over a shard stack
 # ---------------------------------------------------------------------------
-def halo_exchange(vals, send_idx, nbr):
-    """Exchange per-interface-item values between the shards of a run
-    (the JAX package's ``halo_exchange`` and its grouped dense and packed
-    layouts: every one of them delivers the same values).
+# packed_halo_rows: the packed layout is taken when the densest device
+# pair fills at most this share of its G x G tile, and a layout once
+# taken flips only past the threshold by more than the margin (the JAX
+# package's PARMMG_HALO_PACK_OCC / _HYST defaults, kept as constants)
+HALO_PACK_OCC = 0.75
+HALO_PACK_HYST = 0.05
+
+
+def packed_halo_rows(nbr: np.ndarray, G: int,
+                     occupancy: float = HALO_PACK_OCC,
+                     state: dict | None = None) -> int | None:
+    """Per-rank-pair packed row budget M of the packed halo layout, or
+    None when the dense [P, G, G, I] tile should be kept (the JAX
+    package's ``packed_halo_rows``).
+
+    ``nbr``: [P*G, K] logical neighbour table (host numpy).  The packed
+    layout ships one row per actual (group, neighbour) entry instead of a
+    dense G x G tile per rank pair, so it wins when the group-neighbour
+    structure is sparse: with ``mx`` the largest entry count over (rank,
+    destination rank), packed when ``mx <= occupancy * G^2``.  M is
+    bucketed on the geo ladder and must stay below G^2.
+
+    ``state``: a dict carried by the caller across comm-table rebuilds;
+    the layout then flips only when the occupancy ratio crosses the
+    threshold by more than :data:`HALO_PACK_HYST`.  Counts
+    ``halo.layout_packed`` / ``halo.layout_dense`` and
+    ``halo.layout_flips``."""
+    if G <= 1:
+        return None
+    S_l, K = nbr.shape
+    S = S_l // G
+    counts = [[0] * max(S, 1) for _ in range(S)]
+    for l, row in enumerate(nbr.tolist()):
+        for b in row:
+            if b >= 0:
+                counts[l // G][b // G] += 1
+    mx = max((c for row in counts for c in row), default=0)
+    if mx == 0:
+        return None           # no traffic: no evidence, state untouched
+    r = mx / float(G * G)
+    use_packed = r <= occupancy
+    if state is not None:
+        prev = state.get("layout")
+        if prev == "packed":
+            use_packed = r <= occupancy + HALO_PACK_HYST
+        elif prev == "dense":
+            use_packed = r <= occupancy - HALO_PACK_HYST
+    M = None
+    if use_packed:
+        M = bucket(mx, floor=2, scheme="geo")
+        if M >= G * G:        # headers ride along: a strict row win
+            M = None
+    from ..obs.metrics import REGISTRY
+    layout = "packed" if M is not None else "dense"
+    REGISTRY.counter(f"halo.layout_{layout}").inc()
+    if state is not None:
+        prev = state.get("layout")
+        if prev is not None and prev != layout:
+            REGISTRY.counter("halo.layout_flips").inc()
+        state["layout"] = layout
+    return M
+
+
+def _send_rows(vals, send_idx):
+    """[G, K, I, ...]: each item's value from ``vals`` [G, P, ...], zeros
+    on pads."""
+    G, K, I = send_idx.shape
+    g = torch.arange(G, device=vals.device).view(G, 1, 1).expand(G, K, I)
+    gath = vals[g, send_idx.clamp(0, vals.shape[1] - 1).long()]
+    mask = (send_idx >= 0).view(G, K, I, *([1] * (gath.dim() - 3)))
+    return torch.where(mask, gath, torch.zeros((), dtype=gath.dtype,
+                                               device=gath.device))
+
+
+def halo_pack(vals, send_idx, nbr, P: int, packed_M: int | None = None):
+    """One rank's send tables of the all_to_all halo exchange, each with
+    the destination rank as leading axis (the JAX package's layouts of G
+    logical shards a device; logical shard ``l`` on rank ``l // G`` at
+    slot ``l % G``):
+
+    - dense (``packed_M`` None): ``mat[P, G, G, I, ...]``, ``mat[dd, g,
+      ds]`` = my group g's items for slot ds of rank dd (at G = 1 the
+      [P, I] send matrix of ``halo_exchange``);
+    - packed: ``pay[P, M, I, ...]`` rows of the actual (group,
+      neighbour) entries, in (group, k) order within a destination, and
+      ``hdr[P, M, 2]`` their (dest_slot, src_group), -1 on unused rows.
+
+    vals [G, P_, ...]; send_idx [G, K, I]; nbr [G, K] logical ids."""
+    G, K, I = send_idx.shape
+    dev = vals.device
+    send = _send_rows(vals, send_idx)
+    tail = tuple(send.shape[3:])
+    valid = nbr >= 0
+    dd = torch.where(valid, nbr // G, P).long()
+    ds = torch.where(valid, nbr % G, 0).long()
+    g_of = torch.arange(G, device=dev).view(G, 1).expand(G, K)
+    if packed_M is None:
+        mat = torch.zeros((P, G, G, I) + tail, dtype=send.dtype, device=dev)
+        mat[dd[valid], g_of[valid], ds[valid]] = send[valid]
+        return (mat,)
+    M = int(packed_M)
+    ddf, vf = dd.reshape(-1), valid.reshape(-1)
+    order = torch.argsort(ddf, stable=True)
+    start = torch.searchsorted(ddf[order], torch.arange(P, device=dev))
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(G * K, device=dev)
+    slot = pos - start[ddf.clamp(0, P - 1)]
+    keep = vf & (slot < M)
+    pay = torch.zeros((P, M, I) + tail, dtype=send.dtype, device=dev)
+    pay[ddf[keep], slot[keep]] = send.reshape((G * K, I) + tail)[keep]
+    hdr = torch.full((P, M, 2), -1, dtype=nbr.dtype, device=dev)
+    hdr[ddf[keep], slot[keep]] = torch.stack(
+        [ds.reshape(-1), g_of.reshape(-1)], dim=-1)[keep].to(nbr.dtype)
+    return pay, hdr
+
+
+def halo_unpack(recv, nbr, P: int, packed_M: int | None = None):
+    """``recv[G, K, I, ...]`` from the tables :func:`halo_pack` laid out,
+    after the all_to_all (row j: what rank j sent this rank): each
+    neighbour's values for each item, zeros on pads."""
+    G, K = nbr.shape
+    dev = nbr.device
+    valid = nbr >= 0
+    if packed_M is None:
+        (mat,) = recv                    # mat[sd, sg, g]
+        sd = torch.where(valid, nbr // G, 0).long()
+        sg = torch.where(valid, nbr % G, 0).long()
+        g_of = torch.arange(G, device=dev).view(G, 1).expand(G, K)
+        out = mat[sd, sg, g_of]
+        mask = valid.view(G, K, *([1] * (out.dim() - 2)))
+        return torch.where(mask, out, torch.zeros((), dtype=out.dtype,
+                                                  device=dev))
+    pay, hdr = recv
+    # row (sd, m) came from logical shard sd*G + src_group and targets my
+    # group dest_slot; its k is the entry of my nbr row with that id
+    tgt = hdr[..., 0]
+    src = torch.arange(P, device=dev, dtype=nbr.dtype).view(P, 1) * G + \
+        hdr[..., 1]
+    tgt_c = tgt.clamp(0, G - 1).long()
+    eq = nbr[tgt_c] == src[..., None]                       # [P, M, K]
+    hask = eq.any(dim=-1) & (tgt >= 0)
+    kk = eq.to(torch.int8).argmax(dim=-1)
+    out = torch.zeros((G, K) + tuple(pay.shape[2:]), dtype=pay.dtype,
+                      device=dev)
+    out[tgt_c[hask], kk[hask]] = pay[hask]
+    return out
+
+
+def halo_exchange(vals, send_idx, nbr, packed_M: int | None = None):
+    """Exchange per-interface-item values between the shards of a run.
 
     vals:      [L, P, ...] per-local-entity values of the L shards this
                rank holds (every shard at one process)
@@ -317,38 +465,48 @@ def halo_exchange(vals, send_idx, nbr):
                comm tables, global shard ids); item order matches the
                neighbor's table for the same pair (ordering contract)
     nbr:       [S, K] neighbor shard ids (-1 pad)
+    packed_M:  across processes, the packed layout's row budget
+               (:func:`packed_halo_rows`), or None for the dense tile
     Returns ``recv[L, K, I, ...]``: each neighbor's values for each item
     (zeros on pads).  The caller merges with its own gather + owner rule.
 
     At one process every shard is on this stack, so shard ``l`` reads
     ``recv[l, k, i] = vals[b, send_idx[b, k', i]]`` with ``b = nbr[l,
-    k]`` and ``k'`` the slot of ``l`` in ``b``'s table.  Across processes
-    each shard packs its send rows ``send[l, k, i] = vals[l, send_idx[l,
-    k, i]]``, the packs of every rank are gathered in one collective, and
-    shard ``l`` reads ``send[b, k', i]``."""
+    k]`` and ``k'`` the slot of ``l`` in ``b``'s table.  Across P
+    processes the rank lays its send rows out in the JAX package's
+    layout (:func:`halo_pack`: the [P, I] matrix at G = 1, the dense
+    [P, G, G, I] tile or the packed rows at G = L > 1), ONE
+    ``all_to_all`` sends each rank its rows (``multihost.all_to_all_rows``)
+    and :func:`halo_unpack` routes them.  The bytes this rank sends to
+    other ranks count on ``mh.halo_bytes``; what the all_gather of every
+    shard's send pack would have sent on the same tables on
+    ``mh.halo_allgather_bytes``."""
     from . import multihost, pod
     L = vals.shape[0]
     S, K, I = send_idx.shape
     dev = vals.device
     r0 = pod.row0()
     nbr_l = nbr[r0:r0 + L]
+    if multihost.is_multiprocess():
+        from ..obs.metrics import REGISTRY
+        P = multihost.world_size()
+        sidx_l = send_idx[r0:r0 + L]
+        send = halo_pack(vals, sidx_l, nbr_l, P, packed_M)
+        recv = multihost.all_to_all_rows(*send, kind="halo")
+        row = sum(t.numel() * t.element_size() for t in send) // P
+        REGISTRY.counter("mh.halo_bytes").inc(float(row * (P - 1)))
+        REGISTRY.counter("mh.halo_allgather_bytes").inc(float(
+            sidx_l.numel() * vals[0, 0].numel() * vals.element_size()
+            * (P - 1)))
+        return halo_unpack(recv, nbr_l, P, packed_M)
     b = nbr_l.clamp(0, S - 1).long()                     # [L,K]
     me = pod.shard_ids(L, dev).to(nbr.dtype).view(L, 1, 1)
     back = nbr[b] == me                                  # [L,K,K]
     kp = back.to(torch.int8).argmax(dim=-1)              # slot of l in b
     src = send_idx[b, kp]                                # [L,K,I]
     ok = ((nbr_l >= 0) & back.any(dim=-1))[..., None] & (src >= 0)
-    if multihost.is_multiprocess():
-        lix = torch.arange(L, device=dev).view(L, 1, 1).expand(L, K, I)
-        send = vals[lix, send_idx[r0:r0 + L].clamp(
-            0, vals.shape[1] - 1).long()]
-        (send,) = multihost.all_gather_rows(send)        # [S,K,I,...]
-        recv = send[b[..., None].expand(L, K, I),
-                    kp[..., None].expand(L, K, I),
-                    torch.arange(I, device=dev).expand(L, K, I)]
-    else:
-        recv = vals[b[..., None].expand(L, K, I),
-                    src.clamp(0, vals.shape[1] - 1).long()]  # [L,K,I,...]
+    recv = vals[b[..., None].expand(L, K, I),
+                src.clamp(0, vals.shape[1] - 1).long()]  # [L,K,I,...]
     ok = ok.view(L, K, I, *([1] * (recv.dim() - 3)))
     return torch.where(ok, recv, torch.zeros((), dtype=recv.dtype,
                                              device=dev))

@@ -191,16 +191,17 @@ def dist_interface_check():
     and compares them with its own copy; the mismatch count over every
     shard must be zero.
 
-    Returns fn(stacked, met_s, node_idx [S,K,I], nbr [S,K], tol) ->
-    mismatch count of this rank's shards (0-d tensor)."""
+    Returns fn(stacked, met_s, node_idx [S,K,I], nbr [S,K], tol,
+    packed_M=None) -> mismatch count of this rank's shards (0-d tensor);
+    ``packed_M`` picks the packed halo layout across processes."""
     from . import pod
     from .comms import halo_exchange
 
-    def fn(stacked, met_s, node_idx, nbr, tol):
+    def fn(stacked, met_s, node_idx, nbr, tol, packed_M=None):
         met_g = met_s[..., None] if met_s.dim() == 2 else met_s
         vals = torch.cat([stacked.vert, met_g.to(stacked.vert.dtype)],
                          dim=-1)                          # [L, capP, 3+m]
-        recv = halo_exchange(vals, node_idx, nbr)
+        recv = halo_exchange(vals, node_idx, nbr, packed_M=packed_M)
         L = vals.shape[0]
         capP = stacked.capP
         node_idx = node_idx[pod.row0():pod.row0() + L]
@@ -217,19 +218,67 @@ def _on(device, a):
     return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
 
-def check_interface_echo(stacked, met_s, comms, vert_h):
+def halo_layout(nbr, pack_state: dict | None, site: str):
+    """The packed halo layout's row budget across processes at G > 1
+    (``comms.packed_halo_rows``, sticky through ``pack_state``), else
+    None (the dense tile; the [P, I] matrix at G = 1; the direct gather
+    at one process).  Each decision across processes is appended to
+    ``pack_state["history"]`` as (site, layout, M)."""
+    from . import multihost, pod
+    from .comms import packed_halo_rows
+    ctx = pod.current()
+    if ctx is None or not multihost.is_multiprocess():
+        return None
+    Mp = packed_halo_rows(nbr, ctx.G, state=pack_state)
+    if pack_state is not None:
+        layout = "matrix" if ctx.G == 1 else \
+            ("packed" if Mp is not None else "dense")
+        pack_state.setdefault("history", []).append((site, layout, Mp))
+    return Mp
+
+
+def halo_rung(run, packed_M):
+    """``run(packed_M)`` behind the ``halo.exchange`` fault point of the
+    packed layout: when it fires on any rank (the ranks agree on it
+    before any of them enters the exchange), every rank takes the dense
+    layout instead, ladder step ``halo_dense``; the hysteresis state is
+    left alone, so that a healthy next rebuild can pick packed again.  A
+    failure inside the collective itself fails the run."""
+    from ..resilience.faults import faultpoint
+    from ..resilience.recover import ladder_step
+    from .multihost import agree
+    if packed_M is None:
+        return run(None)
+    err = None
+    try:
+        faultpoint("halo.exchange")
+    except RuntimeError as e:             # the site's injected failure
+        err = e
+    if max(agree(0 if err is None else 1)):
+        ladder_step("halo_dense", site="halo.exchange",
+                    detail=repr(err) if err is not None
+                    else "a peer's packed exchange failed")
+        return run(None)
+    return run(packed_M)
+
+
+def check_interface_echo(stacked, met_s, comms, vert_h,
+                         pack_state: dict | None = None):
     """The interface coordinate + metric echo of the comm tables (the
     chkcomm guard, chkcomm_pmmg.c:815 role) at tolerance 1e-6 x the input
     bounding-box diagonal; raises on an ordering-contract violation.
+    Across processes the halo layout follows :func:`halo_layout`.
     Returns the mismatch count over every shard (0)."""
     from .multihost import all_reduce
     chk = governed("dist.interface_check", budget=2)(dist_interface_check())
     diag = float(np.linalg.norm(vert_h.max(0) - vert_h.min(0))) \
         if len(vert_h) else 1.0
     dev = stacked.device
+    Mp = halo_layout(comms.nbr, pack_state, "echo")
     nbad = int(all_reduce(chk(
         stacked, met_s, _on(dev, comms.node_idx), _on(dev, comms.nbr),
-        torch.tensor(1e-6 * diag, dtype=stacked.vert.dtype, device=dev))))
+        torch.tensor(1e-6 * diag, dtype=stacked.vert.dtype, device=dev),
+        packed_M=Mp)))
     if nbad:
         raise RuntimeError(
             f"interface comm echo mismatch: {nbad} items "
@@ -239,9 +288,12 @@ def check_interface_echo(stacked, met_s, comms, vert_h):
 
 def refresh_shard_analysis_device(stacked, comms, n_shards: int,
                                   angedg: float, glo,
-                                  cache: dict | None = None):
+                                  cache: dict | None = None,
+                                  pack_state: dict | None = None):
     """The device analysis refresh (``analysis_dev.py``), keyed by the
-    persistent global numbering ``glo``.
+    persistent global numbering ``glo``; across processes its vertex
+    exchange takes the layout of :func:`halo_layout`, behind
+    :func:`halo_rung`.
 
     Returns the updated stacked mesh, or None when the shared-record
     budget overflowed on some shard, the int32 id range is exhausted or
@@ -270,8 +322,10 @@ def refresh_shard_analysis_device(stacked, comms, n_shards: int,
         if cache is not None:
             cache[key] = fn
     dev = stacked.device
-    vt, et, ovf = fn(stacked, _on(dev, glo_np.astype(np.int32)),
-                     _on(dev, comms.node_idx), _on(dev, comms.nbr))
+    args = (stacked, _on(dev, glo_np.astype(np.int32)),
+            _on(dev, comms.node_idx), _on(dev, comms.nbr))
+    vt, et, ovf = halo_rung(lambda M: fn(*args, packed_M=M),
+                            halo_layout(comms.nbr, pack_state, "refresh"))
     if bool(all_reduce(ovf, "max")):
         return None
     return dataclasses.replace(stacked, vtag=vt, etag=et)
@@ -490,12 +544,13 @@ def _split_with_comms(mesh, met, part, n_shards: int, nvert: int, tet_h):
     return stacked, met_s, l2g, comms
 
 
-def _refresh(stacked, comms, n_shards: int, ang: float, glo, cache=None):
+def _refresh(stacked, comms, n_shards: int, ang: float, glo, cache=None,
+             pack_state=None):
     """The device refresh, or the host path (ladder rung
     ``host_analysis``) when it reports an overflow; on a several-process
     run the host path raises instead."""
     st2 = refresh_shard_analysis_device(stacked, comms, n_shards, ang, glo,
-                                        cache=cache)
+                                        cache=cache, pack_state=pack_state)
     if st2 is not None:
         return st2
     from ..resilience.recover import ladder_step
@@ -574,7 +629,8 @@ def distributed_adapt_multi(mesh, met, n_shards: int, niter: int = 3,
                             mode: str = "ifc", n_devices: int | None = None,
                             block: int | None = None,
                             ckpt_tag: str | None = None,
-                            resume: bool = False):
+                            resume: bool = False,
+                            pack_state: dict | None = None):
     """Shard-resident multi-pass adaptation (host driver): ONE split,
     then a pass per iteration
 
@@ -598,7 +654,10 @@ def distributed_adapt_multi(mesh, met, n_shards: int, niter: int = 3,
     (single-process only).  ``block`` sets the cycles a block (default:
     the device's).  ``ckpt_tag`` checkpoints every pass under
     ``PMTORCH_CKPT_DIR`` (rank 0 writes); ``resume`` re-enters after the
-    newest checkpoint of the same run, agreed across the ranks."""
+    newest checkpoint of the same run, agreed across the ranks.
+    ``pack_state`` (a fresh dict by default) carries the halo layout's
+    hysteresis across the comm-table rebuilds of the run and, across
+    processes, the history of its decisions (:func:`halo_layout`)."""
     from ..core.constants import ANGEDG
     from ..core.mesh import mesh_to_host
     from ..obs.metrics import REGISTRY
@@ -650,7 +709,9 @@ def distributed_adapt_multi(mesh, met, n_shards: int, niter: int = 3,
             (stacked, met_s, glo, top, comms, regrow0,
              shared0) = restored
 
-        check_interface_echo(stacked, met_s, comms, vert_h)
+        if pack_state is None:
+            pack_state = {}
+        check_interface_echo(stacked, met_s, comms, vert_h, pack_state)
         steps = DistSteps(do_smooth=not nomove, do_insert=not noinsert,
                           hausd=hausd)
 
@@ -724,7 +785,7 @@ def distributed_adapt_multi(mesh, met, n_shards: int, niter: int = 3,
                         else:
                             glo_d = device_glo()
                 stacked = _refresh(stacked, comms, n_shards, ang, glo,
-                                   cache=ana_cache)
+                                   cache=ana_cache, pack_state=pack_state)
                 otrace.emit_span("dist.refresh",
                                  time.perf_counter() - t_seg)
                 t_seg = time.perf_counter()
@@ -804,7 +865,7 @@ def distributed_adapt_multi(mesh, met, n_shards: int, niter: int = 3,
                                     glo_d = device_glo()
                                 stacked = rebuild_shards(stacked)
                                 check_interface_echo(stacked, met_s, comms,
-                                                     vert_h)
+                                                     vert_h, pack_state)
                         else:
                             otrace.log(1, f"  it {it}: band budgets "
                                           "exceeded — falling back to the "
@@ -848,7 +909,7 @@ def distributed_adapt_multi(mesh, met, n_shards: int, niter: int = 3,
                                 touched=touched, verbose=verbose)
                             stacked = rebuild_shards(stacked)
                             check_interface_echo(stacked, met_s, comms,
-                                                 vert_h)
+                                                 vert_h, pack_state)
                         if use_band:    # resync the device numbering copy
                             glo_d = device_glo()
                             shared_prev = _shared_gids(comms, glo, n_shards)
@@ -868,7 +929,7 @@ def distributed_adapt_multi(mesh, met, n_shards: int, niter: int = 3,
                                                     verbose=verbose)
                         if nmv_h:
                             check_interface_echo(stacked, met_s, comms,
-                                                 vert_h)
+                                                 vert_h, pack_state)
                 otrace.emit_span("dist.migrate",
                                  time.perf_counter() - t_seg)
                 if ckpt_tag is not None:

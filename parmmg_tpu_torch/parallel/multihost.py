@@ -14,20 +14,33 @@ agrees idiom); only band-sized tables cross ranks on the hot path.
 This module holds the process layer:
 
 - :func:`init_multihost` joins the group from torch's own launcher
-  variables (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``;
-  ``torchrun`` and the pod runner set them), with a timeout, so that a
-  desync fails instead of hanging; at one process it does nothing;
+  variables (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``,
+  ``LOCAL_RANK``; ``torchrun`` and the pod runner set them), with a
+  timeout, so that a desync fails instead of hanging; at one process it
+  does nothing.  The backend follows the placement
+  (:func:`placement`, :func:`backend_for`): NCCL when every rank holds a
+  card of its own, gloo for ranks on the CPU and for ranks that share a
+  card (NCCL refuses two ranks on one device).  There is no knob and no
+  fallback: a failed NCCL init or collective fails the run;
 - the collectives, in one small set of helpers: :func:`all_gather_rows`
   (leading axes concatenated in rank order, every table of a call in one
-  collective), :func:`all_reduce` (sum / max / min), :func:`agree` (4
-  bytes a rank) and :func:`send_recv` (the group handoff's whole
-  shards).  Only these helpers stage tensors through the host for gloo,
-  and they count what they move on ``mh.collective_bytes`` (and, inside
-  a :func:`hot_path` section, on ``mh.hot_collective_bytes``: the band
-  exchange, the halo and analysis packs, the migration pool and the
-  agreements).  The backend is gloo (:data:`BACKEND`), the one this
-  release runs; there is no fallback to another backend or to one
-  process;
+  collective), :func:`all_to_all_rows` (row j of every rank's table to
+  rank j: the halo exchange of ``comms.py``), :func:`all_reduce` (sum /
+  max / min, of integers and flags only, so that every rank's result is
+  bit for bit the same), :func:`agree` (4 bytes a rank) and
+  :func:`send_recv` (the group handoff's whole shards).  Under NCCL the
+  tensors stay on the card; under gloo a card tensor is copied to the
+  host first, counted on ``mh.staged_bytes`` (0 under NCCL).  They count
+  what they move on ``mh.collective_bytes`` and
+  ``mh.collective_bytes.<kind>`` (band, halo, packs, agree, handoff,
+  pull), inside a :func:`hot_path` section also on
+  ``mh.hot_collective_bytes`` (the band exchange, the halo and analysis
+  packs, the migration pool and the agreements), and the host seconds
+  spent inside them on ``mh.collective_s`` and
+  ``mh.collective_s.<kind>``, the first of each kind's on the gauge
+  ``mh.first_collective_s.<kind>`` (under NCCL the enqueue and the host
+  reads that wait for the card; the NCCL kernels' own seconds are read
+  from the profiler);
 - :func:`pull_host` is the metered escape hatch: a whole-state
   allgather, counted on ``mh.allgather_bytes`` and, inside a
   :func:`hot_path` section, on ``mh.hot_allgather_bytes`` (held to 0 by
@@ -43,6 +56,7 @@ from __future__ import annotations
 
 import contextlib
 import datetime
+import time
 
 import numpy as np
 import torch
@@ -50,18 +64,18 @@ import torch
 from ..api import knobs
 
 __all__ = [
-    "agree", "all_gather_rows", "all_reduce", "cold_io", "hot_path",
-    "in_hot_path", "init_multihost", "is_multiprocess", "local_device",
-    "mh_uniform", "pull_host", "rank", "require_single_process",
-    "send_recv", "world_size",
+    "agree", "all_gather_rows", "all_reduce", "all_to_all_rows", "backend",
+    "backend_for", "cold_io", "hot_path", "in_hot_path", "init_multihost",
+    "is_multiprocess", "local_device", "mh_uniform", "placement",
+    "pull_host", "rank", "require_single_process", "send_recv",
+    "world_size",
 ]
 
 # seconds a collective may wait for the other ranks before the group
 # fails it (a desync then raises instead of hanging)
 DEFAULT_TIMEOUT_S = 600.0
-# the process group's backend: collectives staged through the host (NCCL
-# needs a machine with one card a rank, ROADMAP 11e)
-BACKEND = "gloo"
+# the joined group: its backend and this rank's device (the wire of NCCL)
+_GROUP = {"backend": None, "device": None}
 
 
 def mh_uniform(value, why: str):
@@ -74,16 +88,49 @@ def mh_uniform(value, why: str):
     return value
 
 
+def placement(device: str, world_size: int,
+              n_cards: int) -> list[torch.device]:
+    """Every rank's device, rank r at index r: ``cuda:{r % n_cards}`` for
+    ``device="cuda"`` (ranks share a card when there are more ranks than
+    cards), the device as given otherwise.  Raises on ``cuda`` without a
+    card."""
+    dev = torch.device(device)
+    if dev.type != "cuda" or dev.index is not None:
+        return [dev] * int(world_size)
+    if n_cards < 1:
+        raise RuntimeError("device 'cuda' asked for, but no CUDA device "
+                           "is present")
+    return [torch.device("cuda", r % n_cards)
+            for r in range(int(world_size))]
+
+
+def backend_for(devices) -> str:
+    """The backend of a group whose ranks sit on ``devices``: ``nccl``
+    when every rank holds a card of its own, ``gloo`` for ranks on the
+    CPU and for ranks that share a card."""
+    devs = [torch.device(d) for d in devices]
+    if devs and all(d.type == "cuda" and d.index is not None
+                    for d in devs) and \
+            len({d.index for d in devs}) == len(devs):
+        return "nccl"
+    return "gloo"
+
+
 def init_multihost(init_method: str | None = None,
                    world_size: int | None = None, rank: int | None = None,
-                   timeout_s: float = DEFAULT_TIMEOUT_S) -> bool:
-    """Join the process group of a several-process run.
+                   timeout_s: float = DEFAULT_TIMEOUT_S,
+                   device: str = "cuda") -> bool:
+    """Join the process group of a several-process run, each rank on its
+    device of :func:`placement` (``device``: "cuda", the default, or
+    "cpu"), over the backend :func:`backend_for` gives that placement.
 
     ``world_size`` / ``rank`` default to the launcher's ``WORLD_SIZE`` /
     ``RANK``; ``init_method`` to ``env://`` (``MASTER_ADDR`` and
-    ``MASTER_PORT``).  Returns False, and does nothing, at one process;
-    True once the group exists (also when it already did).  Collectives
-    that wait longer than ``timeout_s`` for a peer fail."""
+    ``MASTER_PORT``).  Under NCCL the rank's card becomes the current
+    device and is bound to the group (``device_id``).  Returns False, and
+    does nothing, at one process; True once the group exists (also when
+    it already did).  Collectives that wait longer than ``timeout_s`` for
+    a peer fail; an init that fails raises, on no other backend."""
     if world_size is None:
         world_size = int(knobs.launcher("WORLD_SIZE") or 1)
     if rank is None:
@@ -93,11 +140,28 @@ def init_multihost(init_method: str | None = None,
     import torch.distributed as dist
     if dist.is_initialized():
         return True
+    dev = torch.device(device)
+    devs = placement(device, world_size, torch.cuda.device_count()
+                     if dev.type == "cuda" else 0)
+    be = backend_for(devs)
+    me = local_device(device, backend=be, local=int(
+        knobs.launcher("LOCAL_RANK") or rank))
+    kw = {}
+    if be == "nccl":
+        torch.cuda.set_device(me)
+        kw["device_id"] = me
     dist.init_process_group(
-        BACKEND, init_method=init_method or "env://",
+        be, init_method=init_method or "env://",
         world_size=int(world_size), rank=int(rank),
-        timeout=datetime.timedelta(seconds=float(timeout_s)))
+        timeout=datetime.timedelta(seconds=float(timeout_s)), **kw)
+    _GROUP.update(backend=be, device=me)
     return True
+
+
+def backend() -> str | None:
+    """The joined group's backend ("nccl" or "gloo"); None at one
+    process."""
+    return _GROUP["backend"] if is_multiprocess() else None
 
 
 def is_multiprocess() -> bool:
@@ -116,58 +180,148 @@ def rank() -> int:
     return dist.get_rank() if is_multiprocess() else 0
 
 
-def local_device(device: str = "cuda") -> torch.device:
-    """This rank's device: ``cuda:{LOCAL_RANK % device_count}`` for
-    ``device="cuda"`` (every rank on ``cuda:0`` on a one-card machine);
-    any other device as given."""
+def local_device(device: str = "cuda", backend: str | None = None,
+                 local: int | None = None) -> torch.device:
+    """This rank's device: ``cuda:{local % device_count}`` for
+    ``device="cuda"`` (``local``: by default ``LOCAL_RANK``; under gloo
+    every rank on ``cuda:0`` on a one-card machine); any other device as
+    given.  Under NCCL (``backend``, by default the joined group's) a
+    rank beyond the cards raises instead of sharing one."""
     dev = torch.device(device)
     if dev.type != "cuda" or dev.index is not None:
         return dev
-    local = int(knobs.launcher("LOCAL_RANK") or 0)
-    return torch.device("cuda", local % max(1, torch.cuda.device_count()))
+    if local is None:
+        local = int(knobs.launcher("LOCAL_RANK") or 0)
+    n = torch.cuda.device_count()
+    if (backend or _GROUP["backend"]) == "nccl" and local >= n:
+        raise RuntimeError(
+            f"LOCAL_RANK {local} has no card of its own ({n} cards): NCCL "
+            "takes one rank a card")
+    return placement(device, local + 1, n)[local]
 
 
 # ---------------------------------------------------------------------------
 # the collectives (every cross-rank byte of the port goes through here)
 # ---------------------------------------------------------------------------
-def _count(nbytes: int) -> None:
+def _count(nbytes: int, kind: str = "packs") -> None:
     from ..obs.metrics import REGISTRY
-    REGISTRY.counter("mh.collectives").inc()
     REGISTRY.counter("mh.collective_bytes").inc(float(nbytes))
+    REGISTRY.counter(f"mh.collective_bytes.{kind}").inc(float(nbytes))
     if in_hot_path():
         REGISTRY.counter("mh.hot_collective_bytes").inc(float(nbytes))
 
 
+@contextlib.contextmanager
+def _timed(kind: str):
+    """One collective of ``kind``: counted on ``mh.collectives`` and
+    ``mh.collectives.<kind>``, its host seconds on ``mh.collective_s`` and
+    ``mh.collective_s.<kind>``, and the first of its kind's seconds on the
+    gauge ``mh.first_collective_s.<kind>`` (NCCL connects its peers
+    there)."""
+    from ..obs.metrics import REGISTRY
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        dt = time.perf_counter() - t0
+        n = REGISTRY.counter(f"mh.collectives.{kind}")
+        if not n.value:
+            REGISTRY.gauge(f"mh.first_collective_s.{kind}").set(dt)
+        n.inc()
+        REGISTRY.counter("mh.collectives").inc()
+        REGISTRY.counter("mh.collective_s").inc(dt)
+        REGISTRY.counter(f"mh.collective_s.{kind}").inc(dt)
+
+
+def _wire() -> torch.device:
+    """Where the collectives' tensors live: the rank's card under NCCL,
+    the host under gloo."""
+    return _GROUP["device"] if backend() == "nccl" else torch.device("cpu")
+
+
+def _on_wire(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the wire's device; a card tensor copied to the host for
+    gloo counts its bytes on ``mh.staged_bytes``."""
+    wire = _wire()
+    if t.device == wire:
+        return t
+    if t.device.type == "cuda" and wire.type == "cpu":
+        from ..obs.metrics import REGISTRY
+        REGISTRY.counter("mh.staged_bytes").inc(
+            float(t.numel() * t.element_size()))
+    return t.to(wire)
+
+
 def _as_bytes(t: torch.Tensor) -> torch.Tensor:
-    """The host bytes of ``t`` as a flat uint8 tensor (gloo takes no
-    tensor on a card and no bool for every op)."""
-    t = t.detach().contiguous().cpu().reshape(-1)
-    return t.view(torch.uint8) if t.numel() else torch.zeros(
-        0, dtype=torch.uint8)
+    """The bytes of ``t`` as a flat uint8 tensor on the wire's device (no
+    backend takes a bool for every op, and one buffer carries every
+    table of a call)."""
+    t = t.detach().contiguous().reshape(-1)
+    if not t.numel():
+        return torch.zeros(0, dtype=torch.uint8, device=_wire())
+    return _on_wire(t.view(torch.uint8))
 
 
-def all_gather_rows(*tensors):
+def _from_bytes(b: torch.Tensor, dtype, shape) -> torch.Tensor:
+    """The inverse of :func:`_as_bytes`: a copy of the bytes ``b`` (rows
+    of whole elements) as ``dtype`` in ``shape``, on ``b``'s device."""
+    return b.clone().view(dtype).reshape(shape)
+
+
+def all_gather_rows(*tensors, kind: str = "packs", to_host: bool = False):
     """Each tensor's leading axis concatenated across the ranks in rank
-    order (the rows of rank 0 first), as tensors on each input's device:
-    every tensor of the call travels in ONE all_gather of its bytes.  The
-    shapes must agree across ranks.  At one process: the inputs."""
+    order (the rows of rank 0 first), as tensors on each input's device,
+    or, with ``to_host``, on the host after one copy of the gathered
+    bytes: every tensor of the call travels in ONE all_gather of its
+    bytes.  The shapes must agree across ranks.  At one process: the
+    inputs (on the host with ``to_host``)."""
+    if not is_multiprocess():
+        return tuple(t.cpu() for t in tensors) if to_host else tensors
+    import torch.distributed as dist
+    with _timed(kind):
+        P = dist.get_world_size()
+        bufs = [_as_bytes(t) for t in tensors]
+        flat = torch.cat(bufs) if bufs else torch.zeros(
+            0, dtype=torch.uint8, device=_wire())
+        n_all = flat.numel()
+        got = torch.empty(P, n_all, dtype=torch.uint8, device=flat.device)
+        dist.all_gather(list(got.unbind(0)), flat)
+        _count(n_all * P, kind)
+        if to_host:
+            got = got.cpu()
+        out, off = [], 0
+        for t, b in zip(tensors, bufs):
+            n = b.numel()
+            part = _from_bytes(got[:, off:off + n], t.dtype,
+                               (P * t.shape[0],) + tuple(t.shape[1:]))
+            off += n
+            out.append(part if to_host else part.to(t.device))
+        return tuple(out)
+
+
+def all_to_all_rows(*tensors, kind: str = "halo"):
+    """Row j of each tensor (leading axis: the P ranks) sent to rank j:
+    returns tensors of the same shapes whose row j is what rank j sent
+    this rank, on each input's device.  Every tensor of the call travels
+    in ONE ``all_to_all_single`` of equal splits.  At one process: the
+    inputs."""
     if not is_multiprocess():
         return tensors
     import torch.distributed as dist
-    P = dist.get_world_size()
-    bufs = [_as_bytes(t) for t in tensors]
-    flat = torch.cat(bufs) if bufs else torch.zeros(0, dtype=torch.uint8)
-    got = [torch.empty_like(flat) for _ in range(P)]
-    dist.all_gather(got, flat)
-    _count(flat.numel() * P)
-    out, off = [], 0
-    for t, b in zip(tensors, bufs):
-        n = b.numel()
-        parts = [g[off:off + n].clone().view(t.dtype).reshape(t.shape)
-                 for g in got]
-        off += n
-        out.append(torch.cat(parts, dim=0).to(t.device))
-    return tuple(out)
+    with _timed(kind):
+        P = dist.get_world_size()
+        rows = [_as_bytes(t).view(P, -1) for t in tensors]
+        flat = torch.cat(rows, dim=1)
+        got = torch.empty_like(flat)
+        dist.all_to_all_single(got, flat)
+        _count(flat.numel(), kind)
+        out, off = [], 0
+        for t, r in zip(tensors, rows):
+            n = r.shape[1]
+            out.append(_from_bytes(got[:, off:off + n], t.dtype,
+                                   t.shape).to(t.device))
+            off += n
+        return tuple(out)
 
 
 _OPS = {"sum": "SUM", "max": "MAX", "min": "MIN"}
@@ -180,13 +334,15 @@ def all_reduce(t: torch.Tensor, op: str = "sum") -> torch.Tensor:
     if not is_multiprocess():
         return t
     import torch.distributed as dist
-    wire = t.detach().cpu()
-    if wire.dtype == torch.bool:
-        wire = wire.to(torch.int32)
-    wire = wire.clone()
-    dist.all_reduce(wire, op=getattr(dist.ReduceOp, _OPS[op]))
-    _count(wire.numel() * wire.element_size() * dist.get_world_size())
-    return wire.to(t.dtype).to(t.device)
+    with _timed("agree"):
+        wire = t.detach()
+        if wire.dtype == torch.bool:
+            wire = wire.to(torch.int32)
+        wire = _on_wire(wire).clone()
+        dist.all_reduce(wire, op=getattr(dist.ReduceOp, _OPS[op]))
+        _count(wire.numel() * wire.element_size() * dist.get_world_size(),
+               "agree")
+        return wire.to(t.dtype).to(t.device)
 
 
 def agree(value: int) -> list[int]:
@@ -194,7 +350,8 @@ def agree(value: int) -> list[int]:
     agreement.  At one process: ``[value]``."""
     if not is_multiprocess():
         return [int(value)]
-    (allv,) = all_gather_rows(torch.tensor([int(value)], dtype=torch.int32))
+    (allv,) = all_gather_rows(torch.tensor([int(value)], dtype=torch.int32),
+                              kind="agree", to_host=True)
     return [int(v) for v in allv.tolist()]
 
 
@@ -204,21 +361,22 @@ def send_recv(sends, recvs):
     like tensor)].  Returns the received tensors (each shaped and typed
     like its ``like``, on its device), in ``recvs`` order."""
     import torch.distributed as dist
-    ops, bufs = [], []
-    for dst, tag, t in sends:
-        b = _as_bytes(t)
-        ops.append(dist.P2POp(dist.isend, b, int(dst), tag=int(tag)))
-        _count(b.numel())
-    for src, tag, like in recvs:
-        b = torch.empty(like.numel() * like.element_size(),
-                        dtype=torch.uint8)
-        ops.append(dist.P2POp(dist.irecv, b, int(src), tag=int(tag)))
-        bufs.append(b)
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-    return [b.view(like.dtype).reshape(like.shape).to(like.device)
-            for b, (_, _, like) in zip(bufs, recvs)]
+    with _timed("handoff"):
+        ops, bufs = [], []
+        for dst, tag, t in sends:
+            b = _as_bytes(t)
+            ops.append(dist.P2POp(dist.isend, b, int(dst), tag=int(tag)))
+            _count(b.numel(), "handoff")
+        for src, tag, like in recvs:
+            b = torch.empty(like.numel() * like.element_size(),
+                            dtype=torch.uint8, device=_wire())
+            ops.append(dist.P2POp(dist.irecv, b, int(src), tag=int(tag)))
+            bufs.append(b)
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return [_from_bytes(b, like.dtype, like.shape).to(like.device)
+                for b, (_, _, like) in zip(bufs, recvs)]
 
 
 # ---------------------------------------------------------------------------
@@ -295,6 +453,6 @@ def pull_host(x, what: str = "") -> np.ndarray:
         return x
     if not is_multiprocess():
         return x.detach().cpu().numpy()
-    (full,) = all_gather_rows(x.detach().cpu())
+    (full,) = all_gather_rows(x.detach(), kind="pull", to_host=True)
     _note_allgather(full.numel() * full.element_size(), what)
     return full.numpy()

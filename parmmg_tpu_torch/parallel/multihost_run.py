@@ -5,22 +5,29 @@
         [--n 4] [--h H] [--niter 2] [--cycles 4] [--device cuda]
         [--part end_slabs] [--parity] [--ckpt DIR] [--lease S]
         [--fault RANK:SPEC] [--store DIR] [--dump DIR] [--timeout S]
-        [--out PATH] [--verbose]
+        [--isolate-cards] [--profile] [--out PATH] [--verbose]
 
 The parent spawns ``--np`` workers on 127.0.0.1 at a free port (or, with
 ``--store DIR``, over a file store there, which no other pack can take
 between the parent's pick and the ranks' bind), each a rank of one
-``torch.distributed`` gloo group (``parallel/multihost.py``) on its own
-device (``cuda:{LOCAL_RANK % device_count}``; every rank on ``cuda:0``
-on a one-card machine).  Every worker builds the same input, cube_mesh(n)
-at 4x capacity under the planar shock size map of size ``--h`` (default
-1.8 / n), and runs ``dist.distributed_adapt_multi`` on ``--shards``
-shards, G = shards / np a rank (from the loop's own partition, or with
+``torch.distributed`` group (``parallel/multihost.py``) on its own
+device (``cuda:{LOCAL_RANK % device_count}``): over NCCL when every rank
+has a card of its own, over gloo on the CPU and when ranks share a card
+(every rank on ``cuda:0`` on a one-card machine).  Every worker builds
+the same input, cube_mesh(n) at 4x capacity under the planar shock size
+map of size ``--h`` (default 1.8 / n), and runs
+``dist.distributed_adapt_multi`` on ``--shards`` shards, G = shards / np
+a rank (from the loop's own partition, or with
 ``--part end_slabs`` from ``fixtures.end_slabs_partition``, 4 shards).
 It hashes the merged mesh's fields and the metric and writes a JSON
-sidecar: its seconds, the hash, the merged tets, qmin and qmean, the
-``mh.*`` counters, its kernel launches and the ``nvcc`` builds it ran
-(none, when the parent built the kernels first, as it does on the card);
+sidecar: its backend, its seconds, the hash, the merged tets, qmin and
+qmean, the ``mh.*`` counters (bytes, count and host seconds by kind, the
+first collective of each kind's seconds, staged and halo bytes, the
+halo layout of every comm-table rebuild), its kernel launches in the
+run (the quality report after it is not counted) and the
+``nvcc`` builds it ran (none, when the parent built the kernels first,
+as it does on the card); ``--profile`` adds each rank's device busy
+seconds and its NCCL kernels' seconds from ``torch.profiler``;
 ``--dump DIR`` also writes each rank's merged mesh fields and metric as
 ``<pack>.r<rank>.npz``.
 
@@ -33,6 +40,11 @@ sidecar: its seconds, the hash, the merged tets, qmin and qmean, the
   With ``--ckpt DIR`` the workers checkpoint every pass there and a
   failed pack is relaunched once with ``resume``: it re-enters after the
   newest checkpoint and must end with the uninterrupted bytes.
+- ``--isolate-cards`` lets rank r see only the r-th visible card
+  (``CUDA_VISIBLE_DEVICES``): the ranks sit on cards of their own but
+  each sees one card, so their placement is a shared ``cuda:0`` and
+  their group gloo, staged through the host; the same pack without it
+  runs over NCCL.
 - ``--fault RANK:SPEC`` arms ``PMTORCH_FAULT=SPEC`` in that rank only
   (the crash drill: ``1:multihost.exchange:key=extend;nth-2`` with
   ``PMTORCH_RETRY_MAX=0``; the wedge drill adds ``;hang=600``).
@@ -44,6 +56,7 @@ are left out: the port compiles nothing in a rank.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
@@ -99,6 +112,26 @@ def worker_input(n: int, h: float, device):
     return mesh, met
 
 
+def device_seconds(prof) -> dict:
+    """The device's busy seconds of a finished profiler run (its kernels,
+    copies and sets, from the raw device events) and those of the NCCL
+    kernels among them (names starting ``nccl``)."""
+    from torch.autograd import DeviceType
+    busy = nccl = 0
+    n_nccl = 0
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", lambda: False)()):
+            continue
+        d = e.duration_ns()
+        busy += d
+        if e.name().lower().startswith("nccl"):
+            nccl += d
+            n_nccl += 1
+    return {"device_busy_s": busy / 1e9, "nccl_device_s": nccl / 1e9,
+            "nccl_kernels": n_nccl}
+
+
 def worker(cfg: dict) -> None:
     import torch
     from ..obs.metrics import REGISTRY
@@ -109,8 +142,11 @@ def worker(cfg: dict) -> None:
     from .dist import distributed_adapt_multi
 
     init = cfg.get("init_method")
+    t_init = time.perf_counter()
     multihost.init_multihost(init_method=init,
-                             timeout_s=cfg.get("coll_timeout", 600.0))
+                             timeout_s=cfg.get("coll_timeout", 600.0),
+                             device=cfg["device"])
+    t_init = time.perf_counter() - t_init
     rank = multihost.rank()
     dev = multihost.local_device(cfg["device"])
     torch.set_num_threads(1)            # P ranks share the host's cores
@@ -119,34 +155,53 @@ def worker(cfg: dict) -> None:
     if cfg.get("part") == "end_slabs":
         from ..utils.fixtures import cube_mesh, end_slabs_partition
         part = end_slabs_partition(*cube_mesh(cfg["n"]))
+    pack_state: dict = {}
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA]) \
+        if cfg.get("profile") and dev.type == "cuda" else None
     kernels.reset_launches()
-    t0 = time.perf_counter()
-    out, met_m, _ = distributed_adapt_multi(
-        mesh, met, cfg["shards"], niter=cfg["niter"],
-        cycles=cfg["cycles"], verbose=cfg["verbose"], part=part,
-        ckpt_tag="mh" if cfg.get("ckpt") else None,
-        resume=bool(cfg.get("resume")))
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    dt = time.perf_counter() - t0
+    with prof if prof is not None else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        out, met_m, _ = distributed_adapt_multi(
+            mesh, met, cfg["shards"], niter=cfg["niter"],
+            cycles=cfg["cycles"], verbose=cfg["verbose"], part=part,
+            ckpt_tag="mh" if cfg.get("ckpt") else None,
+            resume=bool(cfg.get("resume")), pack_state=pack_state)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+    # the run's launches, before the quality report below launches K6
+    launches = dict(kernels.LAUNCHES)
+    device_time = device_seconds(prof) if prof is not None else {}
+    snap = REGISTRY.snapshot()
+    counters = snap["counters"]
     tm = out.tmask
     q = tet_quality(out, met_m)[tm]
-    counters = REGISTRY.snapshot()["counters"]
     wrk = {
         "rank": rank, "processes": multihost.world_size(),
+        "backend": multihost.backend(), "init_s": t_init,
         "device": str(dev), "seconds": dt, "hash": mesh_hash(out, met_m),
         "ntets": int(tm.sum()), "qmin": float(q.min()),
         "qmean": float(q.mean()),
-        "launches": dict(kernels.LAUNCHES),
+        "launches": launches,
+        "halo_layouts": pack_state.get("history", []),
+        **device_time,
         "nvcc_builds": sorted(k for k in ledger_snapshot()
                               if k.startswith("nvcc.")),
         "jax_loaded": "jax" in sys.modules,
         **{k: counters.get(k, 0.0) for k in (
             "mh.hot_allgather_bytes", "mh.allgather_bytes",
             "mh.band_exchange_bytes", "mh.collective_bytes",
-            "mh.hot_collective_bytes",
+            "mh.hot_collective_bytes", "mh.staged_bytes", "mh.halo_bytes",
+            "mh.halo_allgather_bytes", "mh.collective_s",
             "mh.collectives", "mh.handoffs", "resilience.resumes",
-            "resilience.heartbeats", "resilience.checkpoints")},
+            "resilience.heartbeats", "resilience.checkpoints",
+            "resilience.halo_dense")},
+        **{k: v for k, v in counters.items()
+           if k.startswith(("mh.collective_bytes.", "mh.collective_s.",
+                            "mh.collectives."))},
+        **{k: v for k, v in snap["gauges"].items()
+           if k.startswith("mh.first_collective_s.")},
     }
     if cfg.get("dump"):
         import numpy as np
@@ -164,6 +219,20 @@ def worker(cfg: dict) -> None:
 # ---------------------------------------------------------------------------
 # parent
 # ---------------------------------------------------------------------------
+def visible_cards() -> list[str]:
+    """The cards this process may hand to its ranks: the entries of
+    ``CUDA_VISIBLE_DEVICES``, or, where it is unset or empty, every
+    card's index (``nvidia-smi``)."""
+    from ..api import knobs
+    vis = knobs.launcher("CUDA_VISIBLE_DEVICES")
+    if vis.strip():
+        return [v.strip() for v in vis.split(",") if v.strip()]
+    out = subprocess.run(["nvidia-smi", "--query-gpu=index",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout
+    return [v.strip() for v in out.splitlines() if v.strip()]
+
+
 def launch(args, np_proc: int, tmpdir: str, resume: bool = False,
            fault: tuple[int, str] | None = None, tag: str = "run"):
     """One pack: spawn ``np_proc`` workers and supervise them.  Returns
@@ -189,7 +258,8 @@ def launch(args, np_proc: int, tmpdir: str, resume: bool = False,
                "ckpt": bool(args.ckpt), "resume": resume,
                "init_method": init, "coll_timeout": args.coll_timeout,
                "verbose": 2 if args.verbose else 0,
-               "part": args.part, "dump": args.dump, "tag": tag}
+               "part": args.part, "dump": args.dump, "tag": tag,
+               "profile": args.profile}
         env = dict(os.environ)
         for k in ("PMTORCH_FAULT", "PMTORCH_MH_HEARTBEAT_DIR",
                   "PMTORCH_CKPT_DIR"):
@@ -208,6 +278,8 @@ def launch(args, np_proc: int, tmpdir: str, resume: bool = False,
             env["PMTORCH_MH_HEARTBEAT_DIR"] = hb_dir
         if fault is not None and fault[0] == r:
             env["PMTORCH_FAULT"] = fault[1]
+        if args.isolate_cards and np_proc > 1:
+            env["CUDA_VISIBLE_DEVICES"] = visible_cards()[r]
         log = open(os.path.join(tmpdir, f"{tag}.w{r}.log"), "w")
         procs.append((subprocess.Popen(
             [sys.executable, "-m", "parmmg_tpu_torch.parallel.multihost_run",
@@ -295,6 +367,14 @@ def main(argv=None) -> int:
                     help="run the one-process reference for parity_ok")
     ap.add_argument("--fault", default="",
                     help="RANK:SPEC — PMTORCH_FAULT=SPEC in that rank only")
+    ap.add_argument("--isolate-cards", action="store_true",
+                    help="rank r sees only the r-th visible card: every "
+                         "rank on a card of its own, but each sees one "
+                         "card, so the placement is a shared cuda:0 and "
+                         "the group gloo (the host-staged comparison)")
+    ap.add_argument("--profile", action="store_true",
+                    help="on the card: each rank's device busy seconds "
+                         "and its NCCL kernels' seconds (torch.profiler)")
     ap.add_argument("--out", default="")
     ap.add_argument("--verbose", action="store_true",
                     help="workers log at verbosity 2; print their log "
@@ -302,7 +382,15 @@ def main(argv=None) -> int:
     ap.add_argument("--worker", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        worker(json.loads(args.worker))
+        try:
+            worker(json.loads(args.worker))
+        except Exception:                   # noqa: BLE001 - a dead rank
+            # exit at once: the group's teardown would wait on peers
+            # parked inside a collective; the parent kills the pack
+            import traceback
+            traceback.print_exc()
+            sys.stderr.flush()
+            os._exit(1)
         return 0
     if args.h is None:
         args.h = 1.8 / args.n
@@ -343,6 +431,7 @@ def main(argv=None) -> int:
     extra["wall_s"] = time.time() - t0
     extra["workers"] = sides
     extra["hash"] = sides[0]["hash"]
+    extra["backend"] = sides[0]["backend"]
     extra["ranks_agree"] = len({s["hash"] for s in sides}) == 1
     if "ref" in extra:
         extra["parity_ok"] = all(s["hash"] == extra["ref"]["hash"]

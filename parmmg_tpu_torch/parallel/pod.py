@@ -14,8 +14,9 @@ Without a context, or at one process, every shard is local.
 - :func:`gather_band`: the one exchange of every hot-path host stage.
   Each rank's band-sized device tables (leading axis: its rows) are
   gathered to every rank as host numpy tables of every shard, all the
-  tables of a call in one ``all_gather`` (``multihost.all_gather_rows``);
-  at one process it is a host copy.  Every call counts its bytes on
+  tables of a call in one ``all_gather`` (``multihost.all_gather_rows``:
+  on the card under NCCL, then one copy of the gathered bytes to the
+  host); at one process it is a host copy.  Every call counts its bytes on
   ``mh.band_exchange_bytes`` (and ``mh.band_exchange_bytes.<what>``).
   Across processes each exchange beats the heartbeat and is a
   ``multihost.exchange`` faultpoint riding ``retry_call``; it re-raises
@@ -151,7 +152,8 @@ def _exchange(arrays, what: str) -> tuple:
     def attempt():
         beat()
         faultpoint("multihost.exchange", key=what or None)
-        full = multihost.all_gather_rows(*(x.cpu() for x in arrays))
+        full = multihost.all_gather_rows(*arrays, kind="band",
+                                         to_host=True)
         return tuple(t.numpy() for t in full)
 
     return retry_call(attempt, site="multihost.exchange")

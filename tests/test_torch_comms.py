@@ -15,8 +15,12 @@ hand-built 4-shard table of ``tests/test_grouped_analysis.py`` (a
 same-device pair, a cross-device pair, pad items, an idle slot): the
 one exchange against ``halo_exchange`` on 4 devices and against the
 dense and packed grouped exchanges at G = 2 on 2 devices and G = 4 on
-one; the several-process arm of ``halo_exchange`` (packed send rows)
-against its one direct gather; ``merge_owner_max``.
+one; the several-process arm of ``halo_exchange`` (the JAX package's
+all_to_all layouts: the [P, I] matrix, the dense tile, the packed rows)
+for P ranks in one process, the all_to_all a transpose of the stacked
+send tables, against the JAX exchange of each layout and the one direct
+gather; ``packed_halo_rows`` and its hysteresis; the ``halo_dense``
+rung; ``merge_owner_max``.
 """
 import numpy as np
 import jax
@@ -216,24 +220,182 @@ def test_grouped_exchanges_exact(tables, G):
 
 @pytest.mark.parametrize("tables", ["mesh", "hand"])
 def test_halo_exchange_pack_path_exact(tables, monkeypatch):
-    """The several-process arm of ``halo_exchange`` (each shard packs its
-    send rows, the packs are gathered, a shard reads its neighbour's
-    pack) delivers the one direct gather's values, here with every shard
-    on one rank and the gather the identity."""
+    """The several-process arm of ``halo_exchange`` (each rank lays its
+    send rows out, one all_to_all, each rank routes what it received)
+    delivers the one direct gather's values, here with every shard on one
+    rank and the all_to_all the identity: the dense [1, G, G, I] tile and
+    the packed rows."""
     from parmmg_tpu_torch.parallel import multihost
     vals, sidx, nbr = _mesh_tables() if tables == "mesh" else \
         _hand_tables()
     want = TC.halo_exchange(_t(vals), _t(sidx), _t(nbr)).numpy()
-    gathered = []
+    sent = []
 
-    def gather(*ts):
-        gathered.append(ts[0].shape)
+    def a2a(*ts, kind):
+        sent.append((kind, [tuple(t.shape) for t in ts]))
         return ts
     monkeypatch.setattr(multihost, "is_multiprocess", lambda: True)
-    monkeypatch.setattr(multihost, "all_gather_rows", gather)
-    got = TC.halo_exchange(_t(vals), _t(sidx), _t(nbr)).numpy()
-    assert gathered == [tuple(sidx.shape) + tuple(vals.shape[2:])]
-    assert got.dtype == want.dtype and np.array_equal(got, want)
+    monkeypatch.setattr(multihost, "world_size", lambda: 1)
+    monkeypatch.setattr(multihost, "all_to_all_rows", a2a)
+    S, K, I = sidx.shape
+    tail = tuple(vals.shape[2:])
+    for M in (None, S * K):
+        got = TC.halo_exchange(_t(vals), _t(sidx), _t(nbr),
+                               packed_M=M).numpy()
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert sent == [("halo", [(1, S, S, I) + tail]),
+                    ("halo", [(1, S * K, I) + tail, (1, S * K, 2)])]
+
+
+# ---- the halo layouts across processes -----------------------------------
+
+def _chain_tables(S=8, K=2, I=5, seed=3):
+    """A sparse table: logical shard l neighbours l - 1 and l + 1 (a
+    chain), so that G = 2 on 4 ranks fills at most half of a G x G
+    tile and picks the packed rows."""
+    nbr = np.full((S, K), -1, np.int32)
+    for l in range(S):
+        nb = [b for b in (l - 1, l + 1) if 0 <= b < S]
+        nbr[l, :len(nb)] = nb
+    rng = np.random.default_rng(seed)
+    send_idx = rng.integers(0, 9, size=(S, K, I)).astype(np.int32)
+    send_idx[nbr < 0] = -1
+    send_idx[:, :, I - 1] = -1
+    vals = rng.normal(size=(S, 9, 2)).astype(np.float32)
+    return vals, send_idx, nbr
+
+
+def _ranks_exchange(vals, sidx, nbr, P, M):
+    """The several-process exchange of P ranks in one process: each
+    rank's ``halo_pack`` of its G shards, the all_to_all as the transpose
+    of the stacked send tables (row j of rank i's table becomes row i of
+    rank j's), each rank's ``halo_unpack``; the ranks' results stacked."""
+    G = len(nbr) // P
+    sl = [slice(r * G, (r + 1) * G) for r in range(P)]
+    sends = [TC.halo_pack(_t(vals[q]), _t(sidx[q]), _t(nbr[q]), P, M)
+             for q in sl]
+    for parts in sends:
+        assert all(t.shape[0] == P for t in parts)
+    out = []
+    for r in range(P):
+        recv = tuple(torch.stack([sends[i][j][r] for i in range(P)])
+                     for j in range(len(sends[0])))
+        out.append(TC.halo_unpack(recv, _t(nbr[sl[r]]), P, M))
+    return torch.cat(out).numpy()
+
+
+_LAYOUT_CASES = [(4, 1, "mesh"), (4, 1, "hand"), (2, 2, "mesh"),
+                 (2, 2, "hand"), (4, 2, "mesh8"), (4, 2, "chain")]
+
+
+@pytest.mark.parametrize("P,G,tables", _LAYOUT_CASES)
+def test_halo_layouts_exact(P, G, tables):
+    """Each layout's pack, all_to_all and unpack for P ranks of G shards,
+    bit for bit against the JAX package's exchange of that layout under
+    shard_map on P host devices (``halo_exchange`` at G = 1,
+    ``halo_exchange_grouped`` and ``halo_exchange_grouped_packed`` at
+    G > 1, with ``packed_halo_rows``' M where it picks packed) and
+    against the port's one direct gather."""
+    vals, sidx, nbr = {"mesh": _mesh_tables, "hand": _hand_tables,
+                       "mesh8": lambda: _mesh_tables(4, 8),
+                       "chain": _chain_tables}[tables]()
+    assert len(nbr) == P * G
+    direct = TC.halo_exchange(_t(vals), _t(sidx), _t(nbr)).numpy()
+    dense = _ranks_exchange(vals, sidx, nbr, P, None)
+    if G == 1:
+        want = _jax_stacked(lambda v, s, b: JC.halo_exchange(
+            v[0], s[0], b[0])[None], P, vals, sidx, nbr)
+        assert np.array_equal(dense, want)
+        assert TC.packed_halo_rows(nbr, G) is None
+    else:
+        want = _jax_stacked(lambda v, s, b: JC.halo_exchange_grouped(
+            v, s, b, G), P, vals, sidx, nbr)
+        assert np.array_equal(dense, want)
+        M = TC.packed_halo_rows(nbr, G)
+        assert M == JC.packed_halo_rows(nbr, G)
+        assert M is not None or tables.startswith("mesh")
+        for Mp in {M or G * nbr.shape[1], G * nbr.shape[1]}:
+            packed = _ranks_exchange(vals, sidx, nbr, P, Mp)
+            want_p = _jax_stacked(
+                lambda v, s, b: JC.halo_exchange_grouped_packed(
+                    v, s, b, G, Mp), P, vals, sidx, nbr)
+            assert np.array_equal(packed, want_p)
+            assert np.array_equal(packed, direct)
+    assert dense.dtype == direct.dtype and np.array_equal(dense, direct)
+
+
+def _occupancy_table(m, G=8, K=8):
+    """[2G, K]: m entries from rank 0's shards to rank 1's (occupancy
+    m / G^2 of that rank pair), none back."""
+    nbr = np.full((2 * G, K), -1, np.int32)
+    for i in range(m):
+        nbr[i % G, i // G] = G + i // G
+    return nbr
+
+
+def test_packed_halo_rows_hysteresis_equals_jax(monkeypatch):
+    """A sequence of tables that crosses the 0.75 threshold both ways
+    (G = 8: occupancies 0.5, 0.78, 0.875, 0.72, 0.69, then no traffic):
+    the port's budgets and sticky state equal the JAX package's, with
+    and without the state dict, and the hysteresis keeps packed at 0.78
+    and dense at 0.72."""
+    from parmmg_tpu.obs.metrics import REGISTRY as JREG
+    from parmmg_tpu_torch.obs.metrics import REGISTRY
+    monkeypatch.delenv("PARMMG_HALO_PACK_OCC", raising=False)
+    monkeypatch.delenv("PARMMG_HALO_PACK_HYST", raising=False)
+    assert (TC.HALO_PACK_OCC, TC.HALO_PACK_HYST) == (0.75, 0.05)
+    st_t, st_j = {}, {}
+    f0 = REGISTRY.counter("halo.layout_flips").value
+    j0 = JREG.counter("halo.layout_flips").value
+    seen = []
+    for m in (32, 50, 56, 46, 44, 0):
+        nbr = _occupancy_table(m)
+        got = TC.packed_halo_rows(nbr, 8, state=st_t)
+        assert got == JC.packed_halo_rows(nbr, 8, state=st_j)
+        assert st_t == st_j
+        assert TC.packed_halo_rows(nbr, 8) == JC.packed_halo_rows(nbr, 8)
+        seen.append(got)
+    assert seen == [40, 61, None, None, 61, None]
+    assert TC.packed_halo_rows(_occupancy_table(50), 8) is None
+    assert TC.packed_halo_rows(_occupancy_table(46), 8) == 61
+    assert REGISTRY.counter("halo.layout_flips").value - f0 == 2
+    assert JREG.counter("halo.layout_flips").value - j0 == 2
+
+
+def test_halo_dense_rung(monkeypatch):
+    """An injected ``halo.exchange`` fault on the packed route: the
+    exchange runs on the dense layout, delivers its values, records the
+    ``halo_dense`` ladder step, and the layout state is left alone."""
+    from parmmg_tpu_torch.obs.metrics import REGISTRY
+    from parmmg_tpu_torch.parallel import dist as TD, multihost
+    from parmmg_tpu_torch.resilience.faults import FAULTS
+    vals, sidx, nbr = _chain_tables()
+    monkeypatch.setattr(multihost, "is_multiprocess", lambda: True)
+    monkeypatch.setattr(multihost, "world_size", lambda: 1)
+    monkeypatch.setattr(multihost, "all_to_all_rows",
+                        lambda *ts, kind: ts)
+    monkeypatch.setattr(multihost, "agree", lambda v: [int(v)])
+    routes = []
+
+    def run(M):
+        routes.append(M)
+        return TC.halo_exchange(_t(vals), _t(sidx), _t(nbr), packed_M=M)
+    state = {"layout": "packed"}
+    M = TC.packed_halo_rows(nbr, 8, state=state)
+    assert M is not None and state == {"layout": "packed"}
+    c0 = REGISTRY.counter("resilience.halo_dense").value
+    dense = TC.halo_exchange(_t(vals), _t(sidx), _t(nbr)).numpy()
+    FAULTS.arm("halo.exchange")
+    try:
+        got = TD.halo_rung(run, M).numpy()
+    finally:
+        FAULTS.reset()
+    assert routes == [None] and np.array_equal(got, dense)
+    assert REGISTRY.counter("resilience.halo_dense").value == c0 + 1
+    assert state == {"layout": "packed"}
+    assert np.array_equal(TD.halo_rung(run, M).numpy(), dense)
+    assert routes == [None, M]
+    assert REGISTRY.counter("resilience.halo_dense").value == c0 + 1
 
 
 def test_merge_owner_max_exact():

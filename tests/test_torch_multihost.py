@@ -180,8 +180,8 @@ def test_collective_meter_counts_hot_sections():
 
 
 def test_one_process_helpers_and_backend_refusal(monkeypatch):
-    """At one process the group is not joined and every collective is
-    the identity; the backend of a group is the module's gloo."""
+    """At one process the group is not joined, there is no backend, and
+    every collective is the identity."""
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     assert TMH.init_multihost() is False
     assert not TMH.is_multiprocess() and TMH.world_size() == 1
@@ -190,7 +190,61 @@ def test_one_process_helpers_and_backend_refusal(monkeypatch):
     assert TMH.all_reduce(t, "max") is t and TMH.agree(5) == [5]
     assert np.array_equal(TMH.pull_host(t), t.numpy())
     TMH.require_single_process("a host path")
-    assert TMH.BACKEND == "gloo"
+    assert TMH.all_to_all_rows(t)[0] is t
+    assert TMH.backend() is None
+
+
+def test_backend_follows_placement(monkeypatch):
+    """The backend is a pure function of where the ranks are: gloo on
+    the CPU, NCCL on distinct cards, gloo when ranks share a card; a rank
+    without a card of its own raises under NCCL instead of sharing."""
+    cuda = [torch.device("cuda", i) for i in range(4)]
+    assert TMH.placement("cpu", 2, 0) == [torch.device("cpu")] * 2
+    assert TMH.backend_for(TMH.placement("cpu", 2, 0)) == "gloo"
+    assert TMH.placement("cuda", 4, 4) == cuda
+    assert TMH.backend_for(cuda) == "nccl"
+    assert TMH.placement("cuda", 2, 1) == [cuda[0], cuda[0]]
+    assert TMH.backend_for(TMH.placement("cuda", 2, 1)) == "gloo"
+    assert TMH.backend_for(TMH.placement("cuda", 3, 2)) == "gloo"
+    assert TMH.backend_for(TMH.placement("cuda:1", 2, 4)) == "gloo"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TMH.placement("cuda", 2, 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setenv("LOCAL_RANK", "2")
+    assert TMH.local_device("cuda", backend="gloo") == cuda[0]
+    with pytest.raises(RuntimeError, match="no card of its own"):
+        TMH.local_device("cuda", backend="nccl")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    assert TMH.local_device("cuda", backend="nccl") == cuda[1]
+
+
+def test_failing_init_raises(monkeypatch, tmp_path):
+    """A failing NCCL init raises and joins no group on another backend;
+    a rank that asks for a card where there is none, as it does by
+    default, raises before any init."""
+    import torch.distributed as dist
+    calls = []
+
+    def boom(backend, **kw):
+        calls.append((backend, kw.get("device_id")))
+        raise RuntimeError("NCCL error: unhandled system error")
+    monkeypatch.setattr(dist, "init_process_group", boom)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: None)
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    kw = dict(init_method=f"file://{tmp_path}/store", world_size=2, rank=1,
+              timeout_s=5)
+    with pytest.raises(RuntimeError, match="NCCL error"):
+        TMH.init_multihost(device="cuda", **kw)
+    assert calls == [("nccl", torch.device("cuda", 1))]
+    assert TMH.backend() is None and not TMH.is_multiprocess()
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TMH.init_multihost(device="cuda", **kw)
+    # the default placement is the card, as the port's other entry points
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TMH.init_multihost(**kw)
+    assert len(calls) == 1
 
 
 def test_beat_and_stale_ranks_equal_jax(tmp_path, monkeypatch):
@@ -380,7 +434,7 @@ from parmmg_tpu_torch.resilience.faults import FAULTS
 from parmmg_tpu_torch.resilience.recover import RetryBudgetExhausted
 r = int(sys.argv[2])
 multihost.init_multihost(init_method=sys.argv[1], world_size=2, rank=r,
-                         timeout_s=60)
+                         timeout_s=60, device="cpu")
 c = lambda n: int(REGISTRY.counter(n).value)
 rows = torch.arange(6, dtype=torch.int32).reshape(2, 3) + 10 * r
 with pod.activate(4) as ctx, multihost.hot_path():
@@ -406,6 +460,47 @@ assert (got[0] == full).all() and (got[1] == full[:, :1] * 2).all()
 assert mx.tolist() == [1, 0] and ag == [7, 8]
 print("COUNTS", r, c("mh.band_exchange_bytes"), c("mh.hot_collective_bytes"),
       c("mh.hot_allgather_bytes"), c("resilience.retry_exhausted"))
+assert multihost.backend() == "gloo" and c("mh.staged_bytes") == 0
+# each collective counted under its kind, with the first one's seconds
+snap = REGISTRY.snapshot()
+kinds = [k[len("mh.collectives."):] for k in snap["counters"]
+         if k.startswith("mh.collectives.")]
+assert {"band", "agree"} <= set(kinds), kinds
+assert sum(c(f"mh.collectives.{k}") for k in kinds) == c("mh.collectives")
+assert all(0 < snap["gauges"][f"mh.first_collective_s.{k}"]
+           <= snap["counters"][f"mh.collective_s.{k}"] for k in kinds)
+# the halo exchange across the two ranks (the real all_to_all_single)
+# equals the one-process exchange on the same tables: the dense tile, the
+# packed rows, and the halo_dense rung (a fault on rank 1 only: both
+# ranks agree and take the dense layout)
+import numpy as np
+from parmmg_tpu_torch.parallel import comms, dist as D
+nbr = np.array([[1, -1], [0, 2], [3, 1], [2, -1]], np.int32)
+rng = np.random.default_rng(7)
+sidx = rng.integers(0, 8, size=(4, 2, 4)).astype(np.int32)
+sidx[0, 1] = sidx[3, 1] = -1
+sidx[1, 0, 2:] = sidx[0, 0, 2:] = -1
+vals = torch.from_numpy(rng.normal(size=(4, 8, 3)).astype(np.float32))
+sidx, nbr_t = torch.from_numpy(sidx), torch.from_numpy(nbr)
+one = multihost.is_multiprocess
+multihost.is_multiprocess = lambda: False     # the one-process exchange
+want = comms.halo_exchange(vals, sidx, nbr_t)[2 * r:2 * r + 2]
+multihost.is_multiprocess = one
+M = comms.packed_halo_rows(nbr, 2)
+assert M == 2
+mine = vals[2 * r:2 * r + 2]
+with pod.activate(4):
+    dense = comms.halo_exchange(mine, sidx, nbr_t)
+    packed = comms.halo_exchange(mine, sidx, nbr_t, packed_M=M)
+    if r == 1:
+        FAULTS.arm("halo.exchange")
+    rung = D.halo_rung(lambda m: comms.halo_exchange(
+        mine, sidx, nbr_t, packed_M=m), M)
+    FAULTS.reset()
+for got in (dense, packed, rung):
+    assert got.dtype == want.dtype and torch.equal(got, want)
+print("HALO", r, c("mh.halo_bytes"), c("mh.halo_allgather_bytes"),
+      c("resilience.halo_dense"), c("mh.collective_bytes.halo"))
 multihost.all_reduce(torch.zeros(1))
 """
 
@@ -430,7 +525,11 @@ def test_collectives_and_gather_band_across_two_ranks(tmp_path):
     rank order, a transient ``multihost.exchange`` fault on one rank is
     retried into the same collective, an exhausted budget re-raises (no
     local fallback), and inside ``hot_path`` the collective bytes count
-    on ``mh.hot_collective_bytes`` while no allgather counts hot."""
+    on ``mh.hot_collective_bytes`` while no allgather counts hot.  Then
+    the halo exchange over the real ``all_to_all_single``: the dense and
+    packed layouts and the ``halo_dense`` rung (a fault on one rank)
+    equal the one-process exchange on the same tables, and the bytes
+    sent off-rank stay within the all_gather arm's."""
     outs = _two_ranks(tmp_path, _EXCHANGE, env={
         "PMTORCH_RETRY_BASE_S": "0", "PMTORCH_RETRY_MAX": "1"})
     for r, o in enumerate(outs):
@@ -440,6 +539,13 @@ def test_collectives_and_gather_band_across_two_ranks(tmp_path):
         # the band tables, the max reduction and the agreement
         assert hot == band + 2 * 2 * 8 + 2 * 4
         assert hot_ag == 0 and exhausted == (1 if r == 1 else 0)
+        line = [ln for ln in o.splitlines() if ln.startswith("HALO")][0]
+        halo, ag, dense_steps, wire = map(int, line.split()[2:])
+        # dense: [2, 2, 2, 4, 3] float32, half to the peer (192 bytes),
+        # twice; packed: [2, 2, 4, 3] rows + [2, 2, 2] int32 headers
+        assert halo == 192 + 112 + 192 and wire == 2 * halo
+        assert ag == 3 * 192 and halo <= ag
+        assert dense_steps == 1
 
 
 _FALLBACK = """
@@ -447,7 +553,7 @@ import sys
 from parmmg_tpu_torch.parallel import dist, migrate_dev as MD, multihost
 from parmmg_tpu_torch.parallel.multihost_run import worker_input
 multihost.init_multihost(init_method=sys.argv[1], world_size=2,
-                         rank=int(sys.argv[2]), timeout_s=60)
+                         rank=int(sys.argv[2]), timeout_s=60, device="cpu")
 real = MD.device_migrate
 MD.device_migrate = lambda *a, KB, KV: real(*a, KB=2, KV=2)
 m, met = worker_input(3, 0.3, "cpu")
