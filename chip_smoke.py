@@ -8,6 +8,7 @@
     python3 chip_smoke.py --dist
     python3 chip_smoke.py --multihost
     python3 chip_smoke.py --multicard
+    python3 chip_smoke.py --cli-cards
 
 With ``--pairs N`` it builds the kernels and runs only N alternating
 pairs of each cube16 path (phases 2 and 4) at ``cycle_block=1`` and at
@@ -17,7 +18,10 @@ JSON line before the last.  With ``--serve`` it runs phases 1 and 7
 alone, with ``--chaos`` phases 1 and 6b (making the [grouped] output it
 compares with), with ``--dist`` phases 1 and 6c, with ``--multihost``
 phases 1 and 6d, with ``--multicard`` (on a machine with two or more
-cards; with fewer it exits 2) phases 1 and 6e.  Without arguments:
+cards; with fewer it exits 2) phases 1 and 6e, with ``--cli-cards`` (the
+same) phases 1 and 6e (e).  Every mode but these two shows the script
+and the CLI processes it starts only the first visible card.  Without
+arguments:
 
 Phases (any failure exits non-zero without the final result line):
 
@@ -144,6 +148,16 @@ Phases (any failure exits non-zero without the final result line):
              from the decomposition ``end_slabs_partition`` (as a
              distributed input hands it to the run) is conforming with
              qmin > 0, echo 0, tets moved and no full-view fallback.
+             Between them the same ``-ndev 4 -niter 2`` command as 2
+             ranks x 2 shards sharing the card over gloo, each rank a
+             ``python -m parmmg_tpu_torch.cli`` process started as an
+             external launcher starts it (``WORLD_SIZE``, ``RANK``,
+             ``LOCAL_RANK``, ``-dist-init`` on a file store), a stub
+             ``jax`` that records its import first on its path: the
+             bytes of the one-process run; rank 0's record of both
+             ranks shows gloo, K1, K3-K5, K7 and K8 launched in each and
+             K2 in neither, K6 in rank 0 alone (its tail and report), no
+             ``nvcc``; no jax import; rank 1 prints nothing.
              Prints the wall, dist cycles, active shards a cycle, live
              tets a shard, the ``dist.adapt`` / ``dist.refresh`` /
              ``dist.migrate`` / ``dist.merge`` span seconds, the moved
@@ -193,7 +207,20 @@ Phases (any failure exits non-zero without the final result line):
              resumed to the one-process hash over NCCL.  Prints each
              rank's seconds to join the group, run seconds, collectives
              and their host seconds (in all, by kind, and the first of
-             each kind), bytes by kind, staged and halo bytes.
+             each kind), bytes by kind, staged and halo bytes.  (e) The
+             CLI across cards (``phase_cli_cards``): [dist]'s command
+             (``-ndev 4 -niter 2``), ``-ndev 8 -niter 2`` (G = 2 on four
+             cards) and ``-ndev 4 -niter 2 -distributed-output``, each
+             started as a user starts it, first with only the first card
+             visible (one process, the shards stacked), then with every
+             card (P ranks self-launched, one card a rank): the same
+             files byte for byte; every rank over NCCL, K1, K3-K5, K7 and
+             K8 launched and K2 not, K6 in rank 0 alone, no ``nvcc``, no
+             jax import; the ``-ndev 4`` output conforming with qmin > 0,
+             within 2% of the JAX CLI's 235,452 tets.  Prints the
+             command's and the CLI's walls of both, and each rank's
+             seconds to join, of its distributed run and (rank 0) of its
+             tail.
 6b. chaos  - the resilience layer (``resilience/``, ``parallel/groups.py``,
              ``_polish_worker.py``), each drill held to the fault-free
              bytes.  The [grouped] input and flags at chunk 8: (1)
@@ -1594,6 +1621,134 @@ def _graph_run(workdir: str, device: str):
     print(f"[dist] graph mode moved {moved} tets")
 
 
+def _nojax(workdir: str) -> str:
+    """A directory holding a ``jax`` package that appends the importing
+    process's id and stack to ``jax/IMPORTED`` and raises ImportError:
+    first on a rank's path, it shows a rank that imports jax even where
+    the import is guarded.  Leaves no marker from an earlier run."""
+    pkg = os.path.join(workdir, "nojax", "jax")
+    os.makedirs(pkg, exist_ok=True)
+    with open(os.path.join(pkg, "__init__.py"), "w") as f:
+        f.write("import os, traceback\n"
+                "with open(os.path.join(os.path.dirname(__file__), "
+                "'IMPORTED'), 'a') as f:\n"
+                "    f.write(f'pid {os.getpid()}\\n')\n"
+                "    traceback.print_stack(file=f)\n"
+                "raise ImportError('jax imported by the port')\n")
+    marker = os.path.join(pkg, "IMPORTED")
+    if os.path.exists(marker):
+        os.remove(marker)
+    return os.path.dirname(pkg)
+
+
+def _cli_argv(workdir: str, stem: str, out: str, flags, device: str):
+    return ["-in", os.path.join(workdir, f"{stem}.mesh"), "-sol",
+            os.path.join(workdir, f"{stem}.sol"), "-out", out, *flags,
+            "-v", "1", "-bench-json", "-device", device]
+
+
+def _cli_env(workdir: str, cards: str | None = None) -> dict:
+    """The environment of a CLI process: this checkout and the jax stub
+    (``_nojax``) on its path, ``cards`` as its visible cards."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [HERE, _nojax(workdir)]))
+    if cards is not None:
+        env["CUDA_VISIBLE_DEVICES"] = cards
+    return env
+
+
+def _bench_record(text: str, what: str) -> dict:
+    recs = [ln for ln in text.splitlines() if ln.startswith("{")]
+    if len(recs) != 1:
+        raise RuntimeError(f"{what}: {len(recs)} -bench-json records in "
+                           f"its output:\n{text[-3000:]}")
+    return json.loads(recs[0])
+
+
+def _cli_ranks(workdir: str, tag: str, argv, nproc: int, env: dict):
+    """The CLI as ``nproc`` ranks started the way an external launcher
+    starts them (``WORLD_SIZE`` / ``RANK`` / ``LOCAL_RANK``, ``-dist-init``
+    on a file store of the pack's own) under the pod runner's supervision.
+    Returns (rank 0's -bench-json record, the pack's wall s); raises
+    with the ranks' log tails on a failed rank or on output from a rank
+    other than 0."""
+    from parmmg_tpu_torch.parallel.multihost_run import (rank_env,
+                                                         start_ranks,
+                                                         supervise)
+    d = os.path.join(workdir, f"ranks.{tag}")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    cmd = [sys.executable, "-m", "parmmg_tpu_torch.cli", *argv,
+           "-dist-init", f"file://{d}/store"]
+    logs = [os.path.join(d, f"r{r}.log") for r in range(nproc)]
+    t0 = time.perf_counter()
+    rc, _ = supervise(start_ranks(
+        [cmd] * nproc, [rank_env(nproc, r, base=env) for r in range(nproc)],
+        logs, cwd=HERE), timeout=600)
+    wall = time.perf_counter() - t0
+    texts = []
+    for f in logs:
+        with open(f) as fh:
+            texts.append(fh.read())
+    if rc:
+        raise RuntimeError(f"{tag}: a rank exited {rc}\n" + "\n".join(
+            f"--- rank {r} ---\n{t[-3000:]}" for r, t in enumerate(texts)))
+    if any("{" in t or "MESH QUALITY" in t for t in texts[1:]):
+        raise RuntimeError(f"{tag}: a rank other than 0 printed a report")
+    return _bench_record(texts[0], tag), wall
+
+
+def _cli_self(workdir: str, tag: str, argv, cards: str):
+    """The CLI started once, as a user starts it, with ``cards`` visible:
+    it takes P from ``-ndev`` and the cards (self-launching P ranks when
+    P > 1).  Returns (its -bench-json record, its wall s)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "parmmg_tpu_torch.cli", *argv], cwd=HERE,
+        env=_cli_env(workdir, cards), capture_output=True, text=True,
+        timeout=600)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(workdir, f"cli.{tag}.log"), "w") as fh:
+        fh.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{tag}: the CLI exited {proc.returncode}\n"
+                           f"{(proc.stdout + proc.stderr)[-6000:]}")
+    return _bench_record(proc.stdout, tag), wall
+
+
+def _check_cli_ranks(tag: str, rec: dict, nproc: int, backend: str,
+                     workdir: str, device: str) -> None:
+    """Print every rank's line of a CLI run across ranks and raise unless
+    there are ``nproc`` ranks over ``backend``, none ran ``nvcc`` or
+    imported jax, and on the card each launched K1, K3-K5, K7 and K8 and
+    not K2, and K6 launched in rank 0 (its tail and report) alone."""
+    ranks = rec.get("ranks") or []
+    must, must_not = MH_KERNELS
+    bad = [] if len(ranks) == nproc else [f"{len(ranks)} ranks"]
+    for r in ranks:
+        ln = r["launches"]
+        print(f"{tag} rank {r['rank']}/{len(ranks)} {r['backend']} on "
+              f"{r['device']}: joined the group in {r['join_s']:.3f} s, "
+              f"distributed run {r['run_s']:.3f} s"
+              + (f", tail {r['tail_s']:.3f} s" if "tail_s" in r else "")
+              + f", launches {ln}, nvcc builds {r['nvcc_builds']}")
+        if r["backend"] != backend or r["nvcc_builds"]:
+            bad.append(f"rank {r['rank']}: {r['backend']}, nvcc "
+                       f"{r['nvcc_builds']}")
+        missing = sorted(k for k in must if not ln[k])
+        k6_wrong = bool(ln["tet_quality"]) != (r["rank"] == 0)
+        if device == "cuda" and (missing or ln[must_not] or k6_wrong):
+            bad.append(f"rank {r['rank']}: kernels never launched "
+                       f"{missing}, {must_not} {ln[must_not]}, K6 "
+                       f"{ln['tet_quality']}")
+    marker = os.path.join(workdir, "nojax", "jax", "IMPORTED")
+    if os.path.exists(marker):
+        with open(marker) as fh:
+            bad.append(f"a rank imported jax:\n{fh.read()[-3000:]}")
+    if bad:
+        raise RuntimeError(f"{tag}: " + "; ".join(bad))
+
+
 def phase_dist(workdir: str, device: str = "cuda"):
     """The [dist] path: the port's CLI with ``-ndev 4 -niter 2`` on the
     [grouped] input (cube_mesh(32), 196,608 tets, the cube16 iso shock
@@ -1711,6 +1866,20 @@ def phase_dist(workdir: str, device: str = "cuda"):
         raise RuntimeError(f"[dist] -niter 1: {rec1['ntets']} tets: not "
                            f"within {NTETS_BOUND:.0%} of the JAX CLI's "
                            f"{ref1} on this input")
+    # the CLI's rank entry: the same command as 2 ranks x 2 shards on the
+    # one card (gloo), started as an external launcher starts them
+    outr2 = os.path.join(workdir, f"{stem}.dist.ranks.mesh")
+    rec2, wall2 = _cli_ranks(
+        workdir, "dist2", _cli_argv(workdir, stem, outr2, DIST_FLAGS,
+                                    device), 2,
+        _cli_env(workdir, _first_card(device).get("CUDA_VISIBLE_DEVICES")))
+    _same_outputs(out, outr2)
+    print(f"[dist] the CLI as 2 ranks x 2 shards sharing the card: "
+          f"{rec2['ntets']} tets, the bytes of the run above; pack wall "
+          f"{wall2:.3f} s (processes included), rank 0's wall "
+          f"{rec2['wall_s']:.3f} s against the one-process run's "
+          f"{wall:.3f} s")
+    _check_cli_ranks("[dist] ranks", rec2, 2, "gloo", workdir, device)
     # the distributed output: 4 rank files with their communicators
     outd = os.path.join(workdir, f"{stem}.distout.mesh")
     _, recd, walld, _, _, _ = _run_dist(workdir, outd, device,
@@ -2045,9 +2214,93 @@ def phase_multicard(workdir: str, device: str = "cuda"):
     if any(w["backend"] != want for w in exc["workers"] + exw["workers"]):
         raise RuntimeError("[multicard] a drill's resumed pack did not run "
                            f"over {want}")
+    # (e) the CLI across cards
+    phase_cli_cards(workdir, device)
     print(f"[multicard] phase {time.perf_counter() - t0:.3f} s")
     ws = ex_a["workers"]
     return {k: [w["launches"][k] for w in ws] for k in ws[0]["launches"]}
+
+
+# the CLI across cards: [dist]'s input and flags, then 8 shards (G = 2
+# a rank on four cards), then [dist]'s -distributed-output run
+CLI_CARD_RUNS = (("ndev4", DIST_FLAGS),
+                 ("ndev8", ("-ndev", "8", "-niter", "2")),
+                 ("distout", DIST_FLAGS + ("-distributed-output",)))
+
+
+def phase_cli_cards(workdir: str, device: str = "cuda"):
+    """The CLI across cards (module docstring, 6e (e)): each of
+    CLI_CARD_RUNS on [dist]'s input, started as a user starts it, once
+    with only the first card visible (P = 1: the shards stacked in one
+    process) and once with every card (P ranks, one card a rank,
+    self-launched; on the CPU, as P ranks of an external launcher over
+    gloo).  Checked: the two write the same files byte for byte; every
+    rank over NCCL on the card, with K1, K3-K5, K7 and K8 launched and K2
+    not, K6 in rank 0 alone, no ``nvcc`` and no jax; the ``-ndev 4``
+    output conforming with qmin > 0 and within 2% of the JAX CLI's tets.
+    Prints each run's walls: the command's, rank 0's CLI wall, and each
+    rank's join, distributed run and (rank 0) tail seconds.  Returns the
+    launches of each rank of the ``-ndev 4`` run: {kernel: [rank 0,
+    ...]}."""
+    from parmmg_tpu_torch.parallel.multihost import ranks_for
+    from parmmg_tpu_torch.parallel.multihost_run import visible_cards
+    cards = visible_cards() if device == "cuda" else ["0", "1", "2", "3"]
+    stem = "cube32"
+    _write_input(workdir, stem, n=32, metric_n=16)
+    want = "nccl" if device == "cuda" else "gloo"
+    for tag, flags in CLI_CARD_RUNS:
+        nproc = ranks_for(int(flags[1]), len(cards))
+        outs = {}
+        walls = {}
+        for where in ("one", "all"):
+            d = os.path.join(workdir, f"cli.{tag}.{where}")
+            shutil.rmtree(d, ignore_errors=True)
+            os.makedirs(d)
+            argv = _cli_argv(workdir, stem, os.path.join(d, "o.mesh"),
+                             flags, device)
+            if where == "one":
+                rec, wall = _cli_self(workdir, f"{tag}.one", argv,
+                                      cards[0])
+            elif device == "cuda":
+                rec, wall = _cli_self(workdir, f"{tag}.all", argv,
+                                      ",".join(cards))
+            else:
+                rec, wall = _cli_ranks(workdir, f"{tag}.all", argv, nproc,
+                                       _cli_env(workdir))
+            outs[where] = {}
+            for f in sorted(os.listdir(d)):
+                with open(os.path.join(d, f), "rb") as fh:
+                    outs[where][f] = fh.read()
+            walls[where] = (rec, wall)
+        (rec1, wall1), (recp, wallp) = walls["one"], walls["all"]
+        print(f"[multicard] cli {tag} ({' '.join(flags)}): one card "
+              f"{rec1['ntets']} tets, command wall {wall1:.3f} s (CLI wall "
+              f"{rec1['wall_s']:.3f} s); {len(cards)} cards, {nproc} ranks "
+              f"x {int(flags[1]) // nproc} shards: {recp['ntets']} tets, "
+              f"command wall {wallp:.3f} s (rank 0's CLI wall "
+              f"{recp['wall_s']:.3f} s); files {sorted(outs['all'])}")
+        if "ranks" in rec1 or outs["one"] != outs["all"] or \
+                len(outs["all"]) < 2:
+            raise RuntimeError(f"[multicard] cli {tag}: the {nproc}-rank "
+                               "files differ from the one-card run's")
+        _check_cli_ranks(f"[multicard] cli {tag}", recp, nproc, want,
+                         workdir, device)
+        if tag == "ndev4":
+            launches = {k: [r["launches"][k] for r in recp["ranks"]]
+                        for k in recp["ranks"][0]["launches"]}
+            out = os.path.join(workdir, f"cli.{tag}.all", "o.mesh")
+            mesh, _, _ = _read_output(out, device)
+            bad, qmin, qmean = _check_conforming("[multicard] cli", mesh)
+            ref = JAX_CLI_NTETS["cube32dist"]
+            print(f"[multicard] cli {tag} output re-read: "
+                  f"{int(mesh.tmask.sum())} tets "
+                  f"({recp['ntets'] / ref - 1:+.2%} of the JAX CLI's "
+                  f"{ref}), adjacency {bad}, qmin {qmin:.6f} qmean "
+                  f"{qmean:.6f}")
+            if abs(recp["ntets"] - ref) > NTETS_BOUND * ref:
+                raise RuntimeError(f"[multicard] cli {tag}: not within "
+                                   f"{NTETS_BOUND:.0%} of {ref} tets")
+    return launches
 
 
 # the [chaos] phase: the [grouped] input at chunk 8 (checks 1-4), and
@@ -3757,6 +4010,11 @@ def phase_kernels(launches, shapes, launches_ani, shapes_ani, workdir: str,
 
 def main(argv=()) -> int:
     sys.path.insert(0, HERE)
+    if list(argv) not in (["--multicard"], ["--cli-cards"]):
+        # one card, the first visible: the CLI's -ndev runs stay stacked
+        # in one process whatever the machine holds
+        vis = os.environ.get("CUDA_VISIBLE_DEVICES", "").split(",")
+        os.environ["CUDA_VISIBLE_DEVICES"] = vis[0].strip() or "0"
     try:
         import torch
     except ImportError:
@@ -3789,19 +4047,23 @@ def main(argv=()) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
-    if list(argv) == ["--multicard"]:
+    if list(argv) in (["--multicard"], ["--cli-cards"]):
         if torch.cuda.device_count() < 2:
-            print(f"chip_smoke: --multicard needs at least 2 cards, found "
+            print(f"chip_smoke: {argv[0]} needs at least 2 cards, found "
                   f"{torch.cuda.device_count()}", file=sys.stderr)
             return 2
         try:
             phase_build()
-            launches = phase_multicard(workdir)
+            if argv[0] == "--multicard":
+                launches = phase_multicard(workdir)
+            else:
+                launches = phase_cli_cards(workdir)
         except Exception:
             traceback.print_exc()
             print("chip_smoke: FAILED", file=sys.stderr)
             return 1
-        print(json.dumps({"multicard_launches": launches}))
+        print(json.dumps({f"{argv[0][2:].replace('-', '_')}_launches":
+                          launches}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))

@@ -124,7 +124,8 @@ class Info:
     # polish each group after a grouped pass's cycles (-group-polish; the
     # port's switch for the JAX package's grouped_adapt_pass(polish=))
     group_polish: bool = False
-    # devices
+    # the shards of a distributed run (-ndev): spread over the ranks of
+    # the process group, one visible card a rank, stacked at one process
     n_devices: int = 1
 
     def angedg(self) -> float:

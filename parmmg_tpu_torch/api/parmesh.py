@@ -12,7 +12,10 @@ communicators (``set_*_communicator*`` / ``get_*_communicator*``, the
 owners queries, ``print_communicator``) are staged per rank as in the JAX
 class: ``nprocs`` / ``myrank`` name the rank, and a single-process run
 checks the staged items for range and order; ``info.n_devices`` > 1 runs
-the distributed pass.
+the distributed pass, its shards spread over the ranks of the process
+group when there is one (``parallel/multihost.init_multihost``): there
+rank 0 holds the output, and every other rank ends its run after the
+merge with none.
 """
 from __future__ import annotations
 
@@ -73,6 +76,9 @@ class ParMesh:
         self._out = None
         self._out_met = None
         self._out_stats = None
+        # every rank's record of a several-process run, on rank 0
+        # (driver._leave_group); None otherwise
+        self.rank_records = None
         self._drop_out_caches()
 
     def _drop_out_caches(self) -> None:
@@ -504,9 +510,12 @@ class ParMesh:
 
     def run(self) -> int:
         """The adaptation entry; returns PMMG_SUCCESS / LOWFAILURE /
-        STRONGFAILURE."""
+        STRONGFAILURE.  On a rank other than 0 of a several-process
+        distributed run the run ends after the merge: that rank leaves
+        the group and holds no output."""
         from ..driver import parmmg_run
         from .params import InputError
+        self.rank_records = None
         try:
             out, met, stats = parmmg_run(self)
         except InputError as e:

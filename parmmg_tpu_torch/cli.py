@@ -21,15 +21,34 @@ displacing the group seams by ``-nlayers`` layers between passes; with
 ``PMTORCH_CKPT_DIR`` set, every pass is checkpointed there and
 ``-resume`` restarts a killed grouped run after its newest pass
 checkpoint, writing the bytes of an uninterrupted run.  ``-ndev N`` runs
-N shards stacked on the one device, repartitioned between ``-niter``
-passes unless ``-nobalance`` is set.  Every flag of the JAX package's CLI
-is accepted.  ``python -m parmmg_tpu_torch.api.knobs`` lists
-the ``PMTORCH_*`` environment knobs.
+N shards, repartitioned between ``-niter`` passes unless ``-nobalance``
+is set, spread over P ranks, one visible card a rank
+(``CUDA_VISIBLE_DEVICES`` honoured), G = N / P shards a rank: P is the
+largest divisor of N not above the card count (``multihost.ranks_for``),
+so one card (or ``-device cpu``) stacks the N shards in this process.
+With P > 1 this process builds the kernels, starts P copies of itself as
+the ranks of one ``torch.distributed`` group (over a file store in a
+temporary directory) and supervises them: the first rank that fails
+kills the others and sets the exit code.  Under a launcher that sets
+``WORLD_SIZE`` > 1 (``torchrun --nproc-per-node P -m
+parmmg_tpu_torch.cli ...``) the process is one of its P ranks, and P
+must divide N.  Every rank reads the same input and runs the
+distributed pass; after the merge the other ranks leave the group and
+exit 0 without printing or writing, and rank 0 alone polishes, runs the
+tail and writes what the same command writes on one card, byte for
+byte.  With ``-bench-json`` rank 0's record then carries ``ranks``: each
+rank's backend, device, seconds to join the group (``join_s``) and of
+its distributed run (``run_s``), kernel launches and ``nvcc`` builds,
+and rank 0's ``tail_s`` (from leaving the group to the report).  Every
+flag of the JAX package's CLI is accepted.  ``python -m
+parmmg_tpu_torch.api.knobs`` lists the ``PMTORCH_*`` environment knobs.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import sys
 import time
 from pathlib import Path
@@ -71,7 +90,13 @@ def build_parser() -> argparse.ArgumentParser:
     a("-nobalance", action="store_true",
       help="no load balancing (multi-device)")
     a("-ndev", type=int, default=1,
-      help="number of shards (distributed pass, all on the one device)")
+      help="number of shards of the distributed pass, spread over the "
+           "visible cards: P ranks, one card a rank, P the largest divisor "
+           "of N not above the card count (the launcher's rank count "
+           "under torchrun)")
+    a("-dist-init", dest="dist_init", metavar="url", default="",
+      help="torch.distributed init method of a rank (default env://: the "
+           "launcher's MASTER_ADDR and MASTER_PORT)")
     a("-device", default="cuda", choices=("cuda", "cpu"),
       help="torch device (default cuda)")
     a("-hmin", type=float, default=-1.0)
@@ -116,6 +141,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
     if args.val:
         from .api.params import Info
@@ -125,11 +151,97 @@ def main(argv=None) -> int:
     if not args.inp:
         print("missing -in <mesh>", file=sys.stderr)
         return 1
+    from .api import knobs
+    from .parallel.multihost import ranks_for
+    launched = int(knobs.launcher("WORLD_SIZE") or 1)
+    try:
+        nproc = ranks_for(args.ndev, _cards(args.device)
+                          if args.ndev > 1 else 1, launched)
+    except ValueError as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    if launched > 1:
+        return _rank_main(args)
+    if nproc > 1:
+        return launch_ranks(argv, nproc, args.device)
+    return _run(args, args.device)
+
+
+def _cards(device: str) -> int:
+    """The cards a run on ``device`` may spread over: the visible cards
+    for "cuda" (none without a CUDA device), none for the CPU."""
+    import torch
+    if device != "cuda" or not torch.cuda.is_available():
+        return 0
+    from .parallel.multihost_run import visible_cards
+    return len(visible_cards())
+
+
+def launch_ranks(argv, nproc: int, device: str) -> int:
+    """Run this command as ``nproc`` ranks: the kernels built here first
+    (no rank runs ``nvcc``), then ``nproc`` copies of this CLI started
+    with the launcher variables and ``-dist-init`` on a file store in a
+    temporary directory, rank 0's output on this process's, and
+    supervised by ``multihost_run.supervise`` (the first failing rank
+    kills the others).  Returns the first non-zero exit code of a rank,
+    else 0."""
+    import shutil
+    import tempfile
+    from .parallel.multihost_run import rank_env, start_ranks, supervise
+    if device == "cuda":
+        from .ops.cuda_build import build_all
+        build_all()
+    tmp = tempfile.mkdtemp(prefix="pmtorch_cli_")
+    try:
+        cmd = [sys.executable, "-m", "parmmg_tpu_torch.cli", *argv,
+               "-dist-init", f"file://{tmp}/store"]
+        rc, _ = supervise(start_ranks(
+            [cmd] * nproc, [rank_env(nproc, r) for r in range(nproc)],
+            cwd=os.getcwd()))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rc
+
+
+def _rank_main(args) -> int:
+    """One rank of a run across cards: join the group on this rank's
+    card (``multihost.init_multihost``: NCCL on a card a rank, gloo on a
+    shared card or the CPU), then the run, printing nothing but on rank
+    0.  A rank that fails while in the group exits at once with a
+    non-zero code (its peers may wait in a collective it never enters;
+    the launcher kills them)."""
+    from .parallel import multihost
+    rc = 1
+    try:
+        multihost.init_multihost(init_method=args.dist_init or None,
+                                 device=args.device)
+        peer = multihost.rank() != 0
+        with open(os.devnull, "w") as null, \
+                contextlib.redirect_stdout(null) if peer \
+                else contextlib.nullcontext():
+            rc = _run(args, str(multihost.local_device(args.device)),
+                      peer=peer)
+    except BaseException:
+        if not multihost.is_multiprocess():
+            raise
+        import traceback
+        traceback.print_exc()
+    if multihost.is_multiprocess():
+        # the run stopped before the group was left
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(rc or 1)
+    return rc
+
+
+def _run(args, device: str, peer: bool = False) -> int:
+    """The run of ``args`` on ``device``; ``peer``: a rank other than 0,
+    which ends after the merge with no report and no output."""
     from .io import medit
     from .io.distributed import load_distributed_mesh, probe_distributed
 
     t0 = time.perf_counter()
-    pm = ParMesh(device=args.device)
+    pm = ParMesh(device=device)
     inp = Path(args.inp)
     vtu_met = vtu_fields = None
     if inp.suffix == ".vtu":
@@ -260,6 +372,8 @@ def main(argv=None) -> int:
 
     ret = pm.run()
     dt = time.perf_counter() - t0
+    if peer and ret != C.PMMG_STRONGFAILURE:
+        return 0                        # rank 0 reports and writes
     if ret == C.PMMG_LOWFAILURE:
         print("adaptation INCOMPLETE (low failure): saving the last "
               "conforming mesh", file=sys.stderr)
@@ -426,6 +540,12 @@ def _report(pm, dt, as_json, verbose):
         "cycles": st.cycles,
         "wall_s": round(dt, 3),
     }
+    if pm.rank_records:
+        from .ops import kernels
+        ranks = [dict(r) for r in pm.rank_records]
+        ranks[0].update(launches=dict(kernels.LAUNCHES),
+                        tail_s=time.perf_counter() - pm._left_group_at)
+        rec["ranks"] = ranks
     if as_json:
         print(json.dumps(rec))
     elif verbose >= C.PMMG_VERB_VERSION:

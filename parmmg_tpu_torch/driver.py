@@ -5,18 +5,22 @@ either ``niter`` calls of the whole-mesh adaptation operator or, when
 loop (``parallel/groups.grouped_adapt``: group split, frozen-seam remesh,
 seam displacement, ``niter`` passes) and a polish of the merged mesh, or,
 with ``-ndev N`` (``info.n_devices`` > 1), the distributed pass
-(``parallel/dist.distributed_adapt_multi``: N shards stacked on the
-device, communicators, frozen-interface adapt blocks, the cross-shard
-analysis refresh, one merge) and the same polish; then the run tail
-(sequential repair, FEM conformity, P1 interpolation of the user fields
-from the background, quality report).  A run starts a fresh trace
-context and takes the process verbosity from ``imprim``; its stages are
-timed under the JAX driver's names, its counters published to the
-metrics registry, and at ``PMMG_VERB_STEPS`` the stage times and the
-shape ledger printed.  A run that cannot finish (a capacity overflow,
-the card's memory, a grouped dispatch whose retries ran out) restores
-the conforming input with status ``PMMG_LOWFAILURE`` (ladder rung
-``lowfailure``).  ``PMTORCH_CYCLE_BLOCK``,
+(``parallel/dist.distributed_adapt_multi``: N shards spread over the
+ranks of the process group, G = N / P a rank on its card, all N stacked
+on the device at one process; communicators, frozen-interface adapt
+blocks, the cross-shard analysis refresh, one merge on every rank) and
+the same polish; then the run tail (sequential repair, FEM conformity,
+P1 interpolation of the user fields from the background, quality
+report).  Across processes the ranks gather their records to rank 0 and
+leave the group after the merge; rank 0 alone runs the polish and the
+tail, the other ranks end their run there with no output.  A run starts
+a fresh trace context and takes the process verbosity from ``imprim``;
+its stages are timed under the JAX driver's names, its counters
+published to the metrics registry, and at ``PMMG_VERB_STEPS`` the stage
+times and the shape ledger printed.  A run that cannot finish (a
+capacity overflow, the card's memory, a grouped dispatch whose retries
+ran out) restores the conforming input with status ``PMMG_LOWFAILURE``
+(ladder rung ``lowfailure``).  ``PMTORCH_CYCLE_BLOCK``,
 ``PMTORCH_GROUP_CHUNK`` and ``PMTORCH_INCR_TOPO`` are read once here, as
 the defaults of ``adapt_mesh(cycle_block=)`` and
 ``grouped_adapt_pass(chunk=, incr=)`` (``PMTORCH_CYCLE_BLOCK`` also sets
@@ -184,6 +188,8 @@ def parmmg_run(pm) -> tuple:
     if info.n_devices > 1:
         mesh, met = _distributed_run(pm, mesh, met, stats, info, hausd, tim,
                                      adapt_kw)
+        if mesh is None:            # a rank other than 0: no tail, no output
+            return None, None, stats
         _log(C.PMMG_VERB_STEPS,
              f"  -- adaptation {time.perf_counter() - t0:.3f} s",
              info.imprim)
@@ -281,14 +287,19 @@ def _grouped_run(mesh, met, target: int, stats, info, hausd, tim,
 
 def _distributed_run(pm, mesh, met, stats, info, hausd, tim, adapt_kw):
     """The distributed branch: ``distributed_adapt_multi`` on
-    ``info.n_devices`` shards (the caller's decomposition adopted when a
-    distributed input matches the shard count), degrading to the merged
-    conforming state with status LOWFAILURE on a ShardOverflowError
-    (ladder rung ``lowfailure``); then 8 waves of ``sliver_polish`` on the
-    merged mesh.  Leaves the shard of every output tet in
+    ``info.n_devices`` shards, spread over the ranks of the process group
+    (the caller's decomposition adopted when a distributed input matches
+    the shard count), degrading to the merged conforming state with
+    status LOWFAILURE on a ShardOverflowError (ladder rung
+    ``lowfailure``; the overflow is agreed, so every rank takes it);
+    across processes every rank's record then goes to rank 0
+    (``pm.rank_records``) and the group is left (:func:`_leave_group`);
+    then, at one process and on rank 0, 8 waves of ``sliver_polish`` on
+    the merged mesh.  Leaves the shard of every output tet in
     ``pm._out_part`` (None once the polish changed the tet set).
-    Returns (mesh, met)."""
+    Returns (mesh, met), or (None, None) on a rank other than 0."""
     from .ops.adapt import sliver_polish
+    from .parallel import multihost
     from .parallel.dist import ShardOverflowError, distributed_adapt_multi
     from .resilience.recover import ladder_step
     mode = "ifc" if info.repartitioning == C.REPART_IFC_DISPLACEMENT \
@@ -301,6 +312,7 @@ def _distributed_run(pm, mesh, met, stats, info, hausd, tim, adapt_kw):
             len(in_part) != n_t0
             or int(in_part.max()) + 1 != info.n_devices):
         in_part = None
+    t_run = time.perf_counter()
     try:
         with tim("adaptation"):
             mesh, met, part = distributed_adapt_multi(
@@ -319,6 +331,9 @@ def _distributed_run(pm, mesh, met, stats, info, hausd, tim, adapt_kw):
                    "  ## Warning: shard capacity exhausted; saving the "
                    "last conforming mesh (LOWFAILURE).",
                    verbose=info.imprim, err=True)
+    if multihost.is_multiprocess() and \
+            _leave_group(pm, time.perf_counter() - t_run):
+        return None, None
     if not (info.noinsert and info.noswap and info.nomove):
         with tim("bad-element polish"):
             for w in range(8):
@@ -336,6 +351,33 @@ def _distributed_run(pm, mesh, met, stats, info, hausd, tim, adapt_kw):
                     break
     pm._out_part = part
     return mesh, met
+
+
+def _leave_group(pm, run_s: float) -> bool:
+    """The end of a several-process run's shared part, on every rank once
+    the merge is done: each rank's record (rank, backend, device, the
+    seconds to join the group and of its distributed run, its kernel
+    launches, the ``nvcc`` builds it ran) gathered to rank 0 as
+    ``pm.rank_records``, then the group left, so that no rank waits in a
+    collective a peer never enters.  Returns True on a rank other than
+    0, which ends its run here."""
+    from .ops import kernels
+    from .parallel import multihost
+    from .utils.compilecache import ledger_snapshot
+    me = multihost.rank()
+    rec = {"rank": me, "backend": multihost.backend(),
+           "device": str(pm.device),
+           "join_s": multihost.join_seconds(), "run_s": run_s,
+           "launches": dict(kernels.LAUNCHES),
+           "nvcc_builds": sorted(k for k in ledger_snapshot()
+                                 if k.startswith("nvcc."))}
+    recs = multihost.all_gather_json(rec)
+    multihost.leave()
+    pm._left_group_at = time.perf_counter()
+    pm.rank_records = multihost.mh_uniform(
+        recs if me == 0 else None, "rank 0 holds the records and the "
+        "output; the other ranks end their run after the merge")
+    return me != 0
 
 
 def _finish_run(pm, mesh, met, stats, info, bg_mesh, bg_fields, tim):

@@ -13,27 +13,33 @@ agrees idiom); only band-sized tables cross ranks on the hot path.
 
 This module holds the process layer:
 
+- :func:`ranks_for` gives the ranks P of an N-shard run: the largest
+  divisor of N not above the visible cards, or the launcher's world size,
+  which must divide N;
 - :func:`init_multihost` joins the group from torch's own launcher
   variables (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``,
-  ``LOCAL_RANK``; ``torchrun`` and the pod runner set them), with a
-  timeout, so that a desync fails instead of hanging; at one process it
-  does nothing.  The backend follows the placement
+  ``LOCAL_RANK``; ``torchrun``, the CLI's self-launch and the pod runner
+  set them), with a timeout, so that a desync fails instead of hanging;
+  at one process it does nothing.  The backend follows the placement
   (:func:`placement`, :func:`backend_for`): NCCL when every rank holds a
   card of its own, gloo for ranks on the CPU and for ranks that share a
   card (NCCL refuses two ranks on one device).  There is no knob and no
-  fallback: a failed NCCL init or collective fails the run;
+  fallback: a failed NCCL init or collective fails the run.
+  :func:`leave` tears the group down once every rank is past its last
+  collective;
 - the collectives, in one small set of helpers: :func:`all_gather_rows`
   (leading axes concatenated in rank order, every table of a call in one
   collective), :func:`all_to_all_rows` (row j of every rank's table to
   rank j: the halo exchange of ``comms.py``), :func:`all_reduce` (sum /
   max / min, of integers and flags only, so that every rank's result is
   bit for bit the same), :func:`agree` (4 bytes a rank) and
-  :func:`send_recv` (the group handoff's whole shards).  Under NCCL the
-  tensors stay on the card; under gloo a card tensor is copied to the
-  host first, counted on ``mh.staged_bytes`` (0 under NCCL).  They count
-  what they move on ``mh.collective_bytes`` and
+  :func:`send_recv` (the group handoff's whole shards), and
+  :func:`all_gather_json` (a small record of every rank, in rank
+  order).  Under NCCL the tensors stay on the card; under gloo a card
+  tensor is copied to the host first, counted on ``mh.staged_bytes`` (0
+  under NCCL).  They count what they move on ``mh.collective_bytes`` and
   ``mh.collective_bytes.<kind>`` (band, halo, packs, agree, handoff,
-  pull), inside a :func:`hot_path` section also on
+  pull, report), inside a :func:`hot_path` section also on
   ``mh.hot_collective_bytes`` (the band exchange, the halo and analysis
   packs, the migration pool and the agreements), and the host seconds
   spent inside them on ``mh.collective_s`` and
@@ -64,18 +70,19 @@ import torch
 from ..api import knobs
 
 __all__ = [
-    "agree", "all_gather_rows", "all_reduce", "all_to_all_rows", "backend",
-    "backend_for", "cold_io", "hot_path", "in_hot_path", "init_multihost",
-    "is_multiprocess", "local_device", "mh_uniform", "placement",
-    "pull_host", "rank", "require_single_process", "send_recv",
-    "world_size",
+    "agree", "all_gather_json", "all_gather_rows", "all_reduce",
+    "all_to_all_rows", "backend", "backend_for", "cold_io", "hot_path",
+    "in_hot_path", "init_multihost", "is_multiprocess", "join_seconds",
+    "leave", "local_device", "mh_uniform", "placement", "pull_host", "rank",
+    "ranks_for", "require_single_process", "send_recv", "world_size",
 ]
 
 # seconds a collective may wait for the other ranks before the group
 # fails it (a desync then raises instead of hanging)
 DEFAULT_TIMEOUT_S = 600.0
-# the joined group: its backend and this rank's device (the wire of NCCL)
-_GROUP = {"backend": None, "device": None}
+# the joined group: its backend, this rank's device (the wire of NCCL)
+# and the seconds the join took
+_GROUP = {"backend": None, "device": None, "join_s": 0.0}
 
 
 def mh_uniform(value, why: str):
@@ -86,6 +93,25 @@ def mh_uniform(value, why: str):
         raise ValueError("mh_uniform() requires a non-empty 'why' "
                          "describing the cross-rank agreement")
     return value
+
+
+def ranks_for(n_shards: int, n_cards: int,
+              launched: int | None = None) -> int:
+    """The ranks P of a run of ``n_shards`` shards, one card a rank: the
+    largest divisor of ``n_shards`` not above ``n_cards`` (1 with one
+    card or none), each rank then holding G = N / P shards.  Under a
+    launcher that started ``launched`` > 1 ranks, P is that count, and it
+    must divide ``n_shards`` (``ValueError`` otherwise)."""
+    n = max(1, int(n_shards))
+    if launched is not None and launched > 1:
+        if n % launched:
+            raise ValueError(
+                f"-ndev {n} does not split over the {launched} ranks the "
+                f"launcher started: the shard count must be a multiple of "
+                "the rank count")
+        return int(launched)
+    cap = max(1, min(n, int(n_cards)))
+    return max(d for d in range(1, cap + 1) if n % d == 0)
 
 
 def placement(device: str, world_size: int,
@@ -140,6 +166,7 @@ def init_multihost(init_method: str | None = None,
     import torch.distributed as dist
     if dist.is_initialized():
         return True
+    t0 = time.perf_counter()
     dev = torch.device(device)
     devs = placement(device, world_size, torch.cuda.device_count()
                      if dev.type == "cuda" else 0)
@@ -154,8 +181,28 @@ def init_multihost(init_method: str | None = None,
         be, init_method=init_method or "env://",
         world_size=int(world_size), rank=int(rank),
         timeout=datetime.timedelta(seconds=float(timeout_s)), **kw)
-    _GROUP.update(backend=be, device=me)
+    _GROUP.update(backend=be, device=me, join_s=time.perf_counter() - t0)
     return True
+
+
+def join_seconds() -> float:
+    """The seconds :func:`init_multihost` took to join the group (0.0
+    without one)."""
+    return _GROUP["join_s"] if is_multiprocess() else 0.0
+
+
+def leave() -> None:
+    """Leave the group: a barrier, so that no rank tears down while a
+    peer is still inside a collective, then ``destroy_process_group``;
+    the process is single-process after it.  At one process: nothing.
+    A failing rank must not call this (its peers may be parked in a
+    collective it will never enter): it exits at once instead."""
+    if not is_multiprocess():
+        return
+    import torch.distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
+    _GROUP.update(backend=None, device=None)
 
 
 def backend() -> str | None:
@@ -353,6 +400,22 @@ def agree(value: int) -> list[int]:
     (allv,) = all_gather_rows(torch.tensor([int(value)], dtype=torch.int32),
                               kind="agree", to_host=True)
     return [int(v) for v in allv.tolist()]
+
+
+def all_gather_json(obj, kind: str = "report") -> list:
+    """Every rank's JSON-serialisable ``obj``, in rank order: its length
+    agreed first, then the bytes, padded to the longest, in one
+    :func:`all_gather_rows`.  At one process: ``[obj]``."""
+    import json
+    if not is_multiprocess():
+        return [obj]
+    raw = json.dumps(obj).encode()
+    width = max(agree(len(raw)))
+    buf = torch.zeros(1, width, dtype=torch.uint8)
+    buf[0, :len(raw)] = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+    (rows,) = all_gather_rows(buf, kind=kind, to_host=True)
+    return [json.loads(bytes(r.tolist()).rstrip(b"\0").decode())
+            for r in rows]
 
 
 def send_recv(sends, recvs):

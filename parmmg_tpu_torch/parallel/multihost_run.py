@@ -51,7 +51,10 @@ seconds and its NCCL kernels' seconds from ``torch.profiler``;
 
 The parent prints one artifact line (``obs/artifact.make_artifact``,
 kind MULTIHOST).  The JAX runner's warm phase and shared compile cache
-are left out: the port compiles nothing in a rank.
+are left out: the port compiles nothing in a rank.  The spawn and the
+supervision (:func:`rank_env`, :func:`start_ranks`, :func:`supervise`)
+are shared with the CLI's self-launch (``cli.py``, ``-ndev N`` across
+cards).
 """
 from __future__ import annotations
 
@@ -141,12 +144,9 @@ def worker(cfg: dict) -> None:
     from . import multihost
     from .dist import distributed_adapt_multi
 
-    init = cfg.get("init_method")
-    t_init = time.perf_counter()
-    multihost.init_multihost(init_method=init,
+    multihost.init_multihost(init_method=cfg.get("init_method"),
                              timeout_s=cfg.get("coll_timeout", 600.0),
                              device=cfg["device"])
-    t_init = time.perf_counter() - t_init
     rank = multihost.rank()
     dev = multihost.local_device(cfg["device"])
     torch.set_num_threads(1)            # P ranks share the host's cores
@@ -179,7 +179,8 @@ def worker(cfg: dict) -> None:
     q = tet_quality(out, met_m)[tm]
     wrk = {
         "rank": rank, "processes": multihost.world_size(),
-        "backend": multihost.backend(), "init_s": t_init,
+        "backend": multihost.backend(),
+        "init_s": multihost.join_seconds(),
         "device": str(dev), "seconds": dt, "hash": mesh_hash(out, met_m),
         "ntets": int(tm.sum()), "qmin": float(q.min()),
         "qmean": float(q.mean()),
@@ -210,10 +211,7 @@ def worker(cfg: dict) -> None:
                  met=met_m.cpu().numpy(), **mesh_to_numpy(out))
     with open(cfg["sidecar"], "w") as fh:
         json.dump(wrk, fh)
-    if multihost.is_multiprocess():
-        import torch.distributed as dist
-        dist.barrier()
-        dist.destroy_process_group()
+    multihost.leave()
 
 
 # ---------------------------------------------------------------------------
@@ -233,22 +231,107 @@ def visible_cards() -> list[str]:
     return [v.strip() for v in out.splitlines() if v.strip()]
 
 
+def rank_env(np_proc: int, r: int, port: int | None = None,
+             base: dict | None = None) -> dict:
+    """The environment of rank ``r`` of ``np_proc``: ``base`` (this
+    process's environment by default) with the launcher variables
+    (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, and ``MASTER_ADDR`` /
+    ``MASTER_PORT`` for a TCP rendezvous on ``port``) and the repo root
+    first on ``PYTHONPATH``."""
+    env = dict(os.environ if base is None else base)
+    env.update({"WORLD_SIZE": str(np_proc), "RANK": str(r),
+                "LOCAL_RANK": str(r),
+                "PYTHONPATH": os.pathsep.join(
+                    [_ROOT] + [p for p in env.get(
+                        "PYTHONPATH", "").split(os.pathsep) if p])})
+    if port is not None:
+        env.update({"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)})
+    return env
+
+
+def start_ranks(cmds, envs, logs=None, cwd: str = _ROOT):
+    """Start one process a rank: ``cmds[r]`` under ``envs[r]``, its
+    stdout and stderr to the file ``logs[r]``, or this process's where
+    ``logs`` (or its entry) is None.  Returns [(Popen, open log or
+    None)], in rank order, for :func:`supervise`."""
+    procs = []
+    for r, (cmd, env) in enumerate(zip(cmds, envs)):
+        log = open(logs[r], "w") if logs and logs[r] else None
+        kw = {"stdout": log, "stderr": subprocess.STDOUT} if log else {}
+        procs.append((subprocess.Popen(cmd, env=env, cwd=cwd, **kw), log))
+    return procs
+
+
+def supervise(procs, timeout: float | None = None, lease: float = 0.0,
+              hb_dir: str | None = None, tag: str = "run"):
+    """Wait for the ranks :func:`start_ranks` started.  The first
+    non-zero exit kills the pack (a dead rank stalls its peers'
+    collectives), as does a rank that has beaten its heartbeat under
+    ``hb_dir`` and then stops for ``lease`` seconds (rc 9: a wedged rank)
+    or a pack still running after ``timeout`` seconds (rc 124).  Returns
+    (rc: the first non-zero exit code, else 0; info {"stale_heartbeat":
+    [...]} when a lease expired)."""
+    from ..resilience.watchdog import stale_ranks
+    info: dict = {}
+    rc = 0
+    deadline = None if timeout is None else time.time() + timeout
+    live = set(range(len(procs)))
+    failed = False
+    try:
+        while live and (deadline is None or time.time() < deadline):
+            for r in sorted(live):
+                code = procs[r][0].poll()
+                if code is None:
+                    continue
+                live.discard(r)
+                if code != 0:
+                    rc = rc or code
+                    failed = True
+            if not failed and lease > 0 and live:
+                stale = stale_ranks(hb_dir, lease, sorted(live))
+                if stale:
+                    # a wedged rank is a crashed rank that did not exit
+                    print(f"multihost_run: heartbeat lease expired for "
+                          f"rank(s) {stale} ({tag}); killing the pack",
+                          file=sys.stderr)
+                    info["stale_heartbeat"] = stale
+                    rc = rc or 9
+                    failed = True
+            if failed and live:
+                for r in sorted(live):
+                    procs[r][0].kill()
+            if live:
+                time.sleep(0.1)
+        for r in sorted(live):
+            procs[r][0].kill()
+            print(f"multihost_run: TIMEOUT ({tag})", file=sys.stderr)
+            rc = rc or 124
+    finally:
+        # every rank is done or killed by now, unless this loop was
+        # interrupted: then the pack goes with it
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            if log is not None:
+                log.close()
+    return rc, info
+
+
 def launch(args, np_proc: int, tmpdir: str, resume: bool = False,
            fault: tuple[int, str] | None = None, tag: str = "run"):
     """One pack: spawn ``np_proc`` workers and supervise them.  Returns
     (rc, the workers' sidecars (None for a rank that wrote none), info
     {"stale_heartbeat": [...]} when a lease expired)."""
-    from ..resilience.watchdog import stale_ranks
-    procs, sidecars = [], []
-    info: dict = {}
     lease = float(args.lease or 0)
     hb_dir = os.path.join(tmpdir, f"hb.{tag}")
-    init = None
+    init = port = None
     if args.store:
         os.makedirs(args.store, exist_ok=True)
         init = f"file://{os.path.abspath(args.store)}/store.{tag}"
     else:
         port = free_port()
+    cmds, envs, logs, sidecars = [], [], [], []
     for r in range(np_proc):
         side = os.path.join(tmpdir, f"{tag}.w{r}.json")
         sidecars.append(side)
@@ -260,18 +343,11 @@ def launch(args, np_proc: int, tmpdir: str, resume: bool = False,
                "verbose": 2 if args.verbose else 0,
                "part": args.part, "dump": args.dump, "tag": tag,
                "profile": args.profile}
-        env = dict(os.environ)
+        base = dict(os.environ)
         for k in ("PMTORCH_FAULT", "PMTORCH_MH_HEARTBEAT_DIR",
                   "PMTORCH_CKPT_DIR"):
-            env.pop(k, None)
-        env.update({"WORLD_SIZE": str(np_proc), "RANK": str(r),
-                    "LOCAL_RANK": str(r),
-                    "PYTHONPATH": os.pathsep.join(
-                        [_ROOT] + [p for p in env.get(
-                            "PYTHONPATH", "").split(os.pathsep) if p])})
-        if init is None:
-            env.update({"MASTER_ADDR": "127.0.0.1",
-                        "MASTER_PORT": str(port)})
+            base.pop(k, None)
+        env = rank_env(np_proc, r, port, base)
         if args.ckpt:
             env["PMTORCH_CKPT_DIR"] = args.ckpt
         if lease > 0:
@@ -280,52 +356,16 @@ def launch(args, np_proc: int, tmpdir: str, resume: bool = False,
             env["PMTORCH_FAULT"] = fault[1]
         if args.isolate_cards and np_proc > 1:
             env["CUDA_VISIBLE_DEVICES"] = visible_cards()[r]
-        log = open(os.path.join(tmpdir, f"{tag}.w{r}.log"), "w")
-        procs.append((subprocess.Popen(
-            [sys.executable, "-m", "parmmg_tpu_torch.parallel.multihost_run",
-             "--worker", json.dumps(cfg)], env=env, cwd=_ROOT,
-            stdout=log, stderr=subprocess.STDOUT), log))
-    rc = 0
-    deadline = time.time() + args.timeout
-    live = set(range(np_proc))
-    failed = False
-    while live and time.time() < deadline:
-        for r in sorted(live):
-            code = procs[r][0].poll()
-            if code is None:
-                continue
-            live.discard(r)
-            if code != 0:
-                rc = rc or code
-                failed = True
-        if not failed and lease > 0 and live:
-            stale = stale_ranks(hb_dir, lease, sorted(live))
-            if stale:
-                # a wedged rank is a crashed rank that did not exit
-                print(f"multihost_run: heartbeat lease expired for "
-                      f"rank(s) {stale} ({tag}); killing the pack",
-                      file=sys.stderr)
-                info["stale_heartbeat"] = stale
-                rc = rc or 9
-                failed = True
-        if failed and live:
-            for r in sorted(live):
-                procs[r][0].kill()
-        time.sleep(0.1)
-    for r in sorted(live):
-        procs[r][0].kill()
-        print(f"multihost_run: TIMEOUT ({tag})", file=sys.stderr)
-        rc = rc or 124
-    for p, log in procs:
-        try:
-            p.wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            p.kill()
-            p.wait()
-        log.close()
+        cmds.append([sys.executable, "-m",
+                     "parmmg_tpu_torch.parallel.multihost_run", "--worker",
+                     json.dumps(cfg)])
+        envs.append(env)
+        logs.append(os.path.join(tmpdir, f"{tag}.w{r}.log"))
+    rc, info = supervise(start_ranks(cmds, envs, logs), timeout=args.timeout,
+                         lease=lease, hb_dir=hb_dir, tag=tag)
     if rc and args.verbose:
         for r in range(np_proc):
-            with open(os.path.join(tmpdir, f"{tag}.w{r}.log")) as fh:
+            with open(logs[r]) as fh:
                 tail = fh.read()[-3000:]
             print(f"--- {tag} rank {r} log tail ---\n{tail}",
                   file=sys.stderr)

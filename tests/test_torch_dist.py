@@ -38,6 +38,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import sys
 import threading
 from concurrent.futures import Future
 
@@ -727,6 +728,159 @@ def test_cli_distributed_output(cube_file):
                        "-niter", "1", "-out", str(d / "again.mesh")])
     assert rc == 0, err
     assert _conforming(d / "again.mesh")[0]
+
+
+# ---- the CLI across ranks ---------------------------------------------------
+
+def _files(d):
+    return {f.name: f.read_bytes() for f in sorted(d.iterdir())
+            if f.is_file()}
+
+
+@pytest.fixture(scope="module")
+def one_process_cli(cube_file):
+    """The port's CLI in this process (one torch thread), once a flag
+    set: {flags: (directory of its outputs, rc, stdout)}."""
+    runs = {}
+
+    def run(flags):
+        if flags not in runs:
+            d = cube_file / f"one{len(runs)}"
+            d.mkdir()
+            rc, out, err = _cli(["-in", str(cube_file / "cube.mesh"),
+                                 *flags, "-out", str(d / "o.mesh")])
+            assert rc == 0, err
+            runs[flags] = (d, out)
+        return runs[flags]
+    return run
+
+
+def _cli_ranks(cube_file, flags, d, nproc=2, env1=None):
+    """The port's CLI ``-device cpu`` as ``nproc`` ranks over gloo,
+    started as an external launcher starts them (``WORLD_SIZE`` / ``RANK``
+    / ``LOCAL_RANK``, ``-dist-init`` on a file store under ``d``, one
+    torch thread a rank) and supervised by the pod runner's loop (the
+    first failing rank kills the pack); ``env1`` adds to rank 1's
+    environment.  The outputs go to ``d / "out"``.  Returns (rc, each
+    rank's log)."""
+    from parmmg_tpu_torch.parallel.multihost_run import (rank_env,
+                                                         start_ranks,
+                                                         supervise)
+    (d / "out").mkdir()
+    cmd = [sys.executable, "-m", "parmmg_tpu_torch.cli", "-in",
+           str(cube_file / "cube.mesh"), *flags, "-out",
+           str(d / "out" / "o.mesh"), "-device", "cpu", "-v", "1",
+           "-dist-init", f"file://{d}/store"]
+    envs = [dict(rank_env(nproc, r), OMP_NUM_THREADS="1")
+            for r in range(nproc)]
+    envs[1].update(env1 or {})
+    logs = [str(d / f"r{r}.log") for r in range(nproc)]
+    rc, _ = supervise(start_ranks([cmd] * nproc, envs, logs), timeout=240)
+    return rc, [open(f).read() for f in logs]
+
+
+_RANK_CASES = {"ndev2": ("-ndev", "2"),
+               "ndev2_distout": ("-ndev", "2", "-distributed-output"),
+               "ndev4": ("-ndev", "4")}
+
+
+@pytest.mark.parametrize("case", sorted(_RANK_CASES))
+def test_cli_ranks_write_the_one_process_bytes(cube_file, jax_cli_two_passes,
+                                               one_process_cli, tmp_path,
+                                               case):
+    """``-ndev N -niter 2`` through the port's CLI as 2 ranks over gloo
+    (G = N / 2 shards a rank; rank 0 polishes, runs the tail and writes,
+    rank 1 leaves after the merge and prints nothing) writes the bytes of
+    the one-process CLI run of the same flags: the ``.mesh`` and ``.sol``,
+    with ``-distributed-output`` the 2 rank files.  Rank 0's record
+    carries both ranks' (gloo, no nvcc build).  At ``-ndev 2`` it is held
+    to the JAX CLI's ``-ndev 2 -niter 2`` run as that test holds the one
+    process: tets within 10%, qmean within 0.03 (ROADMAP C1)."""
+    from torch_parity import jax_cli_records
+    flags = ("-hsiz", "0.3", "-niter", "2", "-bench-json") + \
+        _RANK_CASES[case]
+    ref_dir, ref_out = one_process_cli(flags)
+    rc, logs = _cli_ranks(cube_file, flags, tmp_path)
+    assert rc == 0, logs
+    got = _files(tmp_path / "out")
+    want = _files(ref_dir)
+    assert sorted(got) == sorted(want) and len(got) >= 2
+    for name in want:
+        assert got[name] == want[name], name
+    if case == "ndev2_distout":
+        assert "o.1.mesh" in got and "o.2.mesh" not in got
+    recs = [json.loads(ln) for ln in logs[0].splitlines()
+            if ln.startswith("{")]
+    (ref,) = [json.loads(ln) for ln in ref_out.splitlines()
+              if ln.startswith("{")]
+    assert len(recs) == 1 and "{" not in logs[1] and \
+        "MESH QUALITY" not in logs[1]
+    rec = recs[0]
+    assert [r["rank"] for r in rec["ranks"]] == [0, 1]
+    assert all(r["backend"] == "gloo" and not r["nvcc_builds"]
+               for r in rec["ranks"])
+    assert "ranks" not in ref
+    for k in ("ntets", "qmin", "qmean", "nsplit", "ncollapse", "nswap",
+              "cycles"):
+        assert rec[k] == ref[k], k
+    if case == "ndev2":
+        (jrec,) = jax_cli_records(jax_cli_two_passes)
+        assert abs(rec["ntets"] - jrec["ntets"]) <= 0.1 * jrec["ntets"]
+        assert abs(rec["qmean"] - jrec["qmean"]) <= 0.03, (rec, jrec)
+
+
+def test_cli_self_launch_writes_the_one_process_bytes(cube_file,
+                                                      one_process_cli,
+                                                      tmp_path, capfd,
+                                                      monkeypatch):
+    """``cli.launch_ranks``, the self-launch that ``-ndev N`` takes with
+    several visible cards, run here with ``-device cpu`` at 2 ranks:
+    the CLI started twice as the ranks of one gloo group over a file
+    store of its own, rank 0's output on this process's; ``-ndev 4``
+    (G = 2) writes the one-process bytes and returns 0."""
+    from parmmg_tpu_torch import cli
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    flags = ("-hsiz", "0.3", "-niter", "2", "-ndev", "4", "-bench-json")
+    ref_dir, _ = one_process_cli(flags)
+    (tmp_path / "out").mkdir()
+    argv = ["-in", str(cube_file / "cube.mesh"), *flags, "-out",
+            str(tmp_path / "out" / "o.mesh"), "-device", "cpu", "-v", "1"]
+    capfd.readouterr()
+    assert cli.launch_ranks(argv, 2, "cpu") == 0
+    out = capfd.readouterr().out
+    (rec,) = [json.loads(ln) for ln in out.splitlines()
+              if ln.startswith("{")]
+    assert [r["rank"] for r in rec["ranks"]] == [0, 1]
+    assert _files(tmp_path / "out") == _files(ref_dir)
+
+
+@pytest.mark.parametrize("n,cards,want", [(4, 1, 1), (4, 4, 4), (8, 4, 4),
+                                          (6, 4, 3), (4, 3, 2), (1, 4, 1),
+                                          (4, 0, 1)])
+def test_ranks_for(n, cards, want):
+    """P of ``-ndev N`` on C visible cards: the largest divisor of N not
+    above C; under a launcher, its rank count, which must divide N."""
+    from parmmg_tpu_torch.parallel.multihost import ranks_for
+    assert ranks_for(n, cards) == want
+    assert ranks_for(n, cards, launched=1) == want
+    assert ranks_for(8, 1, launched=4) == 4
+    with pytest.raises(ValueError, match="does not split"):
+        ranks_for(4, 4, launched=3)
+    with pytest.raises(ValueError, match="does not split"):
+        ranks_for(1, 1, launched=2)
+
+
+def test_cli_rank_fault_fails_the_run(cube_file, tmp_path):
+    """Rank 1 armed with the multihost crash drill's fault (it fails at
+    its pass-1 extend exchange, no retry): the run exits non-zero and
+    writes nothing."""
+    rc, logs = _cli_ranks(
+        cube_file, ("-hsiz", "0.3", "-ndev", "2", "-niter", "2"), tmp_path,
+        env1={"PMTORCH_FAULT": "multihost.exchange:key=extend;nth-2",
+              "PMTORCH_RETRY_MAX": "0"})
+    assert rc != 0
+    assert "multihost.exchange" in logs[1]
+    assert not list((tmp_path / "out").iterdir())
 
 
 def test_stacked_writer_with_comms_matches_jax(tmp_path):

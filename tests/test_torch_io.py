@@ -275,9 +275,11 @@ def test_cli_field_file_distributed_output_and_input(tmp_path):
 
 def test_cli_accepts_every_single_device_flag():
     """Every flag of the JAX CLI parses in the port's, with the same
-    destinations and defaults; only -device and -group-polish (the
+    destinations and defaults; only -device, -group-polish (the
     JAX package's grouped_adapt_pass(polish=), which its CLI has no flag
-    for) are the port's own."""
+    for) and -dist-init (a rank's rendezvous when ``-ndev N`` runs across
+    cards, the JAX CLI's N devices being one process) are the port's
+    own."""
     import parmmg_tpu.cli as jcli
     from parmmg_tpu_torch import cli as tcli
 
@@ -285,7 +287,7 @@ def test_cli_accepts_every_single_device_flag():
         return {o: (a.dest, a.default) for a in parser._actions
                 for o in a.option_strings}
     j, t = opts(jcli.build_parser()), opts(tcli.build_parser())
-    assert set(t) - set(j) == {"-device", "-group-polish"}
+    assert set(t) - set(j) == {"-device", "-group-polish", "-dist-init"}
     assert set(j) - set(t) == set()
     for o in j:
         assert j[o] == t[o], o
