@@ -26,8 +26,10 @@ arguments:
 Phases (any failure exits non-zero without the final result line):
 
 1. build   - compile every CUDA kernel of ``parmmg_tpu_torch/csrc`` (one
-             ``nvcc`` per source, in parallel); print the card's name and
-             power limit as nvidia-smi reports them.
+             ``nvcc`` per source, in parallel) and, beside them, meshkit
+             (``parmmg_tpu_torch/native/meshkit.cpp``) with ``g++`` into
+             ``build/libmeshkit.so``; print both walls and the card's name
+             and power limit as nvidia-smi reports them.
 2. main    - the port's CLI remesh (``parmmg_tpu_torch.cli.main``) of the
              structured cube_mesh(16) (24,576 tets) under the planar "shock"
              iso metric h = 1.5/16 * (0.2 + 4 |x - 0.5|), one iteration, on
@@ -118,6 +120,17 @@ Phases (any failure exits non-zero without the final result line):
              pipeline segment seconds, host reads a group-cycle, the band
              merges, their widths and the kernels' shapes there, and each
              run's wall.
+6a. native - meshkit on the host: the [grouped] input (``cube32.mesh``,
+             196,608 tets, the largest Medit file of the run that holds
+             only Vertices, Tetrahedra and Triangles: the outputs hold
+             Edges, Corners and Ridges too, which take the tokenizer in
+             both packages) read through the library
+             (``io/medit.read_mesh``, as the CLI reads it) and through the
+             Python tokenizer, which must give equal arrays, and
+             ``greedy_partition`` of it at 4 parts through the library and
+             through the numpy BFS; prints each host wall, each
+             partition's imbalance and the card's name and power limit
+             beside them.
 6c. dist   - the distributed path (``parallel/dist.py``, ``comms.py``,
              ``analysis_dev.py``, ``migrate.py``, ``migrate_dev.py``): the
              CLI with ``-ndev 4 -niter 2`` (the reference CI's) on the
@@ -498,10 +511,24 @@ def _bound(nbytes: float, nops: float):
 
 
 def phase_build():
+    import threading
+    from parmmg_tpu_torch import native
     from parmmg_tpu_torch.ops import cuda_build
+    gxx = {}
+
+    def build_native():
+        try:
+            gxx["s"] = native.build()
+        except Exception as e:      # re-raised below, after nvcc
+            gxx["err"] = e
+    th = threading.Thread(target=build_native)
+    th.start()
     secs = cuda_build.build_all(verbose=True)
+    th.join()
+    if "err" in gxx:
+        raise gxx["err"]
     print(f"[build] nvcc wall {secs:.2f} s for {len(cuda_build.SOURCES)} "
-          "sources")
+          f"sources; g++ meshkit {gxx['s']:.2f} s -> {native.SO.name}")
     print(_card_line())
 
 
@@ -1403,6 +1430,62 @@ def phase_grouped(workdir: str, device: str = "cuda"):
         raise RuntimeError(f"[grouped] topo_incr's calls {tap.calls} did "
                            f"not all launch their kernel {tap.launched}")
     return launches, samples, shapes
+
+
+def phase_native(workdir: str) -> dict:
+    """meshkit on the host: [grouped]'s input read through the library and
+    the tokenizer (equal arrays required), then ``greedy_partition`` of it
+    at 4 parts through the library and the numpy BFS.  Returns the walls."""
+    import numpy as np
+    from pathlib import Path
+    from parmmg_tpu_torch import native
+    from parmmg_tpu_torch.io import medit
+    from parmmg_tpu_torch.parallel import partition as P
+    path = Path(workdir) / "cube32.mesh"
+    calls = []
+    real = native.scan_medit
+
+    def spy(data):
+        got = real(data)
+        calls.append(got is not None)
+        return got
+    native.scan_medit = spy
+    try:
+        t0 = time.perf_counter()
+        lib = medit.read_mesh(path)
+        t_lib = time.perf_counter() - t0
+    finally:
+        native.scan_medit = real
+    t0 = time.perf_counter()
+    tok = medit._read_mesh_ascii(path)
+    t_tok = time.perf_counter() - t0
+    fields = ("vert", "vref", "tetra", "tref", "tria", "triaref")
+    diff = [f for f in fields
+            if getattr(lib, f).dtype != getattr(tok, f).dtype
+            or not np.array_equal(getattr(lib, f), getattr(tok, f))]
+    if calls != [True] or diff:
+        raise RuntimeError(f"[native] read_mesh's library scans (read the "
+                           f"file?) {calls}; arrays differing from the "
+                           f"tokenizer's: {diff}")
+    tet = lib.tetra
+    cent = lib.vert[tet].mean(axis=1)
+    t0 = time.perf_counter()
+    p_lib = P.greedy_partition(tet, cent, 4)
+    t_plib = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p_np = P.greedy_partition_numpy(tet, cent, 4)
+    t_pnp = time.perf_counter() - t0
+    i_lib = P.partition_metrics(tet, p_lib, 4)["imbalance"]
+    i_np = P.partition_metrics(tet, p_np, 4)["imbalance"]
+    card = _card_line()
+    print(f"[native] {path.name} ({path.stat().st_size} bytes, {len(tet)} "
+          f"tets, {len(lib.tria)} triangles): read through meshkit "
+          f"{t_lib:.4f} s, the tokenizer {t_tok:.4f} s, arrays equal; "
+          f"greedy_partition at 4 parts: meshkit {t_plib:.4f} s (imbalance "
+          f"{i_lib:.6f}), numpy BFS {t_pnp:.4f} s (imbalance {i_np:.6f}); "
+          f"host walls, on the machine of {card}")
+    return {"read_lib_s": t_lib, "read_tok_s": t_tok,
+            "partition_lib_s": t_plib, "partition_numpy_s": t_pnp}
 
 
 # the [dist] phase: the [grouped] input through the distributed path, four
@@ -4103,6 +4186,7 @@ def main(argv=()) -> int:
         launches_field = timed("field", phase_field, workdir)
         launches_grouped, band_samples, band_shapes = timed(
             "grouped", phase_grouped, workdir)
+        timed("native", phase_native, workdir)
         launches_dist = timed("dist", phase_dist, workdir)
         launches_mh = timed("multihost", phase_multihost, workdir)
         launches_chaos = timed(

@@ -198,4 +198,5 @@ def knob_table_md() -> str:
 
 
 if __name__ == "__main__":
+    # lint: ok(R3) — the table dump is this module's stdout contract
     print(knob_table_md())

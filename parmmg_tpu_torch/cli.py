@@ -146,6 +146,7 @@ def main(argv=None) -> int:
     if args.val:
         from .api.params import Info
         for f, v in sorted(vars(Info()).items()):
+            # lint: ok(R3) — -val's parameter dump is its stdout contract
             print(f"  {f:24s} {v}")
         return 0
     if not args.inp:
@@ -178,8 +179,8 @@ def _cards(device: str) -> int:
 
 
 def launch_ranks(argv, nproc: int, device: str) -> int:
-    """Run this command as ``nproc`` ranks: the kernels built here first
-    (no rank runs ``nvcc``), then ``nproc`` copies of this CLI started
+    """Run this command as ``nproc`` ranks: the kernels and meshkit built
+    here first (no rank runs ``nvcc`` or ``g++``), then ``nproc`` copies of this CLI started
     with the launcher variables and ``-dist-init`` on a file store in a
     temporary directory, rank 0's output on this process's, and
     supervised by ``multihost_run.supervise`` (the first failing rank
@@ -187,7 +188,10 @@ def launch_ranks(argv, nproc: int, device: str) -> int:
     else 0."""
     import shutil
     import tempfile
+    from . import native
     from .parallel.multihost_run import rank_env, start_ranks, supervise
+    if native.available():
+        native.build()
     if device == "cuda":
         from .ops.cuda_build import build_all
         build_all()
@@ -547,6 +551,7 @@ def _report(pm, dt, as_json, verbose):
                         tail_s=time.perf_counter() - pm._left_group_at)
         rec["ranks"] = ranks
     if as_json:
+        # lint: ok(R3) — -bench-json's record is machine-read from stdout
         print(json.dumps(rec))
     elif verbose >= C.PMMG_VERB_VERSION:
         print(f"  #tets {rec['ntets']}  quality min {rec['qmin']:.4f} mean "

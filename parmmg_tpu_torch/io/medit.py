@@ -1,7 +1,9 @@
-"""Medit .mesh/.meshb and .sol/.solb reader/writer (pure Python).
+"""Medit .mesh/.meshb and .sol/.solb reader/writer.
 
-The port's own copy of ``parmmg_tpu/io/medit.py`` without the optional
-native scanner: ASCII files always take the Python tokenizer.
+The port's own copy of ``parmmg_tpu/io/medit.py``.  An ASCII file with
+only Vertices, Tetrahedra and Triangles goes through meshkit's scanner
+(``native.scan_medit``, built with g++) where a compiler exists; other
+files, and every file where none does, take the Python tokenizer.
 
 Covers the format surface the reference handles through Mmg's I/O plus the
 ParMmg distributed extensions (ParMmg src/inout_pmmg.c):
@@ -11,8 +13,7 @@ ParMmg distributed extensions (ParMmg src/inout_pmmg.c):
 - ``.sol``/``.solb`` metric & field files (scalar / vector / sym tensor);
 - the distributed extensions ``ParallelTriangleCommunicators`` /
   ``ParallelVertexCommunicators`` and rank-decorated filenames
-  ``name.<rank>.mesh`` (inout_pmmg.c:74-486) live in the JAX package's
-  io/distributed.py and are not yet ported.
+  ``name.<rank>.mesh`` (inout_pmmg.c:74-486) live in ``io/distributed.py``.
 """
 from __future__ import annotations
 
@@ -66,10 +67,27 @@ class MeditMesh:
         self.required_edges = np.zeros(0, np.int32)
 
 
+# sections the native scanner does not read: a file naming any of them
+# takes the Python tokenizer (the JAX package's test, io/medit.py:69-82)
+_NOT_SIMPLE = (b"Edges", b"Corners", b"Required", b"Ridges", b"Parallel",
+               b"Normals")
+
+
 def read_mesh(path: str | Path) -> MeditMesh:
     path = Path(path)
     if path.suffix == ".meshb":
         return _read_meshb(path)
+    from .. import native
+    if native.available():
+        data = path.read_bytes()
+        got = None if any(k in data for k in _NOT_SIMPLE) else \
+            native.scan_medit(data)
+        if got is not None:
+            m = MeditMesh()
+            m.vert, m.vref = got["vert"], got["vref"]
+            m.tetra, m.tref = got["tet"], got["tref"]
+            m.tria, m.triaref = got["tria"], got["triaref"]
+            return m
     return _read_mesh_ascii(path)
 
 

@@ -561,6 +561,8 @@ def _refresh(stacked, comms, n_shards: int, ang: float, glo, cache=None,
     return refresh_shard_analysis(stacked, comms, n_shards, ang, glo=glo)
 
 
+# lint: ok(R7) — the final-output gather: the merged mesh is the run's
+# output, replicated once a run under cold_io
 def merge_all(stacked, met_s):
     """The merged mesh of every shard, on every rank: (mesh, met,
     part_of_merged).  Across processes the ranks' shards are gathered
@@ -770,8 +772,9 @@ def distributed_adapt_multi(mesh, met, n_shards: int, niter: int = 3,
                     apply_fresh_ids(glo, f_rows, f_gids)
                     kill_glo_rows(glo, d_rows, d_cnt)
                 else:
-                    # the metered escape hatch: the liveness masks of
-                    # every shard (counted hot across processes)
+                    # lint: ok(R7) — the budget-overflow escape hatch:
+                    # the liveness masks of every shard, metered by
+                    # pull_host (counted hot across processes)
                     vmask_h = multihost.pull_host(stacked.vmask,
                                                   what="host_extend")
                     top = extend_global_ids_from_vmask(glo, vmask_h, top)
@@ -1002,6 +1005,8 @@ def _resume_point(mesh, met, ckpt_tag, resume, n_shards, nproc, niter,
                      pl["regrow"], pl["shared_prev"])
 
 
+# lint: ok(R7) — checkpoint IO: the shards replicated under cold_io for
+# rank 0 to write, on the checkpoint cadence only
 def _save_pass(tag, it, stacked, met_s, glo, top, comms, shared_prev,
                regrow, fp):
     """Pass ``it``'s dist checkpoint: every rank takes part in the

@@ -437,8 +437,11 @@ def main(argv=None) -> int:
     extra: dict = {"processes": args.np, "shards": args.shards,
                    "n": args.n, "h": args.h, "niter": args.niter,
                    "cycles": args.cycles, "device": args.device}
+    # every rank must find every library built: build once, here
+    from .. import native
+    if native.available():
+        native.build()
     if args.device.startswith("cuda"):
-        # every rank must find every library built: build once, here
         from ..ops.cuda_build import build_all
         extra["build_s"] = build_all()
     tmpdir = tempfile.mkdtemp(prefix="pmtorch_mh_")

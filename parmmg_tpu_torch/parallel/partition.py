@@ -1,4 +1,4 @@
-"""Mesh partitioners, host numpy (the port's copy of ``parallel/partition.py``).
+"""Mesh partitioners, host side (the port's copy of ``parallel/partition.py``).
 
 Reference: ParMmg partitions with METIS (``PMMG_part_meshElts2metis``,
 metis_pmmg.c:1271) for the initial element split, with
@@ -11,7 +11,8 @@ v1 provides:
   SCOTCH renumbering, which is pointless on TPU);
 - a greedy BFS graph-growing partitioner with optional per-face weights —
   the structural slot where METIS-parity (interface-weight 1e6 and the
-  metric-aware alpha=28 weighting, metis_pmmg.c:280) plugs in;
+  metric-aware alpha=28 weighting, metis_pmmg.c:280) plugs in; meshkit's
+  C++ kernel (``native/``) where g++ exists, a numpy BFS where not;
 - contiguity correction (majority-neighbor relabel of stranded islands,
   reference moveinterfaces_pmmg.c:176-626 flavor).
 """
@@ -80,25 +81,45 @@ def build_dual_graph(tet: np.ndarray):
     return xadj, dst.astype(np.int32)
 
 
-def greedy_partition(tet: np.ndarray, centroids: np.ndarray, nparts: int,
-                     weights: np.ndarray | None = None) -> np.ndarray:
-    """BFS graph growing from spread seeds; balanced by element weight.
-
-    The JAX package runs its native C++ kernel here when it is built
-    (``native/meshkit.cpp``); the port keeps the numpy path, that
-    kernel's reference implementation.
-    """
-    n = len(tet)
-    xadj, adj = build_dual_graph(tet)
-    w = np.ones(n) if weights is None else np.asarray(weights, float)
-    target = w.sum() / nparts
-    # seeds: spread along the Morton curve
+def _greedy_seeds(centroids: np.ndarray, nparts: int) -> np.ndarray:
+    """The BFS seeds: ``nparts`` tets spread along the Morton curve."""
     c = np.asarray(centroids, np.float64)
     lo = c.min(axis=0)
     span = np.maximum(c.max(axis=0) - lo, 1e-30)
     key = _morton3((c - lo) / span * 0.999999)
     order = np.argsort(key)
-    seeds = order[np.linspace(0, n - 1, nparts).astype(int)]
+    return order[np.linspace(0, len(c) - 1, nparts).astype(int)]
+
+
+def greedy_partition(tet: np.ndarray, centroids: np.ndarray, nparts: int,
+                     weights: np.ndarray | None = None) -> np.ndarray:
+    """BFS graph growing from spread seeds; balanced by element weight.
+
+    Runs meshkit's C++ kernel (``native/meshkit.cpp``, built with g++)
+    wherever a compiler exists, as the JAX package does; a failed build
+    raises.  :func:`greedy_partition_numpy`, a different walk, is the JAX
+    package's fallback and runs only where no compiler exists.
+    """
+    from .. import native
+    if not native.available():
+        return greedy_partition_numpy(tet, centroids, nparts, weights)
+    adja = native.build_adjacency(np.asarray(tet, np.int32))
+    return native.greedy_partition(
+        adja, nparts, _greedy_seeds(centroids, nparts).astype(np.int64),
+        None if weights is None else np.asarray(weights, np.float64))
+
+
+def greedy_partition_numpy(tet: np.ndarray, centroids: np.ndarray,
+                           nparts: int,
+                           weights: np.ndarray | None = None) -> np.ndarray:
+    """The numpy BFS of :func:`greedy_partition` (the JAX package's
+    fallback): each round, every part in order of load takes one tet off
+    its queue."""
+    n = len(tet)
+    xadj, adj = build_dual_graph(tet)
+    w = np.ones(n) if weights is None else np.asarray(weights, float)
+    target = w.sum() / nparts
+    seeds = _greedy_seeds(centroids, nparts)
     part = np.full(n, -1, np.int32)
     from collections import deque
     queues = [deque([s]) for s in seeds]

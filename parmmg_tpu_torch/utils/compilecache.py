@@ -212,9 +212,10 @@ def governed(name: str, budget: int | None = None, key_fn=None):
     return deco
 
 
-def record_build(source: str, seconds: float) -> None:
-    """One ``nvcc`` build of ``csrc/<source>.cu``."""
-    LEDGER.note_build(f"nvcc.{source}", seconds)
+def record_build(source: str, seconds: float, tool: str = "nvcc") -> None:
+    """One build of a native source: ``nvcc`` of ``csrc/<source>.cu``, or
+    ``gxx`` of ``native/meshkit.cpp``."""
+    LEDGER.note_build(f"{tool}.{source}", seconds)
 
 
 def ledger_diff(old: dict, new: dict) -> list[str]:

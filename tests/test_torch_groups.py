@@ -4,8 +4,8 @@
 ``parallel/groups.py``.
 
 Exact (integer, boolean and float32 arrays bit for bit): every partition
-function on the centroids of cube_mesh(4) (``greedy_partition`` against
-the JAX package's numpy path, its native kernel off), the scheduler's
+function on the centroids of cube_mesh(4) (``greedy_partition``'s numpy
+path against the JAX package's, meshkit off in both), the scheduler's
 state machine and chunk planning on the cases of the fast tests of
 ``tests/test_group_sched.py``, the split of cube_mesh(3) into 4 groups
 under a Morton partition, its growth and its merge (the JAX functions
@@ -161,9 +161,12 @@ def eager_pass():
 
 def test_partition_functions_exact(eager_pass, monkeypatch):
     """Every partitioner and helper on cube_mesh(4) equals the JAX
-    package's (greedy_partition: its numpy path)."""
+    package's (greedy_partition: both numpy paths, meshkit off in both;
+    the library paths are held together in tests/test_torch_native.py)."""
     from parmmg_tpu import native
+    from parmmg_tpu_torch import native as TNat
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(TNat, "available", lambda: False)
     vert, tet, cent = _cube(4)
     for nparts in (2, 4, 8):
         pm = TPa.morton_partition(cent, nparts)
